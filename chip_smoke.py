@@ -3,28 +3,43 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds the selection kernels from ``src/repro_torch/csrc``, serves a domain
-end to end through ``repro_torch.launch.serve.build_server`` with
-``use_kernel=True``, and holds every kernel against its plain torch version
-on the card.  Phases, one JSON line each:
+Builds every kernel from ``src/repro_torch/csrc``, drives the port's two
+main paths through the entry points a user calls, and holds every kernel
+against its plain torch version on the card.  Phases, one JSON line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
-   build time with ptxas' register / shared-memory report.
-2. ``kernels``: each kernel against its plain version at the served
-   selector's own shapes and at seeded deployment-scale shapes, with its
-   time per call (CUDA events around back-to-back calls, so at small shapes
-   the wrapper's host overhead is part of it), the plain version's time, the least time the
-   card could take (``bound_ms``) and, for retrieval_topk,
-   ``torch.topk(q @ c.T, k)`` as a library yardstick the port never calls.
-3. ``serve``: ``handle_batch`` over the held-out queries under mixed SLOs,
-   with the launch counters set to 0 just before (after two timed warm-up
-   ``select_batch`` calls on the same batch) and read just after.  Every
-   request must be answered, retrieval_topk must have launched once per
-   selection pass, and every row must decide as the same selector's numpy
-   engine does.  ``select_batch`` runs retrieve + score as two stages, so
-   dsqe_score launches no time on the served path; after the counters are
-   read it is run once on the selector's stage state and must reproduce
-   the fused pass's scores and set ids (``dsqe_score_check_launches``).
+   build time with ptxas' registers and spills for every kernel.
+2. ``kernels``: each kernel against its plain version (the attention
+   kernels element by element in bf16, and at 1e-5 on the same inputs in
+   fp32; see ``attention_kernels``), with its time per
+   call (CUDA events around back-to-back calls, so at small shapes the
+   wrapper's host overhead is part of it), the plain version's time, the
+   least time the card could take (``bound_ms``) and one PyTorch call that
+   computes the same function as a library yardstick the port never calls:
+   ``torch.topk(q @ c.T, k)`` for retrieval_topk, and
+   ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
+   served and long prefill and decode shapes).
+3. ``serve``: online path selection.  ``handle_batch`` over the held-out
+   queries under mixed SLOs, with the launch counters set to 0 just before
+   (after two timed warm-up ``select_batch`` calls on the same batch) and
+   read just after.  Every request must be answered, retrieval_topk must
+   have launched once per selection pass, and every row must decide as the
+   same selector's numpy engine does.  ``select_batch`` runs retrieve +
+   score as two stages, so dsqe_score launches no time on the served path;
+   after the counters are read it is run once on the selector's stage state
+   and must reproduce the fused pass's scores and set ids
+   (``dsqe_score_check_launches``).
+4. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
+   bf16 with seeded random weights, served through
+   ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
+   8 prompts of 1024 tokens, then 150 greedy decode steps (the system's
+   nominal response length).  The counters are set to 0 before each and
+   read after: 24 flash_attention launches for the prefill, 24 x 150
+   decode_attention launches for the decode.  Decode logits at three steps
+   must match the full forward's last-token logits (rel < 2e-2), and no
+   logit may be NaN.
+5. ``split``: the split-inference draft's ``DraftState.attend`` through the
+   decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -34,6 +49,7 @@ the rest of the repository beside it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -43,9 +59,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Data-sheet peaks: HBM bytes/s and fp32 CUDA-core FLOP/s (no tensor cores:
-# the kernels run plain fp32 FFMA), keyed by the exact name the card reports.
-PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 66.9e12)}  # H100 SXM5
+# Data-sheet peaks (H100 SXM5), keyed by the exact name the card reports:
+# HBM bytes/s, fp32 CUDA-core FLOP/s (the selection kernels' fp32 FFMA) and
+# the bf16 dense tensor-core FLOP/s (the rate a bf16 attention could reach).
+PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 66.9e12, 989e12)}
 TIE = 1e-5  # values this close may order either way under fp32 rounding
 ATOL = 1e-5  # unit-vector similarities and vote sums of <= k such terms
 TRIALS, LOOP = 5, 20
@@ -55,7 +72,14 @@ def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def peaks(name: str) -> tuple[float, float]:
+ATTN_F32_ATOL = 1e-5  # fp32 attention: one softmax summed in another order
+REL_DECODE = 2e-2  # prefill -> decode logits, tests/test_models.py's bound
+KERNEL_NAMES = ("flash_attention_kernel", "decode_partial_kernel",
+                "decode_combine_kernel", "retrieval_topk_kernel",
+                "dsqe_score_kernel")
+
+
+def peaks(name: str) -> tuple[float, float, float]:
     if name not in PEAKS:
         raise RuntimeError(f"no data-sheet peaks for {name!r}")
     return PEAKS[name]
@@ -160,10 +184,286 @@ def deployment_tables(torch, gen, dev, B, d, K, N, P):
             slo)
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spill bytes of every kernel entry in the build log."""
+    out, entry, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            args = ["bf16"] if "bfloat16" in mangled else (
+                ["f32"] if name + "If" in mangled else [])
+            args += re.findall(r"Li(\d+)E", mangled)  # int template args
+            entry = f"{name}<{','.join(args)}>" if args else name
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append({"kernel": entry, "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            entry = None
+    return out
+
+
 def bound(bw, flops_rate, nbytes, flops):
     t_bytes, t_ops = nbytes / bw, flops / flops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
+    """Both attention kernels against their plain versions at the served
+    and long shapes of InternLM2-1.8B (H = 16, Kv = 8, hd = 128), on the same
+    bf16 inputs in bf16 and widened to fp32.  Returns the served shapes'
+    numbers per kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                          slot_visible)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    H, Kv, hd, dt = 16, 8, 128, torch.bfloat16
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
+    summary = {}
+
+    def check_bf16(out, ref, ref_abs_v, where):
+        """Element by element, |out - ref| <= 2^-7 |ref| + 2^-8 (P|v|)_i.
+        The first term covers the two roundings of the output to bf16 (one
+        bf16 ulp is at most 2^-7 of the value); the second the rounding of
+        each weight p to bf16 before the P.V product (at most 2^-9 of p, in
+        the kernel and, for decode, in the plain version too), summed with
+        the weights over |v|: ``ref_abs_v`` is the plain version on |v|.
+        Returns (max |out - ref|, max of |out - ref| / limit)."""
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        lim = 2.0 ** -7 * ref.float().abs() + 2.0 ** -8 * ref_abs_v.float()
+        ratio = float((diff / lim).max())
+        if not ratio <= 1.0:  # NaN fails too
+            raise AssertionError(f"{where}: bf16 kernel exceeds its limit by "
+                                 f"{ratio}x (max |diff| {float(diff.max())})")
+        return float(diff.max()), ratio
+
+    def check_f32(out, ref, where):
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err <= ATTN_F32_ATOL:
+            raise AssertionError(f"{where}: fp32 kernel differs from the "
+                                 f"plain version by {err}")
+        return err
+
+    for shape, B, S in (("served prefill", 8, 1024), ("long prefill", 1, 8192)):
+        q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+        where = f"flash_attention/{shape}"
+        err, ratio = check_bf16(flash_attention(q, k, v),
+                                flash_attention_ref(q, k, v),
+                                flash_attention_ref(q, k, v.abs()), where)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        err32 = check_f32(flash_attention(qf, kf, vf),
+                          flash_attention_ref(qf, kf, vf), where)
+        del qf, kf, vf
+        ms = time_ms(torch, lambda: flash_attention(q, k, v))
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
+        b_ms, b_by = bound(bw, bf16, nbytes, 2 * B * H * S * S * hd)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        log("kernels", kernel="flash_attention", shape=shape, B=B, S=S, H=H,
+            Kv=Kv, hd=hd, dtype="bf16", causal=True, bf16_limit_ratio=ratio,
+            fp32_max_abs_err=err32, **row)
+        summary.setdefault("flash_attention", row)
+        del q, k, v, qt, kt, vt
+
+    for shape, B, W, clen in (("served decode", 8, 1174, 1024 + 75),
+                              ("long decode", 32, 32768, 32768)):
+        q, kc, vc = randn(B, 1, H, hd), randn(B, W, Kv, hd), randn(B, W, Kv, hd)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        where = f"decode_attention/{shape}"
+        err, ratio = check_bf16(decode_attention(q, kc, vc, cl),
+                                decode_attention_ref(q, kc, vc, clen),
+                                decode_attention_ref(q, kc, vc.abs(), clen),
+                                where)
+        qf, kf, vf = q.float(), kc.float(), vc.float()
+        err32 = check_f32(decode_attention(qf, kf, vf, cl),
+                          decode_attention_ref(qf, kf, vf, clen), where)
+        del qf, kf, vf
+        ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cl))
+        plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, clen))
+        mask = slot_visible(W, clen, ring=False, chunk_attn=0,
+                            device=dev)[None, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        # the live part of the cache is read once, q read, out written
+        nbytes = 2 * (2 * B * H * hd + 2 * B * clen * Kv * hd)
+        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * clen * hd)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        log("kernels", kernel="decode_attention", shape=shape, B=B, W=W,
+            cache_len=clen, H=H, Kv=Kv, hd=hd, dtype="bf16",
+            bf16_limit_ratio=ratio, fp32_max_abs_err=err32, **row)
+        summary.setdefault("decode_attention", row)
+        del q, kc, vc, qt, kt, vt
+    torch.cuda.empty_cache()
+    return summary
+
+
+def model_phase(torch, dev) -> dict:
+    """InternLM2-1.8B at full width: prefill 8 x 1024 seeded tokens, then
+    150 greedy decode steps, through the serving step builders."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeSpec
+
+    B, S, OUT = 8, 1024, 150  # OUT: OUT_TOKENS, core/pipeline.py
+    cfg = get_config("internlm2-1.8b")
+    n_layers = cfg.num_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    t0 = time.perf_counter()
+    params = lm.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = ShapeSpec("served", S + OUT, B, "prefill")
+    prefill_step = build_prefill_step(cfg, shape)
+    decode_step = build_decode_step(cfg, shape)
+
+    # warm-up (one-time costs: cuBLAS handles, lazy module loads)
+    logits, cache = prefill_step(params, prompts)
+    decode_step(params, logits.argmax(-1, keepdim=True), cache,
+                torch.tensor(S + 1, dtype=torch.int32, device=dev))
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = (flash_attention.launches, decode_attention.launches)
+
+    watch = {0: None, OUT // 2 - 1: None, OUT - 1: None}
+    generated = []
+    token = logits.argmax(-1, keepdim=True)
+    cache_len = torch.tensor(S + 1, dtype=torch.int32, device=dev)
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    for t in range(OUT):
+        generated.append(token)
+        logits, cache = decode_step(params, token, cache, cache_len)
+        if t in watch:
+            watch[t] = logits.clone()
+        token = logits.argmax(-1, keepdim=True)
+        cache_len += 1  # on the device: no host sync in the loop
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = (flash_attention.launches, decode_attention.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if prefill_launches != (n_layers, 0):
+        raise AssertionError(f"prefill launched (flash, decode) = "
+                             f"{prefill_launches}, want ({n_layers}, 0)")
+    if decode_launches != (0, n_layers * OUT):
+        raise AssertionError(f"decode launched (flash, decode) = "
+                             f"{decode_launches}, want (0, {n_layers * OUT})")
+    for t, lg in watch.items():
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"decode step {t}: non-finite logits")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("last decode step: non-finite logits")
+
+    # decode step t ran the token at position S + t: the full forward over
+    # the first S + t + 1 tokens must give the same last-token logits
+    seq = torch.cat([prompts, *generated], dim=1)
+    rels = {}
+    for t, lg in watch.items():
+        hidden, _, _ = lm.forward(params, cfg, seq[:, :S + t + 1])
+        full = lm.logits_of(params, cfg, hidden)
+        rels[t] = float((full - lg).abs().max() / full.abs().max())
+        if not rels[t] < REL_DECODE:
+            raise AssertionError(f"decode step {t}: logits differ from the "
+                                 f"full forward by rel {rels[t]}")
+    busy_ms, wall_ms = decode_device_time(torch, decode_step, params, token,
+                                          cache, S + 1)
+    n_params = cfg.param_count()
+    log("model", arch=cfg.name, dtype=cfg.dtype, layers=n_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, params=n_params, batch=B, prompt_tokens=S,
+        decode_steps=OUT, capacity=S + OUT, init_s=init_s,
+        prefill_ms=1e3 * prefill_s,
+        prefill_tokens_per_s=B * S / prefill_s,
+        decode_ms_per_step=1e3 * decode_s / OUT,
+        decode_tokens_per_s=B * OUT / decode_s,
+        profiled_decode_ms_per_step=wall_ms,
+        profiled_decode_device_busy_ms_per_step=busy_ms,
+        profiled_decode_device_idle_share=(
+            None if busy_ms is None else 1.0 - busy_ms / wall_ms),
+        peak_memory_gb=peak_gb,
+        flash_attention_launches=prefill_launches[0],
+        decode_attention_launches=decode_launches[1],
+        prefill_to_decode_rel={str(t): r for t, r in rels.items()},
+        generated_head=[int(x) for x in torch.cat(generated, 1)[0, :8]])
+    del params, cache, seq
+    torch.cuda.empty_cache()
+    return {"flash_attention": prefill_launches[0],
+            "decode_attention": decode_launches[1]}
+
+
+def decode_device_time(torch, decode_step, params, token, cache, first_len,
+                       steps=5):
+    """Profile ``steps`` decode steps (writing cache slots from
+    ``first_len - 1`` on again): (device busy ms per step, or None when the
+    profiler records no device time; wall ms per step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache_len = torch.tensor(first_len, dtype=torch.int32, device=token.device)
+    decode_step(params, token, cache, cache_len)  # warm the profiler path
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            decode_step(params, token, cache, cache_len)
+            cache_len += 1
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return (busy_us / 1e3 / steps if busy_us > 0 else None), wall_ms
+
+
+def split_phase(torch) -> None:
+    """The split draft's confidence readout through the decode_attention
+    kernel against its numpy mirror."""
+    from repro_torch.core.paths import MODEL_CATALOG
+    from repro_torch.core.splitgen import DraftState
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    draft = DraftState(seed=0, qid=7, edge=MODEL_CATALOG["internlm2-1.8b"],
+                       n_chunks=5)
+    before = decode_attention.launches
+    err = 0.0
+    for t in range(5):
+        draft.append(t)
+        err = max(err, float(abs(draft.attend(use_kernel=True, device="cuda")
+                                 - draft.attend()).max()))
+    if not err <= 1e-6:
+        raise AssertionError(f"split draft: kernel readout differs by {err}")
+    log("split", steps=5, head_dim=draft.hd, max_abs_err=err,
+        decode_attention_launches=decode_attention.launches - before)
 
 
 def main() -> int:
@@ -172,7 +472,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "csrc" / "selection.cu").is_file():
+    if not (SRC / "repro_torch" / "csrc" / "attention.cu").is_file():
         print(f"chip_smoke: {SRC / 'repro_torch'} is missing: run from a "
               "checkout of the repository", file=sys.stderr)
         return 1
@@ -181,7 +481,7 @@ def main() -> int:
 
     from repro_torch.core.rps import RuntimePathSelector
     from repro_torch.core.slo import SLO
-    from repro_torch.kernels.build import selection_library
+    from repro_torch.kernels.build import kernel_library
     from repro_torch.kernels.dsqe_score.ops import dsqe_score
     from repro_torch.kernels.dsqe_score.ref import dsqe_score_ref
     from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
@@ -195,14 +495,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, fp32 = peaks(name)
-    lib = selection_library()
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+    bw, fp32, bf16 = peaks(name)
+    lib = kernel_library()
     log("device", nvidia_smi=smi, name=name, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda,
-        peaks_used={"hbm_bytes_per_s": bw, "fp32_flops_per_s": fp32},
-        kernel_build_s=round(lib.build_s, 3), ptxas=ptxas)
+        peaks_used={"hbm_bytes_per_s": bw, "fp32_flops_per_s": fp32,
+                    "bf16_tensor_flops_per_s": bf16},
+        kernel_build_s=round(lib.build_s, 3), ptxas=ptxas_report(lib.log))
     dev = torch.device("cuda")
 
     # the served selector: its tables are the main-path shapes
@@ -283,6 +582,7 @@ def main() -> int:
     summary["dsqe_score"] = run_dsqe("served", served_args, knn)
     run_dsqe("deployment", deploy, 16)
     del wide_q, wide_c, deploy
+    summary.update(attention_kernels(torch, dev, gen, bw, bf16))
 
     # -- 3. serve --------------------------------------------------------
     reqs = [Request(prompt="", qid=int(q), slo=s)
@@ -367,7 +667,15 @@ def main() -> int:
 
     server.fleet.close()
 
+    # -- 4. model --------------------------------------------------------
+    launches.update(model_phase(torch, dev))
+
+    # -- 5. split --------------------------------------------------------
+    split_phase(torch)
+    log("done", total_s=time.perf_counter() - t_start)
+
     source = "src/repro_torch/csrc/selection.cu"
+    attention = "src/repro_torch/csrc/attention.cu"
     kernels = [
         {"name": "retrieval_topk", "route": "cuda", "source": source,
          "replaces": "src/repro/kernels/retrieval_topk/kernel.py:87",
@@ -375,6 +683,14 @@ def main() -> int:
         {"name": "dsqe_score", "route": "cuda", "source": source,
          "replaces": "src/repro/kernels/dsqe_score/kernel.py:112",
          "launches": launches["dsqe_score"], **summary["dsqe_score"]},
+        {"name": "flash_attention", "route": "cuda", "source": attention,
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+         "launches": launches["flash_attention"],
+         **summary["flash_attention"]},
+        {"name": "decode_attention", "route": "cuda", "source": attention,
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:77",
+         "launches": launches["decode_attention"],
+         **summary["decode_attention"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

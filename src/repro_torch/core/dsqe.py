@@ -51,10 +51,14 @@ def projection_stage(params: dict, *, in_key: str = "emb",
 
 @dataclass
 class DSQE:
-    params: dict  # float32 tensors on ``device``
+    params: dict  # float32 tensors, all on one device
     n_sets: int
     temperature: float = 0.1
-    device: torch.device = torch.device("cpu")
+
+    @property
+    def device(self) -> torch.device:
+        """Where the params lie (so the encoder cannot mislabel it)."""
+        return self.params["protos"].device
 
     @classmethod
     def from_numpy(cls, params: dict, n_sets: int, *,
@@ -65,8 +69,7 @@ class DSQE:
         tensors = tree_map(
             lambda x: torch.tensor(np.asarray(x, np.float32), device=dev),
             params)
-        return cls(params=tensors, n_sets=n_sets, temperature=temperature,
-                   device=dev)
+        return cls(params=tensors, n_sets=n_sets, temperature=temperature)
 
     def to_numpy(self) -> dict:
         """The params as numpy float32 arrays, in the same layout."""
@@ -176,5 +179,4 @@ def train_dsqe(embeddings: np.ndarray, set_ids: np.ndarray, n_sets: int,
                               temperature)
         params, opt_state = opt.update(grads, opt_state, params, i)
     params = tree_map(lambda t: t.detach(), params)
-    return DSQE(params=params, n_sets=n_sets, temperature=temperature,
-                device=dev)
+    return DSQE(params=params, n_sets=n_sets, temperature=temperature)

@@ -6,10 +6,9 @@ confidence read out of a real incremental-attention pass over the draft's
 KV cache.  The cache lives in the exact ``(B, W, Kv, hd)`` layout
 ``repro_torch.kernels.decode_attention`` consumes, appended slot-by-slot like an
 incremental transformer-LM decode, and ``DraftState.attend`` mirrors the
-kernel oracle's masked-softmax readout (``use_kernel=True`` is meant to
-route the very same buffers through the decode-attention kernel, which is
-not ported yet, so it raises — the layout contract is load-bearing, not
-decorative).  Chunks whose confidence clears the gate are
+kernel oracle's masked-softmax readout (``use_kernel=True`` routes the very
+same buffers through the decode-attention op — the layout contract is
+load-bearing, not decorative).  Chunks whose confidence clears the gate are
 final at edge latency; low-confidence chunks escalate: the cloud LLM
 attaches once (RTT + context prefill, paid on the first escalation only)
 and verifies/continues that span at cloud quality and cloud token pricing.
@@ -35,13 +34,16 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.devices import (CLOUD_DEVICE, CLOUD_RTT_S, DeviceProfile,
                                 ModelProfile, decode_latency_s,
                                 prefill_latency_s)
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.decode_attention.ops import decode_attention
 
 CHUNK_TOKENS = 30   # draft chunk width (OUT_TOKENS=150 -> 5 chunks)
-HEAD_DIM = 16       # confidence-scorer head dim (the kernel pads to 128 lanes)
+HEAD_DIM = 16       # confidence-scorer head dim (the kernel takes multiples of 16)
 CONF_SPREAD = 0.5   # attention-readout swing around the base confidence
 
 
@@ -87,8 +89,11 @@ class DraftState:
     ``repro_torch.kernels.decode_attention`` consumes — with one slot appended per
     drafted chunk like an incremental LM decode.  ``attend`` reads the
     current query against the cache via the kernel oracle's masked-softmax
-    math (float32 numpy mirror of ``decode_attention_ref``);
-    ``use_kernel=True`` raises until the decode-attention kernel is ported.
+    math (float32 numpy mirror of ``decode_attention_ref``); pass
+    ``use_kernel=True`` to route the identical buffers through the port's
+    ``decode_attention`` op on ``device`` instead (the hand-written kernel
+    on the card, its plain version on the CPU; tests pin both against each
+    other).
     """
 
     def __init__(self, seed: int, qid: int, edge: ModelProfile,
@@ -123,11 +128,13 @@ class DraftState:
         self._q[0, 0, 0] = q
         self.cache_len = t + 1
 
-    def attend(self, use_kernel: bool = False) -> np.ndarray:
+    def attend(self, use_kernel: bool = False, device="cuda") -> np.ndarray:
         if use_kernel:
-            raise NotImplementedError(
-                "the decode_attention kernel is not ported yet "
-                "(ROADMAP.md queue 2: decode_attention)")
+            dev = resolve_device(device)
+            q, k, v = (torch.from_numpy(a).to(dev)
+                       for a in (self._q, self.k_cache, self.v_cache))
+            out = decode_attention(q, k, v, self.cache_len)
+            return out[0, 0, 0].cpu().numpy()
         # numpy mirror of kernels/decode_attention/ref.py: float32 logits at
         # 1/sqrt(hd) scale, slots >= cache_len masked, max-subtracted softmax
         W = self.k_cache.shape[1]

@@ -1,11 +1,13 @@
-"""Build and load ``repro_torch/csrc/selection.cu`` at first use.
+"""Build and load every CUDA source in ``repro_torch/csrc/`` at first use.
 
-The source has a plain C interface and is bound with ``ctypes``: one
-``nvcc`` call, a few seconds, with no PyTorch headers involved.  The shared
-library lands in ``build/repro_torch_kernels/selection-<hash>/`` at the
-repository root, keyed by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when the
-module is imported.
+The sources have a plain C interface and are bound with ``ctypes``: no
+PyTorch headers are involved, so a build takes seconds.  Each ``*.cu`` is
+compiled by its own ``nvcc -c``, all started together, and one more
+``nvcc -shared`` links the objects into one library.  It lands in
+``build/repro_torch_kernels/kernels-<hash>/`` at the repository root, keyed
+by a hash of every ``*.cu`` and ``*.cuh`` and the flags, so an edited source
+rebuilds and an unchanged tree is reused.  The library is loaded once per
+process.  Nothing is built when the module is imported.
 """
 from __future__ import annotations
 
@@ -22,19 +24,19 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("selection.cu", "topk.cuh")  # compiled, then included
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
-class SelectionLibrary(NamedTuple):
+class KernelLibrary(NamedTuple):
     lib: ctypes.CDLL
     build_s: float  # 0.0 when an earlier build was reused
-    log: str  # nvcc / ptxas output (registers, shared memory)
+    log: str  # nvcc / ptxas output of every source (registers, spills)
 
 
 _lock = threading.Lock()
-_loaded: SelectionLibrary | None = None
+_loaded: KernelLibrary | None = None
 
 
 def _nvcc() -> str:
@@ -48,52 +50,81 @@ def _nvcc() -> str:
                        "built from source at first use")
 
 
-def _build() -> SelectionLibrary:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in SOURCES:
-        digest.update(f.encode())
-        digest.update((CSRC / f).read_bytes())
-    out_dir = BUILD_ROOT / f"selection-{digest.hexdigest()[:16]}"
-    so = out_dir / "libselection.so"
+def _sources() -> tuple[list[Path], list[Path]]:
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their output, or raise on the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for cmd, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _build() -> KernelLibrary:
+    units, headers = _sources()
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for f in units + headers:
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    out_dir = BUILD_ROOT / f"kernels-{digest.hexdigest()[:16]}"
+    so = out_dir / "libkernels.so"
     log_file = out_dir / "build.log"
     build_s = 0.0
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        # build beside the target and rename: a concurrent loader sees
-        # either no library or a whole one
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[0])]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log_file.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [Path(tmp) / f"{u.stem}.o" for u in units]
+            logs = _run_all([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(u)]
+                             for u, o in zip(units, objs)])
+            # link beside the target and rename: a concurrent loader sees
+            # either no library or a whole one
+            tmp_so = Path(tmp) / "libkernels.so"
+            logs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp_so),
+                               *map(str, objs)]])
+            log_file.write_text("".join(logs))
+            os.replace(tmp_so, so)
         build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     # every pointer and the stream as c_void_p (a bare Python int would be
     # cut to 32 bits), sizes as c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.selection_smem_bytes.argtypes = [I]
-    lib.selection_smem_bytes.restype = ctypes.c_size_t
-    lib.selection_max_k.argtypes = []
-    lib.selection_max_k.restype = I
-    lib.selection_prepare.argtypes = [I]
-    lib.selection_prepare.restype = I
-    lib.retrieval_topk_launch.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.retrieval_topk_launch.restype = I
-    lib.dsqe_score_launch.argtypes = [P] * 12 + [I] * 6 + [P]
-    lib.dsqe_score_launch.restype = I
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    for name, args, res in (
+            ("selection_smem_bytes", [I], S),
+            ("selection_max_k", [], I),
+            ("selection_prepare", [I], I),
+            ("retrieval_topk_launch", [P, P, P, P, I, I, I, I, P], I),
+            ("dsqe_score_launch", [P] * 12 + [I] * 6 + [P], I),
+            ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
+            ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I)):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
     log = log_file.read_text() if log_file.exists() else ""
-    return SelectionLibrary(lib, build_s, log)
+    return KernelLibrary(lib, build_s, log)
 
 
-def selection_library() -> SelectionLibrary:
-    """``csrc/selection.cu`` (retrieval_topk, dsqe_score), built if needed
-    and loaded once per process."""
+def kernel_library() -> KernelLibrary:
+    """Every kernel in ``csrc/`` (retrieval_topk, dsqe_score,
+    flash_attention, decode_attention), built if needed and loaded once per
+    process."""
     global _loaded
     if _loaded is None:
         with _lock:

@@ -60,3 +60,28 @@ def check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+# dtype codes of the attention kernels' C interface (csrc/attention.cu)
+ATTENTION_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_attention_inputs(**tensors: torch.Tensor) -> int:
+    """Attention kernel input contract: one dtype for every tensor, fp32 or
+    bf16, contiguous and 16-byte aligned (the kernels load 16 bytes at a
+    time), head_dim (the last axis) a multiple of 16 up to 256.  Returns the
+    dtype's code."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in ATTENTION_DTYPES:
+        raise TypeError(f"attention kernels take one dtype of float32 or "
+                        f"bfloat16, got {sorted(map(str, dtypes))}")
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+        hd = t.shape[-1]
+        if hd % 16 or not 16 <= hd <= 256:
+            raise ValueError(f"{name}: head_dim must be a multiple of 16 in "
+                             f"[16, 256], got {hd}")
+    return ATTENTION_DTYPES[next(iter(dtypes))]

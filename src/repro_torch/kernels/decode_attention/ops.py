@@ -1,0 +1,59 @@
+"""Public wrapper for decode attention.
+
+Dispatch (``kernels/common.py``): CPU tensors take the plain version in
+``ref.py``; CUDA tensors launch the Hopper kernel (``kernel.py``) or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import check_attention_inputs, use_kernel
+from repro_torch.kernels.decode_attention import kernel
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *, ring: bool = False,
+                     chunk_attn: int = 0) -> torch.Tensor:
+    """One new token per sequence against its KV cache.
+
+    Shapes: q (B, 1, H, hd), caches (B, W, Kv, hd) with H a multiple of Kv;
+    query head h reads KV head ``h // (H // Kv)``.  ``cache_len`` counts the
+    tokens processed including this one: a Python int, or an int32 tensor
+    on the cache's device, which the kernel reads there (no host sync).  A
+    dense cache admits slots < cache_len; a ring (``ring=True``) the slots
+    whose absolute position is >= 0 and, with ``chunk_attn``, in the query's
+    chunk.  Returns (B, 1, H, hd) in q's dtype.  The kernel takes fp32 or
+    bf16 and head_dim a multiple of 16 up to 256.
+    ``decode_attention.launches`` counts kernel launches.
+    """
+    if not use_kernel(q, k_cache, v_cache):
+        return decode_attention_ref(q, k_cache, v_cache, cache_len, ring=ring,
+                                    chunk_attn=chunk_attn)
+    q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
+    code = check_attention_inputs(q=q, k_cache=k_cache, v_cache=v_cache)
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or \
+            v_cache.shape != k_cache.shape or \
+            k_cache.shape[0] != q.shape[0] or \
+            k_cache.shape[3] != q.shape[3] or q.shape[2] % k_cache.shape[2]:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)} do "
+                         "not fit (B, 1, H, hd), (B, W, Kv, hd) with Kv | H")
+    if isinstance(cache_len, torch.Tensor):
+        if cache_len.device != q.device or cache_len.numel() != 1:
+            raise ValueError("decode_attention: cache_len must be one value "
+                             f"on {q.device}, got {cache_len.numel()} on "
+                             f"{cache_len.device}")
+        cache_len = cache_len.reshape(1).to(torch.int32)
+    else:
+        cache_len = torch.full((1,), int(cache_len), dtype=torch.int32,
+                               device=q.device)
+    if q.numel() == 0 or k_cache.shape[1] == 0:
+        return torch.zeros_like(q)
+    out = kernel.launch(q, k_cache, v_cache, cache_len, code, ring=ring,
+                        chunk_attn=chunk_attn)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import selection_library
+from repro_torch.kernels.build import kernel_library
 from repro_torch.kernels.retrieval_topk.kernel import prepare
 
 
@@ -26,7 +26,7 @@ def launch(q, protos, train, path_weights, contains, lat, cost, prior, valid,
     scores = torch.empty((B, P), dtype=torch.float32, device=q.device)
     set_id = torch.empty((B,), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
-        err = selection_library().lib.dsqe_score_launch(
+        err = kernel_library().lib.dsqe_score_launch(
             *(t.data_ptr() for t in (q, protos, train, path_weights, contains,
                                      lat, cost, prior, valid, slo, scores,
                                      set_id)),

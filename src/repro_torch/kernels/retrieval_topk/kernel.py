@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.build import selection_library
+from repro_torch.kernels.build import kernel_library
 
 
 # device index -> widest d made ready.  The attribute set for a width also
@@ -31,7 +31,7 @@ def prepare(d: int, device: torch.device) -> None:
              else torch.cuda.current_device())
     if d <= _ready_width.get(index, 0):
         return
-    lib = selection_library().lib
+    lib = kernel_library().lib
     need = lib.selection_smem_bytes(d)
     limit = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
     if need > limit:
@@ -47,7 +47,7 @@ def prepare(d: int, device: torch.device) -> None:
 
 @functools.cache
 def max_k() -> int:
-    return selection_library().lib.selection_max_k()
+    return kernel_library().lib.selection_max_k()
 
 
 def launch(q: torch.Tensor, corpus: torch.Tensor, k: int):
@@ -59,7 +59,7 @@ def launch(q: torch.Tensor, corpus: torch.Tensor, k: int):
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     ids = torch.empty((B, k), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
-        err = selection_library().lib.retrieval_topk_launch(
+        err = kernel_library().lib.retrieval_topk_launch(
             q.data_ptr(), corpus.data_ptr(), vals.data_ptr(), ids.data_ptr(),
             B, n, d, k, torch.cuda.current_stream().cuda_stream)
     if err != 0:

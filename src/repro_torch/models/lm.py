@@ -1,0 +1,276 @@
+"""Decoder-only language model of the dense substrate, in PyTorch.
+
+The JAX package's ``models/lm.py`` for stacks of attention blocks: layer
+stacks with a repeating block pattern, train / prefill / decode execution
+modes with fixed-capacity caches, and the weight carry from the JAX
+package's parameter tree.  Parameters are a plain dict of tensors whose
+tree is the JAX one (``embed``, ``final_norm``, ``head``,
+``stack.units[i].b0.attn.wq``, ...).  With ``cfg.scan_layers`` the units
+are stacked along a leading layer axis, as the JAX package stacks them for
+``lax.scan``; the port runs a Python loop over views of that axis.  KV
+caches are updated in place.
+
+Not ported yet: encoder-decoder stacks and modality frontends (ROADMAP.md
+queue 1, items 10d-10e), the training loss (item 11).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# layer-stack structure
+# ---------------------------------------------------------------------------
+
+def _pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
+    """Returns (unit_pattern, n_units, remainder_types)."""
+    pat = cfg.block_pattern if cfg.block_pattern else ("attn",)
+    n_units = cfg.num_layers // len(pat)
+    rest = cfg.layer_types[n_units * len(pat):]
+    return pat, n_units, rest
+
+
+def _stack(trees: list):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _unit(units, i: int, stacked: bool):
+    """Unit i of a stack: a view into the stacked layer axis, or the i-th
+    entry of the per-unit list."""
+    return tree_map(lambda t: t[i], units) if stacked else units[i]
+
+
+def init_stack(gen, cfg: ModelConfig, device, cross: bool = False) -> Params:
+    if cross:
+        B.unported("encdec")
+    pat, n_units, rest = _pattern(cfg)
+    units = [{f"b{j}": B.init_block(bt, gen, cfg, device)
+              for j, bt in enumerate(pat)} for _ in range(n_units)]
+    p: Params = {"units": _stack(units) if cfg.scan_layers else units}
+    if rest:
+        p["rest"] = [B.init_block(bt, gen, cfg, device) for bt in rest]
+    return p
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, capacity: int,
+                     device) -> Params:
+    pat, n_units, rest = _pattern(cfg)
+
+    def unit_cache():
+        return {f"b{j}": B.init_block_cache(bt, cfg, batch, capacity, device)
+                for j, bt in enumerate(pat)}
+
+    if cfg.scan_layers:
+        units = tree_map(lambda t: t.new_zeros((n_units, *t.shape)),
+                         unit_cache())
+    else:
+        units = [unit_cache() for _ in range(n_units)]
+    c: Params = {"units": units}
+    if rest:
+        c["rest"] = [B.init_block_cache(bt, cfg, batch, capacity, device)
+                     for bt in rest]
+    return c
+
+
+def _apply_block(bt: str, params: Params, x, ctx: B.BlockCtx,
+                 cfg: ModelConfig, cache, encoder_out):
+    if bt != "attn":
+        B.unported(bt)
+    x, _, aux = B.apply_attn_block(params, x, ctx, cfg, cache=cache,
+                                   encoder_out=encoder_out)
+    return x, aux
+
+
+def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
+                cfg: ModelConfig, cache: Optional[Params] = None,
+                encoder_out: Optional[torch.Tensor] = None):
+    """Run the full layer stack. Returns (x, cache, aux).
+
+    Prefill and decode return the stack's cache: ``cache`` itself, updated
+    in place, or, for a prefill given none, a new one of capacity
+    ``ctx.capacity`` that each layer fills.
+    """
+    pat, n_units, rest = _pattern(cfg)
+    want_cache = ctx.mode in ("prefill", "decode")
+    if want_cache and cache is None:
+        cache = init_stack_cache(cfg, x.shape[0], ctx.capacity or x.shape[1],
+                                 x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_units):
+        unit_params = _unit(params["units"], i, cfg.scan_layers)
+        unit_cache = _unit(cache["units"], i, cfg.scan_layers) \
+            if want_cache else None
+        for j, bt in enumerate(pat):
+            c_j = None if unit_cache is None else unit_cache[f"b{j}"]
+            x, aux = _apply_block(bt, unit_params[f"b{j}"], x, ctx, cfg, c_j,
+                                  encoder_out)
+            aux_total = aux_total + aux
+    for i, bt in enumerate(rest):
+        c_i = cache["rest"][i] if want_cache else None
+        x, aux = _apply_block(bt, params["rest"][i], x, ctx, cfg, c_i,
+                              encoder_out)
+        aux_total = aux_total + aux
+    return x, (cache if want_cache else None), aux_total
+
+
+# ---------------------------------------------------------------------------
+# full decoder-only LM
+# ---------------------------------------------------------------------------
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+                device=None) -> Params:
+    """Random weights from ``gen`` on its device (or on ``device``).  With
+    ``gen=None`` the tensors are only allocated: ``count_params`` uses that
+    on the ``meta`` device."""
+    if cfg.num_encoder_layers:
+        B.unported("encdec")
+    if cfg.frontend:
+        B.unported("vlm")
+    device = device if device is not None else gen.device
+    dt = cfg.activation_dtype
+    p: Params = {
+        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
+        "stack": init_stack(gen, cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = L.dense_init(gen, cfg.d_model, (cfg.vocab_padded,), dt,
+                                 device)
+    return p
+
+
+def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def _embed_tokens(params: Params, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        # the scale rounded to the activation dtype, as the JAX package has it
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            mode: str = "train", frontend: Optional[torch.Tensor] = None,
+            cache: Optional[Params] = None, cache_len=None, capacity: int = 0,
+            encoder_out: Optional[torch.Tensor] = None):
+    """Backbone forward. Returns (hidden (B,S,D), cache, aux).
+
+    ``cache_len`` (decode): the tokens processed including this one, an int
+    or a 0-d int tensor on the model's device.
+    """
+    if frontend is not None or encoder_out is not None:
+        B.unported("vlm" if frontend is not None else "encdec")
+    Bsz, S = tokens.shape
+    if mode == "decode":
+        if isinstance(cache_len, torch.Tensor):
+            positions = (cache_len.reshape(1, 1) - 1).expand(Bsz, 1)
+        else:
+            positions = torch.full((Bsz, 1), cache_len - 1,
+                                   device=tokens.device)
+        ctx = B.BlockCtx(mode=mode, positions=positions, cache_len=cache_len,
+                         capacity=capacity)
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(Bsz, S)
+        ctx = B.BlockCtx(mode=mode, positions=positions, capacity=capacity or S)
+    x = _embed_tokens(params, cfg, tokens)
+    x, new_cache, aux = apply_stack(params["stack"], x, ctx, cfg, cache=cache)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_cache, aux
+
+
+def logits_of(params: Params, cfg: ModelConfig,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """(B, vocab_size) fp32 logits of the last position of ``hidden``: the
+    product in the activation dtype, softcapped, cut from ``vocab_padded``."""
+    logits = (hidden[:, -1] @ _lm_head(params, cfg)).float()
+    return L.softcap(logits, cfg.logit_softcap)[:, :cfg.vocab_size]
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend: Optional[torch.Tensor] = None, capacity: int = 0,
+            encoder_out: Optional[torch.Tensor] = None):
+    """Process a prompt; returns (last-token logits, cache)."""
+    hidden, cache, _ = forward(params, cfg, tokens, mode="prefill",
+                               frontend=frontend,
+                               capacity=capacity or tokens.shape[1],
+                               encoder_out=encoder_out)
+    return logits_of(params, cfg, hidden), cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params, cache_len, *, capacity: int,
+                encoder_out: Optional[torch.Tensor] = None):
+    """One decode step. ``token``: (B,1). ``cache_len``: valid entries incl.
+    this token. Returns (logits (B,V), cache), the cache updated in place."""
+    hidden, new_cache, _ = forward(params, cfg, token, mode="decode",
+                                   cache=cache, cache_len=cache_len,
+                                   capacity=capacity, encoder_out=encoder_out)
+    return logits_of(params, cfg, hidden), new_cache
+
+
+def count_params(cfg: ModelConfig) -> int:
+    params = init_params(None, cfg, device="meta")
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# weight carry from and to the JAX package's parameter tree
+# ---------------------------------------------------------------------------
+
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu", copy=True)  # never alias the live params
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only bf16 trees need it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(np_params: Params, cfg: ModelConfig, *,
+                      device="cuda") -> Params:
+    """The port's parameters from the JAX package's ``lm.init_params`` tree
+    (numpy arrays, or anything ``np.asarray`` takes), in either layout of
+    the units: stacked along a leading layer axis (``scan_layers=True``) or
+    a per-unit list.  The result has the layout ``cfg.scan_layers`` asks
+    for, bit for bit the same values."""
+    dev = resolve_device(device)
+    params = tree_map(lambda a: _to_tensor(a, dev), np_params)
+    units = params["stack"]["units"]
+    n_units = _pattern(cfg)[1]
+    if cfg.scan_layers and isinstance(units, list):
+        params["stack"]["units"] = _stack(units)
+    elif not cfg.scan_layers and isinstance(units, dict):
+        params["stack"]["units"] = [tree_map(lambda t: t[i].clone(), units)
+                                    for i in range(n_units)]
+    return params
+
+
+def params_to_numpy(params: Params) -> Params:
+    """The parameters as numpy arrays in the same tree (bf16 as
+    ``ml_dtypes.bfloat16``, as the JAX package holds it)."""
+    return tree_map(_to_numpy, params)

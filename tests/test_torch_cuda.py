@@ -213,3 +213,173 @@ def test_selector_on_the_card_decides_like_its_numpy_engine():
                                 for q, s in zip(test, slos)])
     assert len(resp) == len(test)
     server.fleet.close()
+
+
+# -- attention kernels ------------------------------------------------------
+#
+# fp32: within 1e-5 of the plain version (the same fp32 softmax, summed in
+# another order).  bf16: the same bf16 inputs feed both sides, and each
+# element must lie within 2^-7 |ref| + 2^-8 (P|v|) of the plain version.  The
+# first term covers the rounding of both outputs to bf16 (one bf16 ulp is at
+# most 2^-7 of the value); the second the rounding of each weight p to bf16
+# before the P.V product (at most 2^-9 of p, in the kernel as in the TPU
+# kernels, and in the plain decode version too), summed with the weights
+# over |v|: P|v| is the plain version run on |v|.
+_F32_ATOL = 1e-5
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                           device=dev).to(dtype)
+
+
+def _assert_attn(out, ref, ref_abs_v, dtype):
+    """``ref`` is the plain version on (q, k, v), ``ref_abs_v`` on
+    (q, k, |v|)."""
+    got, want = out.float().cpu().numpy(), ref.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=_F32_ATOL, rtol=_F32_ATOL)
+        return
+    limit = 2.0 ** -7 * np.abs(want) + 2.0 ** -8 * ref_abs_v.float().cpu().numpy()
+    over = ~(np.abs(got - want) <= limit)  # NaN fails too
+    assert not over.any(), f"{int(over.sum())} elements exceed the bf16 limit"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kv,hd,causal,window,chunk", [
+    (2, 100, 100, 4, 4, 16, True, 0, 0),      # ragged Sq, G = 1
+    (1, 257, 257, 16, 8, 128, True, 0, 0),    # the served widths, G = 2
+    (2, 130, 130, 8, 2, 64, True, 48, 0),     # sliding window, G = 4
+    (1, 200, 200, 4, 1, 32, True, 0, 64),     # chunked, MQA
+    (2, 33, 190, 4, 2, 256, False, 0, 0),     # non-causal, Sq != Skv, hd 256
+    (1, 64, 64, 2, 2, 48, True, 0, 0),        # hd 48: not a power of two
+])
+def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
+                                              window, chunk, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(Sq + hd)
+    q = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    k = _randn(rng, (B, Skv, Kv, hd), dtype, dev)
+    v = _randn(rng, (B, Skv, Kv, hd), dtype, dev)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          chunk_attn=chunk)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    masks = dict(causal=causal, window=window, chunk_attn=chunk)
+    _assert_attn(out, flash_attention_ref(q, k, v, **masks),
+                 flash_attention_ref(q, k, v.abs(), **masks), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Kv,hd,W,ring,chunk,clen", [
+    (2, 8, 4, 128, 512, False, 0, 300),
+    (8, 16, 8, 128, 1174, False, 0, 1099),  # the served decode shape
+    (1, 4, 1, 128, 256, True, 0, 700),      # MQA ring wrap
+    (2, 8, 8, 64, 256, True, 128, 900),     # chunked attention ring
+    (1, 1, 1, 16, 5, False, 0, 3),          # the split draft's shape
+    (3, 4, 2, 16, 100, True, 0, 60),        # ring not yet wrapped
+    (2, 32, 8, 256, 70, False, 0, 70),      # full cache, hd 256, G = 4
+])
+def test_decode_attention_kernel_matches_plain(B, H, Kv, hd, W, ring, chunk,
+                                               clen, dtype):
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(W + clen)
+    q = _randn(rng, (B, 1, H, hd), dtype, dev)
+    kc = _randn(rng, (B, W, Kv, hd), dtype, dev)
+    vc = _randn(rng, (B, W, Kv, hd), dtype, dev)
+    ref = decode_attention_ref(q, kc, vc, clen, ring=ring, chunk_attn=chunk)
+    ref_abs_v = decode_attention_ref(q, kc, vc.abs(), clen, ring=ring,
+                                     chunk_attn=chunk)
+    before = decode_attention.launches
+    for cache_len in (clen, torch.tensor(clen, dtype=torch.int32, device=dev)):
+        out = decode_attention(q, kc, vc, cache_len, ring=ring,
+                               chunk_attn=chunk)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        _assert_attn(out, ref, ref_abs_v, dtype)
+    assert decode_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_reads_no_slot_past_cache_len():
+    """A dense cache's slots at or past cache_len hold NaN: the kernel must
+    not read them (a NaN times a zero weight would still be NaN)."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (2, 1, 8, 128), torch.bfloat16, dev)
+    kc = _randn(rng, (2, 600, 4, 128), torch.bfloat16, dev)
+    vc = _randn(rng, (2, 600, 4, 128), torch.bfloat16, dev)
+    clean_k, clean_v = kc.clone(), vc.clone()
+    kc[:, 377:] = float("nan")
+    vc[:, 377:] = float("nan")
+    out = decode_attention(q, kc, vc, 377)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _assert_attn(out, decode_attention_ref(q, clean_k, clean_v, 377),
+                 decode_attention_ref(q, clean_k, clean_v.abs(), 377),
+                 torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_cannot_take():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    dev = _cuda()
+    q = torch.zeros((1, 8, 2, 40), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="Kv"):
+        flash_attention(q, torch.zeros((1, 8, 3, 32), device=dev),
+                        torch.zeros((1, 8, 3, 32), device=dev))
+    with pytest.raises(ValueError, match="cache_len"):
+        decode_attention(q[:, :1], q, q, torch.tensor(3))
+
+
+@pytest.mark.cuda
+def test_model_prefill_then_decode_on_the_card():
+    """A reduced dense model in fp32 on the card (both attention kernels):
+    logits agree with the same model on the CPU (plain versions) within
+    rel 1e-4, and decode after prefill agrees with the full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    dev = _cuda()
+    cfg = get_config("internlm2-1.8b").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    params_dev = lm.params_from_numpy(lm.params_to_numpy(params), cfg,
+                                      device="cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+    rel = lambda a, b: float((a.cpu() - b.cpu()).abs().max()
+                             / b.cpu().abs().max())
+    got = {}
+    for p, d in ((params, "cpu"), (params_dev, dev)):
+        t = toks.to(d)
+        logits, cache = lm.prefill(p, cfg, t[:, :-1], capacity=48)
+        step, _ = lm.decode_step(p, cfg, t[:, -1:], cache,
+                                 torch.tensor(40, dtype=torch.int32, device=d),
+                                 capacity=48)
+        hidden, _, _ = lm.forward(p, cfg, t)
+        got[str(d)] = (logits, step, lm.logits_of(p, cfg, hidden))
+    for a, b in zip(got[str(dev)], got["cpu"]):
+        assert rel(a, b) < 1e-4
+    assert rel(got[str(dev)][1], got[str(dev)][2]) < 2e-2

@@ -52,6 +52,17 @@ def test_from_numpy_to_numpy_round_trip_is_exact(carried):
         np.testing.assert_array_equal(a["b"], b["b"])
 
 
+def test_device_is_where_the_params_lie(carried):
+    """A directly built DSQE reports its params' device, not a default."""
+    _, enc, e, _ = carried
+    direct = DSQE(params=enc.params, n_sets=K)
+    assert direct.device == torch.device("cpu") == enc.device
+    meta = DSQE(params={"layers": [], "protos": enc.params["protos"].to(
+        "meta")}, n_sets=K)
+    assert meta.device == torch.device("meta")
+    assert direct.project(e).device == direct.device
+
+
 def test_project_and_prototype_sims_match_jax(carried):
     params, enc, e, _ = carried
     z = enc.project(e)

@@ -19,7 +19,14 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.core.rps" in mods and "repro_torch.launch.serve" in mods
+    for m in ("repro_torch.core.rps", "repro_torch.launch.serve",
+              "repro_torch.launch.steps", "repro_torch.models.lm",
+              "repro_torch.models.blocks", "repro_torch.models.layers",
+              "repro_torch.models.config", "repro_torch.configs",
+              "repro_torch.configs.internlm2_1_8b",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.decode_attention.kernel"):
+        assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -86,11 +86,30 @@ def test_unported_flags_raise(flag):
 
 def test_unported_branches_raise():
     from repro_torch.core.paths import with_placements
-    from repro_torch.core.splitgen import DraftState
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PathSpace(spec=with_placements())
-    with pytest.raises(NotImplementedError, match="decode_attention"):
-        DraftState.__new__(DraftState).attend(use_kernel=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         EcoLLMServer.enable_adaptation(None)
+
+
+def test_draft_attend_through_decode_attention():
+    """``attend(use_kernel=True)`` runs the draft's buffers through the
+    port's decode_attention op (its plain version on the CPU): equal to the
+    numpy readout and to JAX's decode_attention_ref, at every draft step."""
+    import jax.numpy as jnp
+
+    from repro.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.core.paths import MODEL_CATALOG
+    from repro_torch.core.splitgen import DraftState
+
+    draft = DraftState(seed=3, qid=11, edge=MODEL_CATALOG["internlm2-1.8b"],
+                       n_chunks=5)
+    for t in range(5):
+        draft.append(t)
+        got = draft.attend(use_kernel=True, device="cpu")
+        want = np.asarray(decode_attention_ref(
+            jnp.asarray(draft._q), jnp.asarray(draft.k_cache),
+            jnp.asarray(draft.v_cache), jnp.int32(draft.cache_len)))[0, 0, 0]
+        np.testing.assert_allclose(got, draft.attend(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
