@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Builds every kernel from ``src/repro_torch/csrc``, drives the port's two
-main paths through the entry points a user calls, and holds every kernel
-against its plain torch version on the card.  Phases, one JSON line each:
+Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
+paths (online path selection and three served language models) through the
+entry points a user calls, and holds every kernel against its plain torch
+version on the card.  Phases, one JSON line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
    build time with ptxas' registers and spills for every kernel.
 2. ``kernels``: each kernel against its plain version (the attention
    kernels element by element in bf16, and at 1e-5 on the same inputs in
-   fp32; see ``attention_kernels``), with its time per
-   call (CUDA events around back-to-back calls, so at small shapes the
-   wrapper's host overhead is part of it), the plain version's time, the
-   least time the card could take (``bound_ms``) and one PyTorch call that
-   computes the same function as a library yardstick the port never calls:
-   ``torch.topk(q @ c.T, k)`` for retrieval_topk, and
+   fp32; see ``attention_kernels``, ``gmm_kernels`` and ``scan_kernels``),
+   with its time per call (CUDA events around back-to-back calls, so at
+   small shapes the wrapper's host overhead is part of it), the plain
+   version's time, the least time the card could take (``bound_ms``) and
+   one PyTorch call that computes the same function as a library yardstick
+   the port never calls: ``torch.topk(q @ c.T, k)`` for retrieval_topk,
    ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
-   served and long prefill and decode shapes).
+   served and long prefill and decode shapes) and ``torch.bmm`` for
+   moe_gmm (at the Llama-4-Scout prefill and decode shapes); rglru_scan has
+   no such call.  The MoE and hybrid models' attention shapes are checked
+   too.
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
@@ -38,7 +42,14 @@ against its plain torch version on the card.  Phases, one JSON line each:
    decode_attention launches for the decode.  Decode logits at three steps
    must match the full forward's last-token logits (rel < 2e-2), and no
    logit may be NaN.
-5. ``split``: the split-inference draft's ``DraftState.attend`` through the
+5. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
+   with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
+   launch counts, the share of assignments dropped by capacity, and
+   prefill -> decode on a dropless twin.
+6. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
+   (``hybrid_phase``): exact rglru_scan / flash / decode launch counts and
+   prefill -> decode through a wrapped ring.
+7. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and
@@ -48,7 +59,9 @@ the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -73,10 +86,16 @@ def log(phase: str, **fields) -> None:
 
 
 ATTN_F32_ATOL = 1e-5  # fp32 attention: one softmax summed in another order
+# fp32 moe_gmm and rglru_scan: max |out - ref| over max |ref|
+# (tests/test_kernels.py's moe_gmm bound; the scan runs the same recurrence)
+F32_REL = 1e-5
 REL_DECODE = 2e-2  # prefill -> decode logits, tests/test_models.py's bound
+OUT_TOKENS = 150  # decode steps of every served model (core/pipeline.py)
+SCOUT_LAYERS = 12  # of 48: 12 x 4.4 GB of bf16 layers + 4.1 GB embed and head
+TWIN_LAYERS = 2  # the Scout fp32 twin: 2 x 8.8 GB + 8.3 GB embed and head
 KERNEL_NAMES = ("flash_attention_kernel", "decode_partial_kernel",
                 "decode_combine_kernel", "retrieval_topk_kernel",
-                "dsqe_score_kernel")
+                "dsqe_score_kernel", "moe_gmm_kernel", "rglru_scan_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -85,22 +104,23 @@ def peaks(name: str) -> tuple[float, float, float]:
     return PEAKS[name]
 
 
-def time_ms(torch, fn) -> float:
-    """Per-call time: CUDA events around LOOP back-to-back calls, divided
-    by LOOP; the median of TRIALS such loops, after warmup."""
+def time_ms(torch, fn, trials: int = TRIALS, loop: int = LOOP) -> float:
+    """Per-call time: CUDA events around ``loop`` back-to-back calls,
+    divided by ``loop``; the median of ``trials`` such loops, after warmup.
+    Calls of tens of ms take fewer loops."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TRIALS):
+    for _ in range(trials):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(LOOP):
+        for _ in range(loop):
             fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / LOOP)
+        times.append(a.elapsed_time(b) / loop)
     return statistics.median(times)
 
 
@@ -284,7 +304,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
 
     for shape, B, W, clen in (("served decode", 8, 1174, 1024 + 75),
                               ("long decode", 32, 32768, 32768)):
-        q, kc, vc = randn(B, 1, H, hd), randn(B, W, Kv, hd), randn(B, W, Kv, hd)
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, W, Kv, hd), randn(B, W, Kv, hd)
         cl = torch.tensor(clen, dtype=torch.int32, device=dev)
         where = f"decode_attention/{shape}"
         err, ratio = check_bf16(decode_attention(q, kc, vc, cl),
@@ -312,8 +333,283 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
             bf16_limit_ratio=ratio, fp32_max_abs_err=err32, **row)
         summary.setdefault("decode_attention", row)
         del q, kc, vc, qt, kt, vt
+
+    # the MoE and hybrid models' shapes (Llama-4-Scout: H 40, Kv 8, chunked
+    # 8192; RecurrentGemma-2B: MQA with G = 10 at hd 256, window 2048, a
+    # wrapped ring at decode): checked as above, the kernel timed
+    for model, B, S, H, Kv, hd, masks in (
+            ("llama4-scout", 8, 1024, 40, 8, 128, dict(chunk_attn=8192)),
+            ("recurrentgemma-2b", 4, 3072, 10, 1, 256, dict(window=2048))):
+        q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+        where = f"flash_attention/{model} served prefill"
+        err, ratio = check_bf16(flash_attention(q, k, v, **masks),
+                                flash_attention_ref(q, k, v, **masks),
+                                flash_attention_ref(q, k, v.abs(), **masks),
+                                where)
+        err32 = check_f32(flash_attention(q.float(), k.float(), v.float(),
+                                          **masks),
+                          flash_attention_ref(q.float(), k.float(), v.float(),
+                                              **masks), where)
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, **masks),
+                     trials=3, loop=5)
+        log("kernels", kernel="flash_attention",
+            shape=f"{model} served prefill", B=B, S=S, H=H, Kv=Kv, hd=hd,
+            dtype="bf16", **masks,
+            max_abs_err=err, bf16_limit_ratio=ratio, fp32_max_abs_err=err32,
+            ms=ms)
+        del q, k, v
+    for model, B, W, clen, H, Kv, hd, chunk in (
+            ("llama4-scout", 8, 1174, 1024 + 75, 40, 8, 128, 8192),
+            ("recurrentgemma-2b", 4, 2048, 3072 + 75, 10, 1, 256, 0)):
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, W, Kv, hd), randn(B, W, Kv, hd)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        where = f"decode_attention/{model} served decode"
+        masks = dict(ring=True, chunk_attn=chunk)
+        err, ratio = check_bf16(
+            decode_attention(q, kc, vc, cl, **masks),
+            decode_attention_ref(q, kc, vc, clen, **masks),
+            decode_attention_ref(q, kc, vc.abs(), clen, **masks), where)
+        err32 = check_f32(
+            decode_attention(q.float(), kc.float(), vc.float(), cl, **masks),
+            decode_attention_ref(q.float(), kc.float(), vc.float(), clen,
+                                 **masks), where)
+        ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cl, **masks))
+        log("kernels", kernel="decode_attention",
+            shape=f"{model} served decode", B=B, W=W, cache_len=clen, H=H,
+            Kv=Kv, hd=hd, dtype="bf16", **masks, max_abs_err=err,
+            bf16_limit_ratio=ratio, fp32_max_abs_err=err32, ms=ms)
+        del q, kc, vc
     torch.cuda.empty_cache()
     return summary
+
+
+def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
+    """moe_gmm against its plain version at the shapes the Llama-4-Scout
+    path gives it (E 16, D 5120, F 8192; C = 640 rows per expert at the 8 x
+    1024 prefill, 8 at decode; gate/up D -> F and down F -> D) and at a
+    ragged shape, on bf16 inputs in bf16 and widened to fp32.  bf16, element
+    by element: |out - ref| <= 2^-7 |ref| + 1e-5 (|x| . |w|): both sides round
+    an fp32 sum of the same products to bf16 (each rounding at most 2^-8 of
+    the value), and the two sums differ by far less than 1e-5 of the sum of
+    the products' magnitudes.  fp32: max |out - ref| <= F32_REL max |ref|.
+    Library yardstick: ``torch.bmm`` on the same bf16 operands.  Returns the
+    served prefill gate/up shape's numbers."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    summary = None
+    D, Fd = 5120, 8192
+    for shape, E, C, K, N in (("served prefill gate/up", 16, 640, D, Fd),
+                              ("served prefill down", 16, 640, Fd, D),
+                              ("served decode gate/up", 16, 8, D, Fd),
+                              ("served decode down", 16, 8, Fd, D),
+                              ("ragged", 7, 77, 1000, 300)):
+        where = f"moe_gmm/{shape}"
+        x = torch.randn((E, C, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.randn((E, K, N), generator=gen, device=dev).mul_(
+            1.0 / math.sqrt(K)).to(torch.bfloat16)
+        out = moe_gmm(x, w).float()
+        ref = moe_gmm_ref(x, w).float()
+        mag = moe_gmm_ref(x.abs().float(), w.abs().float())
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        ratio = float((diff / (2.0 ** -7 * ref.abs() + 1e-5 * mag)).max())
+        if not ratio <= 1.0:  # NaN fails too
+            raise AssertionError(f"{where}: bf16 kernel exceeds its limit by "
+                                 f"{ratio}x (max |diff| {float(diff.max())})")
+        err = float(diff.max())
+        del out, ref, mag, diff
+        xf, wf = x.float(), w.float()
+        ref32 = moe_gmm_ref(xf, wf)
+        rel32 = float((moe_gmm(xf, wf) - ref32).abs().max()
+                      / ref32.abs().max())
+        if not rel32 <= F32_REL:
+            raise AssertionError(f"{where}: fp32 kernel differs from the "
+                                 f"plain version by rel {rel32}")
+        del xf, wf, ref32
+        loops = (3, 5) if C > 8 else ()  # a prefill call takes tens of ms
+        ms = time_ms(torch, lambda: moe_gmm(x, w), *loops)
+        plain = time_ms(torch, lambda: moe_gmm_ref(x, w), *loops)
+        lib_ms = time_ms(torch, lambda: torch.bmm(x, w))
+        b_ms, b_by = bound(bw, bf16, 2 * (E * C * K + E * K * N + E * C * N),
+                           2 * E * C * K * N)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        log("kernels", kernel="moe_gmm", shape=shape, E=E, C=C, D=K, F=N,
+            dtype="bf16", bf16_limit_ratio=ratio, fp32_rel_err=rel32, **row)
+        summary = summary or row
+        del x, w
+    torch.cuda.empty_cache()
+    return summary
+
+
+def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
+    """rglru_scan against its plain version at the served RecurrentGemma-2B
+    prefill (B 4, S 3072, R 2560; the model feeds it fp32 decays and
+    inputs), the same in bf16, and a ragged shape: max |out - ref| <=
+    F32_REL max |ref| (both run the same fp32 recurrence, rounding the
+    product and the sum apart).  No single PyTorch call computes the
+    recurrence, so there is no library time.  Returns the served shape's
+    numbers."""
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    summary = None
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape, B, S, R, dt in (("served prefill", 4, 3072, 2560, f32),
+                               ("served prefill bf16", 4, 3072, 2560, bf16),
+                               ("ragged", 3, 1001, 1000, f32)):
+        where = f"rglru_scan/{shape}"
+        a = torch.rand((B, S, R), generator=gen, device=dev).mul_(0.299).add_(
+            0.7).to(dt)  # decays in [0.7, 0.999)
+        x = torch.randn((B, S, R), generator=gen, device=dev).to(dt)
+        h0 = torch.randn((B, R), generator=gen, device=dev)
+        ref = rglru_scan_ref(a, x, h0)
+        err = float((rglru_scan_op(a, x, h0) - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        if not rel <= F32_REL:
+            raise AssertionError(f"{where}: kernel differs from the plain "
+                                 f"version by rel {rel}")
+        ms = time_ms(torch, lambda: rglru_scan_op(a, x, h0))
+        plain = time_ms(torch, lambda: rglru_scan_ref(a, x, h0), 3, 2)
+        # a and x read once, h0 read, every state written in fp32
+        b_ms, b_by = bound(bw, fp32, B * S * R * (2 * a.element_size() + 4)
+                           + 4 * B * R, 2 * B * S * R)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        log("kernels", kernel="rglru_scan", shape=shape, B=B, S=S, R=R,
+            dtype=str(dt).removeprefix("torch."), rel_err=rel, **row)
+        summary = summary or row
+        del a, x, h0, ref
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
+    """Serve ``prompts`` through ``launch.steps``: a warm-up prefill and
+    decode step (one-time costs: cuBLAS handles, lazy module loads), then a
+    timed prefill and ``out_tokens`` greedy decode steps.  Every launch
+    counter in ``ops`` is set to 0 just before the prefill and just before
+    the decode loop, and read just after each.  The logits of the decode
+    steps in ``watch`` are kept; none may be NaN or infinite."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.config import ShapeSpec
+
+    B, S = prompts.shape
+    shape = ShapeSpec("served", S + out_tokens, B, "prefill")
+    prefill_step = build_prefill_step(cfg, shape)
+    decode_step = build_decode_step(cfg, shape)
+    logits, cache = prefill_step(params, prompts)
+    decode_step(params, logits.argmax(-1, keepdim=True), cache,
+                torch.tensor(S + 1, dtype=torch.int32, device=dev))
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        for op in ops.values():
+            op.launches = 0
+
+    zero()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {name: op.launches for name, op in ops.items()}
+
+    kept, generated = {}, []
+    token = logits.argmax(-1, keepdim=True)
+    cache_len = torch.tensor(S + 1, dtype=torch.int32, device=dev)
+    zero()
+    t0 = time.perf_counter()
+    for t in range(out_tokens):
+        generated.append(token)
+        logits, cache = decode_step(params, token, cache, cache_len)
+        if t in watch:
+            kept[t] = logits.clone()
+        token = logits.argmax(-1, keepdim=True)
+        cache_len += 1  # on the device: no host sync in the loop
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = {name: op.launches for name, op in ops.items()}
+    for t, lg in [*kept.items(), ("last", logits)]:
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{cfg.name} decode step {t}: non-finite "
+                                 "logits")
+    return dict(batch=B, prompt_tokens=S, prefill_s=prefill_s,
+                decode_s=decode_s,
+                prefill_launches=prefill_launches,
+                decode_launches=decode_launches, watch=kept,
+                generated=generated, token=token, cache=cache,
+                decode_step=decode_step,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def check_launches(cfg, what, got, want):
+    if got != want:
+        raise AssertionError(f"{cfg.name} {what} launched {got}, want {want}")
+
+
+def prefill_decode_rel(torch, params, cfg, prompts, run) -> dict:
+    """Decode step t ran the token at position S + t: the full forward over
+    the first S + t + 1 tokens must give the same last-token logits, within
+    rel REL_DECODE of the largest logit."""
+    from repro_torch.models import lm
+
+    S = prompts.shape[1]
+    seq = torch.cat([prompts, *run["generated"]], dim=1)
+    rels = {}
+    for t, lg in run["watch"].items():
+        hidden, _, _ = lm.forward(params, cfg, seq[:, :S + t + 1])
+        full = lm.logits_of(params, cfg, hidden)
+        rels[str(t)] = float((full - lg).abs().max() / full.abs().max())
+    if not max(rels.values()) < REL_DECODE:
+        raise AssertionError(f"{cfg.name}: decode logits differ from the "
+                             f"full forward by rel {rels} (step: rel)")
+    return rels
+
+
+def served_fields(torch, cfg, params, run, out_tokens, init_s) -> dict:
+    """The served run's log fields, with a profiled window of decode
+    steps."""
+    B, S = run["batch"], run["prompt_tokens"]
+    busy_ms, wall_ms, top = decode_device_time(
+        torch, run["decode_step"], params, run["token"], run["cache"], S + 1)
+    return dict(
+        arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, params=cfg.param_count(), batch=B,
+        prompt_tokens=S, decode_steps=out_tokens, capacity=S + out_tokens,
+        init_s=init_s, prefill_ms=1e3 * run["prefill_s"],
+        prefill_tokens_per_s=B * S / run["prefill_s"],
+        decode_ms_per_step=1e3 * run["decode_s"] / out_tokens,
+        decode_tokens_per_s=B * out_tokens / run["decode_s"],
+        profiled_decode_ms_per_step=wall_ms,
+        profiled_decode_device_busy_ms_per_step=busy_ms,
+        profiled_decode_device_idle_share=(
+            None if busy_ms is None else 1.0 - busy_ms / wall_ms),
+        profiled_decode_top_kernels=top,
+        peak_memory_gb=run["peak_gb"],
+        prefill_launches=run["prefill_launches"],
+        decode_launches=run["decode_launches"],
+        generated_head=[int(x) for x in torch.cat(run["generated"], 1)[0, :8]])
+
+
+def init_model(torch, dev, cfg, B, S, seed):
+    """Seeded random weights and prompts on the card; (params, prompts,
+    seconds)."""
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    return params, prompts, time.perf_counter() - t0
 
 
 def model_phase(torch, dev) -> dict:
@@ -322,112 +618,232 @@ def model_phase(torch, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.launch.steps import build_decode_step, build_prefill_step
-    from repro_torch.models import lm
-    from repro_torch.models.config import ShapeSpec
 
-    B, S, OUT = 8, 1024, 150  # OUT: OUT_TOKENS, core/pipeline.py
+    B, S, OUT = 8, 1024, OUT_TOKENS
     cfg = get_config("internlm2-1.8b")
     n_layers = cfg.num_layers
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    t0 = time.perf_counter()
-    params = lm.init_params(gen, cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                            device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    shape = ShapeSpec("served", S + OUT, B, "prefill")
-    prefill_step = build_prefill_step(cfg, shape)
-    decode_step = build_decode_step(cfg, shape)
-
-    # warm-up (one-time costs: cuBLAS handles, lazy module loads)
-    logits, cache = prefill_step(params, prompts)
-    decode_step(params, logits.argmax(-1, keepdim=True), cache,
-                torch.tensor(S + 1, dtype=torch.int32, device=dev))
-    del logits, cache
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    flash_attention.launches = decode_attention.launches = 0
-    t0 = time.perf_counter()
-    logits, cache = prefill_step(params, prompts)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = (flash_attention.launches, decode_attention.launches)
-
-    watch = {0: None, OUT // 2 - 1: None, OUT - 1: None}
-    generated = []
-    token = logits.argmax(-1, keepdim=True)
-    cache_len = torch.tensor(S + 1, dtype=torch.int32, device=dev)
-    flash_attention.launches = decode_attention.launches = 0
-    t0 = time.perf_counter()
-    for t in range(OUT):
-        generated.append(token)
-        logits, cache = decode_step(params, token, cache, cache_len)
-        if t in watch:
-            watch[t] = logits.clone()
-        token = logits.argmax(-1, keepdim=True)
-        cache_len += 1  # on the device: no host sync in the loop
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    decode_launches = (flash_attention.launches, decode_attention.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    if prefill_launches != (n_layers, 0):
-        raise AssertionError(f"prefill launched (flash, decode) = "
-                             f"{prefill_launches}, want ({n_layers}, 0)")
-    if decode_launches != (0, n_layers * OUT):
-        raise AssertionError(f"decode launched (flash, decode) = "
-                             f"{decode_launches}, want (0, {n_layers * OUT})")
-    for t, lg in watch.items():
-        if not torch.isfinite(lg).all():
-            raise AssertionError(f"decode step {t}: non-finite logits")
-    if not torch.isfinite(logits).all():
-        raise AssertionError("last decode step: non-finite logits")
-
-    # decode step t ran the token at position S + t: the full forward over
-    # the first S + t + 1 tokens must give the same last-token logits
-    seq = torch.cat([prompts, *generated], dim=1)
-    rels = {}
-    for t, lg in watch.items():
-        hidden, _, _ = lm.forward(params, cfg, seq[:, :S + t + 1])
-        full = lm.logits_of(params, cfg, hidden)
-        rels[t] = float((full - lg).abs().max() / full.abs().max())
-        if not rels[t] < REL_DECODE:
-            raise AssertionError(f"decode step {t}: logits differ from the "
-                                 f"full forward by rel {rels[t]}")
-    busy_ms, wall_ms = decode_device_time(torch, decode_step, params, token,
-                                          cache, S + 1)
-    n_params = cfg.param_count()
-    log("model", arch=cfg.name, dtype=cfg.dtype, layers=n_layers,
-        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, params=n_params, batch=B, prompt_tokens=S,
-        decode_steps=OUT, capacity=S + OUT, init_s=init_s,
-        prefill_ms=1e3 * prefill_s,
-        prefill_tokens_per_s=B * S / prefill_s,
-        decode_ms_per_step=1e3 * decode_s / OUT,
-        decode_tokens_per_s=B * OUT / decode_s,
-        profiled_decode_ms_per_step=wall_ms,
-        profiled_decode_device_busy_ms_per_step=busy_ms,
-        profiled_decode_device_idle_share=(
-            None if busy_ms is None else 1.0 - busy_ms / wall_ms),
-        peak_memory_gb=peak_gb,
-        flash_attention_launches=prefill_launches[0],
-        decode_attention_launches=decode_launches[1],
-        prefill_to_decode_rel={str(t): r for t, r in rels.items()},
-        generated_head=[int(x) for x in torch.cat(generated, 1)[0, :8]])
-    del params, cache, seq
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=1)
+    ops = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
+                   watch={0, OUT // 2 - 1, OUT - 1})
+    check_launches(cfg, "prefill", run["prefill_launches"],
+                   {"flash_attention": n_layers, "decode_attention": 0})
+    check_launches(cfg, "decode", run["decode_launches"],
+                   {"flash_attention": 0, "decode_attention": n_layers * OUT})
+    rels = prefill_decode_rel(torch, params, cfg, prompts, run)
+    log("model", **served_fields(torch, cfg, params, run, OUT, init_s),
+        prefill_to_decode_rel=rels)
+    del params, run
     torch.cuda.empty_cache()
-    return {"flash_attention": prefill_launches[0],
-            "decode_attention": decode_launches[1]}
+    return {"flash_attention": n_layers, "decode_attention": n_layers * OUT}
+
+
+@contextlib.contextmanager
+def recorded_dispatch(blocks):
+    """Record every MoE layer's dispatch inside the block as (router probs,
+    slot table, capacity), on the device (no host sync per layer)."""
+    seen = []
+    plain = blocks.moe_dispatch_indices
+
+    def recording(probs, *, top_k, capacity):
+        out = plain(probs, top_k=top_k, capacity=capacity)
+        seen.append((probs, out[2], capacity))
+        return out
+
+    blocks.moe_dispatch_indices = recording
+    try:
+        yield seen
+    finally:
+        blocks.moe_dispatch_indices = plain
+
+
+def moe_twin(torch, cfg, params, prompts, steps, watch) -> dict:
+    """Prefill -> greedy decode of a dropless MoE model, each watched decode
+    step against the full forward over the same tokens: ``rel``, max |full -
+    decode| over max |full| of the last-token logits (over the batch and per
+    row); per row the number of layers whose top-1 expert for that token
+    differs between the two; and per row the first such layer as [layer,
+    the full forward's top-1 minus top-2 router probability there, the
+    largest difference between the two runs' router probabilities there]:
+    a flip where the margin is within that difference is a near-tie that
+    rounding tipped over."""
+    from repro_torch.models import blocks, lm
+
+    B, S = prompts.shape
+    cap = S + steps
+    logits, cache = lm.prefill(params, cfg, prompts, capacity=cap)
+    token = logits.argmax(-1, keepdim=True)
+    seq, out = [prompts], {}
+    for t in range(steps):
+        seq.append(token)
+        with recorded_dispatch(blocks) as dec:
+            logits, cache = lm.decode_step(params, cfg, token, cache,
+                                           S + t + 1, capacity=cap)
+        if t in watch:
+            with recorded_dispatch(blocks) as fwd:
+                hidden, _, _ = lm.forward(params, cfg, torch.cat(seq, 1))
+            full = lm.logits_of(params, cfg, hidden)
+            diff = (full - logits).abs()
+            dec_p = torch.stack([p.reshape(B, -1) for p, _, _ in dec])
+            fwd_p = torch.stack([p[:, -1] for p, _, _ in fwd])  # (L, B, E)
+            flips = dec_p.argmax(-1) != fwd_p.argmax(-1)  # (L, B)
+            top2 = fwd_p.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            gap = (dec_p - fwd_p).abs().amax(-1)
+            first = [None] * B
+            for layer, b in torch.nonzero(flips).tolist():
+                if first[b] is None:
+                    first[b] = [layer, float(margin[layer, b]),
+                                float(gap[layer, b])]
+            out[str(t)] = dict(
+                rel=float(diff.max() / full.abs().max()),
+                rel_by_row=(diff.amax(-1) / full.abs().amax(-1)).tolist(),
+                top1_flips_by_row=flips.sum(0).tolist(),
+                first_flip_by_row=first)
+        token = logits.argmax(-1, keepdim=True)
+    return out
+
+
+def moe_phase(torch, dev) -> dict:
+    """The MoE cloud tier, Llama-4-Scout (16 experts top-1 + a shared
+    expert, chunked attention 8192) at its published widths with 12 of its
+    48 layers, bf16, seeded random weights: prefill 8 x 1024 tokens at
+    capacity factor 1.25, then 150 greedy decode steps.  Launches: 36
+    moe_gmm and 12 flash_attention per prefill, 36 moe_gmm and 12
+    decode_attention per decode step.
+
+    A prefill that drops tokens by capacity cannot match a full forward over
+    a longer sequence (whose capacity differs), so prefill -> decode is held
+    on dropless twins (capacity factor 16), 2 x 256 tokens and 16 decode
+    steps, watched at steps 0, 7 and 15.  In bf16 a top-1 router near-tie
+    can tip either way between the decode step and the full forward, and a
+    token whose expert changes at one layer leaves on another path: so the
+    bf16 twin (the served weights, 12 layers) is measured and its top-1
+    flips counted, and the check, rel < REL_DECODE, is held on an fp32 twin
+    of the served weights' first TWIN_LAYERS layers, embedding and head,
+    widened to fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.models import blocks, lm
+    from repro_torch.optim.optimizers import tree_map
+
+    B, S, OUT = 8, 1024, OUT_TOKENS
+    published = get_config("llama4-scout-17b-a16e")
+    cfg = published.with_overrides(num_layers=SCOUT_LAYERS)
+    L = cfg.num_layers
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=2)
+    torch.cuda.empty_cache()  # the init's fp32 draws
+
+    with recorded_dispatch(blocks) as seen:
+        lm.prefill(params, cfg, prompts, capacity=S + OUT)
+        dropped = sum(int((slots == p.shape[-1] * c).sum())
+                      for p, slots, c in seen)
+        assigned = sum(slots.numel() for _, slots, _ in seen)
+        capacity = seen[0][2]
+    del seen
+    ops = {"moe_gmm": moe_gmm, "flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops, watch=set())
+    check_launches(cfg, "prefill", run["prefill_launches"],
+                   {"moe_gmm": 3 * L, "flash_attention": L,
+                    "decode_attention": 0})
+    check_launches(cfg, "decode", run["decode_launches"],
+                   {"moe_gmm": 3 * L * OUT, "flash_attention": 0,
+                    "decode_attention": L * OUT})
+    fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    del run
+
+    t_B, t_S, t_OUT = 2, 256, 16
+    t_prompts = prompts[:t_B, :t_S].contiguous()
+    watch = {0, t_OUT // 2 - 1, t_OUT - 1}
+    bf16_twin = moe_twin(torch, cfg.with_overrides(capacity_factor=16.0),
+                         params, t_prompts, t_OUT, watch)
+
+    # the fp32 twin: slice the first layers out, free the rest, widen
+    units = params["stack"]["units"]  # stacked, or a per-unit list
+    units = units[:TWIN_LAYERS] if isinstance(units, list) else tree_map(
+        lambda t: t[:TWIN_LAYERS].clone(), units)
+    del params["stack"]
+    torch.cuda.empty_cache()
+    params["stack"] = {"units": units}
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    twin = cfg.with_overrides(num_layers=TWIN_LAYERS, dtype="float32",
+                              capacity_factor=16.0)
+    fp32_twin = moe_twin(torch, twin, params, t_prompts, t_OUT, watch)
+    for t, r in fp32_twin.items():
+        if not r["rel"] < REL_DECODE:
+            raise AssertionError(f"{twin.name} fp32 twin, decode step {t}: "
+                                 f"logits differ from the full forward by "
+                                 f"rel {r['rel']}")
+    log("moe_model", **fields, layers_published=published.num_layers,
+        experts=cfg.num_experts, top_k=cfg.experts_per_token,
+        moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+        prefill_capacity_per_group=capacity,
+        prefill_dropped_share=dropped / assigned,
+        moe_gmm_launches=fields["prefill_launches"]["moe_gmm"]
+        + fields["decode_launches"]["moe_gmm"],
+        dropless_twin=dict(capacity_factor=16.0, batch=t_B, prompt_tokens=t_S,
+                           decode_steps=t_OUT, bf16_layers=L,
+                           bf16_prefill_to_decode=bf16_twin,
+                           fp32_layers=TWIN_LAYERS,
+                           fp32_prefill_to_decode=fp32_twin))
+    del params
+    torch.cuda.empty_cache()
+    return {"moe_gmm": 3 * L * (1 + OUT), "flash_attention": L,
+            "decode_attention": L * OUT}
+
+
+def hybrid_phase(torch, dev) -> dict:
+    """The hybrid edge tier, RecurrentGemma-2B ((RG-LRU, RG-LRU, local
+    attention) x 8 + 2 RG-LRU; MQA, hd 256, window 2048) at full width and
+    depth, bf16, seeded random weights: prefill 4 x 3072 tokens (past the
+    window, so the ring is filled at slots pos % 2048 and every decode step
+    reads a wrapped ring), then 150 greedy decode steps.  Launches: 18
+    rglru_scan and 8 flash_attention per prefill, 8 decode_attention and no
+    rglru_scan per decode step (decode runs the closed-form step).
+    Prefill -> decode at steps 0, 74 and 149 within REL_DECODE."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+
+    B, S, OUT = 4, 3072, OUT_TOKENS
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = cfg.layer_types.count("rglru")
+    n_attn = cfg.layer_types.count("attn")
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=3)
+    ops = {"rglru_scan": rglru_scan_op, "flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
+                   watch={0, OUT // 2 - 1, OUT - 1})
+    check_launches(cfg, "prefill", run["prefill_launches"],
+                   {"rglru_scan": n_rec, "flash_attention": n_attn,
+                    "decode_attention": 0})
+    check_launches(cfg, "decode", run["decode_launches"],
+                   {"rglru_scan": 0, "flash_attention": 0,
+                    "decode_attention": n_attn * OUT})
+    rels = prefill_decode_rel(torch, params, cfg, prompts, run)
+    log("hybrid_model",
+        **served_fields(torch, cfg, params, run, OUT, init_s),
+        rglru_layers=n_rec, attention_layers=n_attn,
+        window=cfg.window_size, rnn_state_dim=cfg.rnn_state_dim,
+        prefill_to_decode_rel=rels)
+    del params, run
+    torch.cuda.empty_cache()
+    return {"rglru_scan": n_rec, "flash_attention": n_attn,
+            "decode_attention": n_attn * OUT}
 
 
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
                        steps=5):
     """Profile ``steps`` decode steps (writing cache slots from
     ``first_len - 1`` on again): (device busy ms per step, or None when the
-    profiler records no device time; wall ms per step)."""
+    profiler records no device time; wall ms per step; the five kernels
+    with the most device time, as [name, ms per step, calls per step])."""
     from torch.profiler import ProfilerActivity, profile
 
     cache_len = torch.tensor(first_len, dtype=torch.int32, device=token.device)
@@ -441,8 +857,12 @@ def decode_device_time(torch, decode_step, params, token, cache, first_len,
             cache_len += 1
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return (busy_us / 1e3 / steps if busy_us > 0 else None), wall_ms
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    events.sort(key=lambda e: -e.self_device_time_total)
+    top = [[e.key[:100], e.self_device_time_total / 1e3 / steps,
+            e.count / steps] for e in events[:5]]
+    return (busy_us / 1e3 / steps if busy_us > 0 else None), wall_ms, top
 
 
 def split_phase(torch) -> None:
@@ -583,6 +1003,8 @@ def main() -> int:
     run_dsqe("deployment", deploy, 16)
     del wide_q, wide_c, deploy
     summary.update(attention_kernels(torch, dev, gen, bw, bf16))
+    summary["moe_gmm"] = gmm_kernels(torch, dev, gen, bw, bf16)
+    summary["rglru_scan"] = scan_kernels(torch, dev, gen, bw, fp32)
 
     # -- 3. serve --------------------------------------------------------
     reqs = [Request(prompt="", qid=int(q), slo=s)
@@ -667,10 +1089,13 @@ def main() -> int:
 
     server.fleet.close()
 
-    # -- 4. model --------------------------------------------------------
-    launches.update(model_phase(torch, dev))
+    # -- 4-6. the served models: a kernel on several paths reports the sum
+    # of its launches over their served runs
+    for phase in (model_phase, moe_phase, hybrid_phase):
+        for op, n in phase(torch, dev).items():
+            launches[op] = launches.get(op, 0) + n
 
-    # -- 5. split --------------------------------------------------------
+    # -- 7. split --------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 
@@ -691,6 +1116,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attention/kernel.py:77",
          "launches": launches["decode_attention"],
          **summary["decode_attention"]},
+        {"name": "moe_gmm", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:39",
+         "launches": launches["moe_gmm"], **summary["moe_gmm"]},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
+         "launches": launches["rglru_scan"], **summary["rglru_scan"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

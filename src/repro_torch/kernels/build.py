@@ -113,7 +113,9 @@ def _build() -> KernelLibrary:
             ("retrieval_topk_launch", [P, P, P, P, I, I, I, I, P], I),
             ("dsqe_score_launch", [P] * 12 + [I] * 6 + [P], I),
             ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
-            ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I)):
+            ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
+            ("moe_gmm_launch", [P] * 3 + [I] * 5 + [P], I),
+            ("rglru_scan_launch", [P] * 4 + [I] * 4 + [P], I)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
@@ -123,8 +125,8 @@ def _build() -> KernelLibrary:
 
 def kernel_library() -> KernelLibrary:
     """Every kernel in ``csrc/`` (retrieval_topk, dsqe_score,
-    flash_attention, decode_attention), built if needed and loaded once per
-    process."""
+    flash_attention, decode_attention, moe_gmm, rglru_scan), built if needed
+    and loaded once per process."""
     global _loaded
     if _loaded is None:
         with _lock:

@@ -62,8 +62,9 @@ def check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-# dtype codes of the attention kernels' C interface (csrc/attention.cu)
-ATTENTION_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C interface of the attention, moe_gmm and rglru_scan
+# kernels (csrc/attention.cu, moe_gmm.cu, rglru_scan.cu)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_attention_inputs(**tensors: torch.Tensor) -> int:
@@ -72,7 +73,7 @@ def check_attention_inputs(**tensors: torch.Tensor) -> int:
     time), head_dim (the last axis) a multiple of 16 up to 256.  Returns the
     dtype's code."""
     dtypes = {t.dtype for t in tensors.values()}
-    if len(dtypes) != 1 or next(iter(dtypes)) not in ATTENTION_DTYPES:
+    if len(dtypes) != 1 or next(iter(dtypes)) not in KERNEL_DTYPES:
         raise TypeError(f"attention kernels take one dtype of float32 or "
                         f"bfloat16, got {sorted(map(str, dtypes))}")
     for name, t in tensors.items():
@@ -84,4 +85,4 @@ def check_attention_inputs(**tensors: torch.Tensor) -> int:
         if hd % 16 or not 16 <= hd <= 256:
             raise ValueError(f"{name}: head_dim must be a multiple of 16 in "
                              f"[16, 256], got {hd}")
-    return ATTENTION_DTYPES[next(iter(dtypes))]
+    return KERNEL_DTYPES[next(iter(dtypes))]

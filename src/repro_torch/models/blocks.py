@@ -1,35 +1,39 @@
-"""Transformer blocks of the dense model substrate, in PyTorch.
+"""Transformer, MoE and recurrent blocks of the model substrate, in PyTorch.
 
-The JAX package's ``models/blocks.py`` for the attention block with a dense
-MLP:
-    init_attn_block(gen, cfg, device) -> params
-    apply_attn_block(params, x, ctx, cfg, cache) -> (y, cache, aux)
+The JAX package's ``models/blocks.py`` for the attention block (dense MLP
+or MoE FFN) and the RG-LRU recurrent block:
+    init_<type>_block(gen, cfg, device) -> params
+    apply_<type>_block(params, x, ctx, cfg, cache) -> (y, cache, aux)
 
 where ``ctx`` is a `BlockCtx` describing the execution mode:
   * train/prefill: full sequence, positions [0..S)
   * decode: single-token step against a fixed-capacity cache
 
-KV caches are updated in place; the JAX blocks return new ones.  The MoE
-FFN, the recurrent (RG-LRU), mLSTM and sLSTM blocks, cross-attention and the
-bidirectional encoder block are not ported yet: each raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Caches (KV and recurrent state) are updated in place; the JAX blocks return
+new ones.  The MoE expert FFN runs its three products through the
+``moe_gmm`` op and the RG-LRU prefill its recurrence through the
+``rglru_scan`` op, where the JAX package runs einsums and an associative
+scan.  The mLSTM and sLSTM blocks, cross-attention and the bidirectional
+encoder block are not ported yet: each raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.moe_gmm.ops import moe_gmm
+from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
 
 _ROADMAP = {
-    "moe": "the MoE FFN with the moe_gmm kernel (ROADMAP.md queue 1, item 10a)",
-    "rglru": "the RG-LRU recurrent block with the rglru_scan kernel "
-             "(ROADMAP.md queue 1, item 10b)",
     "mlstm": "the xLSTM mLSTM block (ROADMAP.md queue 1, item 10c)",
     "slstm": "the xLSTM sLSTM block (ROADMAP.md queue 1, item 10c)",
     "encdec": "cross-attention and the encoder stack (ROADMAP.md queue 1, "
@@ -55,22 +59,22 @@ class BlockCtx:
 
 
 # ===========================================================================
-# Attention block (dense FFN)
+# Attention block (dense FFN or MoE FFN)
 # ===========================================================================
 
 def init_attn_block(gen, cfg: ModelConfig, device,
                     cross: bool = False) -> Params:
     if cross:
         unported("encdec")
-    if cfg.num_experts:
-        unported("moe")
     dt = cfg.activation_dtype
     p: Params = {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, device),
         "ln2": L.init_rmsnorm(cfg.d_model, dt, device),
         "attn": L.init_attention(gen, cfg, device),
     }
-    if cfg.d_ff:
+    if cfg.num_experts:
+        p["moe"] = init_moe(gen, cfg, device)
+    elif cfg.d_ff:
         p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
                               device)
     return p
@@ -140,20 +144,357 @@ def apply_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     y = L.rms_norm(x, params["ln2"], cfg.norm_eps)
     if "moe" in params:
-        unported("moe")
-    h = L.mlp_apply(params["mlp"], y, cfg.activation) if "mlp" in params \
-        else torch.zeros_like(x)
+        h, aux = moe_apply(params["moe"], y, cfg)
+    elif "mlp" in params:
+        h = L.mlp_apply(params["mlp"], y, cfg.activation)
+    else:
+        h = torch.zeros_like(x)
     return x + h, new_cache, aux
 
 
+# ===========================================================================
+# Mixture-of-Experts FFN
+# ===========================================================================
+
+def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    ideal = tokens_per_group * cfg.experts_per_token / cfg.num_experts
+    cap = int(math.ceil(ideal * cfg.capacity_factor / 8.0)) * 8
+    return max(cap, 8)
+
+
+def _normal_init(gen, shape: tuple[int, ...], scale: float, dtype,
+                 device) -> torch.Tensor:
+    """Standard normal draws in fp32 times ``scale``, cast to ``dtype``."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if gen is not None:
+        w.normal_(0.0, 1.0, generator=gen)
+    return w.mul_(scale).to(dtype)
+
+
+def init_moe(gen, cfg: ModelConfig, device) -> Params:
+    dt = cfg.activation_dtype
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    s_in, s_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fd)
+    p: Params = {
+        "router": L.dense_init(gen, D, (E,), torch.float32, device),
+        "w_gate": _normal_init(gen, (E, D, Fd), s_in, dt, device),
+        "w_up": _normal_init(gen, (E, D, Fd), s_in, dt, device),
+        "w_down": _normal_init(gen, (E, Fd, D), s_out, dt, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = L.init_mlp(gen, D, Fd * cfg.num_shared_experts,
+                                 cfg.activation, dt, device)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, an exact tie
+    going to the lower index (``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _normalized_top_k(probs: torch.Tensor, k: int):
+    top_p, top_e = _top_k(probs, k)
+    return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+
+def moe_group_compute(xg: torch.Tensor, probs: torch.Tensor,
+                      w_gate: torch.Tensor, w_up: torch.Tensor,
+                      w_down: torch.Tensor, *, capacity: int, top_k: int,
+                      activation: str, expert_offset: int = 0) -> torch.Tensor:
+    """Capacity-based token dispatch -> per-expert matmul -> weighted combine
+    for one dispatch group: xg (T, D), probs (T, E) fp32 -> (T, D).
+
+    ``w_*`` may hold only a local slice of experts starting at
+    ``expert_offset``; the output then holds only those experts'
+    contributions.  Tokens above an expert's capacity are dropped.
+    """
+    T, D = xg.shape
+    E_loc = w_gate.shape[0]
+    E = probs.shape[-1]
+    C = capacity
+    dev = xg.device
+    top_p, top_e = _normalized_top_k(probs, top_k)
+    flat_e, flat_p = top_e.reshape(-1), top_p.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k)
+    order = torch.argsort(flat_e, stable=True)  # token order kept per expert
+    se, st, sp = flat_e[order], flat_t[order], flat_p[order]
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(T * top_k, device=dev) - starts[se]
+    local_e = se - expert_offset
+    valid = (slot < C) & (local_e >= 0) & (local_e < E_loc)
+    scatter_pos = torch.where(valid, local_e * C + slot, E_loc * C)
+    gather_idx = torch.full((E_loc * C + 1,), T, dtype=torch.long,
+                            device=dev).scatter_(0, scatter_pos, st)[:-1]
+    combine_w = torch.zeros((E_loc * C + 1,), dtype=torch.float32,
+                            device=dev).scatter_(0, scatter_pos, sp)[:-1]
+    x_disp = torch.cat([xg, xg.new_zeros((1, D))])[gather_idx]
+    x_disp = x_disp.reshape(E_loc, C, D)
+    act = L._ACTS[activation]
+    h = act(moe_gmm(x_disp, w_gate)) * moe_gmm(x_disp, w_up)
+    h = moe_gmm(h, w_down)  # (E_loc, C, D)
+    h_flat = h.reshape(E_loc * C, D) * combine_w[:, None].to(h.dtype)
+    out = torch.zeros((T + 1, D), dtype=h.dtype, device=dev)
+    return out.index_add_(0, gather_idx, h_flat)[:T]
+
+
+def moe_dispatch_indices(probs: torch.Tensor, *, top_k: int, capacity: int):
+    """Dispatch plan of each group.  probs (..., T, E) ->
+      gather_idx  (..., E, C)  token id feeding each expert slot (sentinel T
+                               = empty)
+      combine_w   (..., E, C)  router weight of that slot
+      slot_table  (..., T, k)  inverse map: slot id of each assignment
+                               (sentinel E*C = dropped by capacity)
+    The JAX package vmaps its one-group function over the groups; here the
+    leading axes are written out.  Indices are int64."""
+    lead, (T, E) = probs.shape[:-2], probs.shape[-2:]
+    p = probs.reshape(-1, T, E)
+    G, C, n = p.shape[0], capacity, T * top_k
+    dev = probs.device
+    top_p, top_e = _normalized_top_k(p, top_k)
+    flat_e, flat_p = top_e.reshape(G, n), top_p.reshape(G, n)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(top_k).expand(G, n)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se, st, sp = (t.gather(1, order) for t in (flat_e, flat_t, flat_p))
+    counts = torch.zeros((G, E), dtype=torch.long, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 1) - counts
+    slot = torch.arange(n, device=dev) - starts.gather(1, se)
+    scatter_pos = torch.where(slot < C, se * C + slot, E * C)
+    gather_idx = torch.full((G, E * C + 1), T, dtype=torch.long,
+                            device=dev).scatter_(1, scatter_pos, st)[:, :-1]
+    combine_w = torch.zeros((G, E * C + 1), dtype=torch.float32,
+                            device=dev).scatter_(1, scatter_pos, sp)[:, :-1]
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=dev).expand(G, n))
+    slot_table = scatter_pos.gather(1, inv)
+    return (gather_idx.reshape(*lead, E, C), combine_w.reshape(*lead, E, C),
+            slot_table.reshape(*lead, T, top_k))
+
+
+def _batched_take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (G, N, D), idx (G, M) -> (G, M, D).  Indices are in bounds by
+    construction (sentinels point at the zero pad row)."""
+    return src[torch.arange(src.shape[0], device=src.device)[:, None], idx]
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+
+
+def _gather_sum_k(src_pad: torch.Tensor,
+                  slot_table: torch.Tensor) -> torch.Tensor:
+    """out[g, t] = sum_j src_pad[g, slot_table[g, t, j]], one (G, T, D)
+    gather at a time over the small top-k axis."""
+    out = _batched_take(src_pad, slot_table[:, :, 0])
+    for j in range(1, slot_table.shape[2]):
+        out = out + _batched_take(src_pad, slot_table[:, :, j])
+    return out
+
+
+def moe_permute(x: torch.Tensor, gather_idx: torch.Tensor,
+                slot_table: torch.Tensor) -> torch.Tensor:
+    """Dispatch tokens to expert slots: x (G, T, D), gather_idx (G, E*C) ->
+    (G, E*C, D).  Forward only: the JAX package's custom-VJP backward (a
+    gather over ``slot_table``) waits for the training slice."""
+    del slot_table
+    return _batched_take(_pad_row(x), gather_idx)
+
+
+def moe_unpermute(hw: torch.Tensor, gather_idx: torch.Tensor,
+                  slot_table: torch.Tensor) -> torch.Tensor:
+    """Combine expert-slot outputs back per token: hw (G, E*C, D) ->
+    (G, T, D).  Forward only, as ``moe_permute``."""
+    del gather_idx
+    return _gather_sum_k(_pad_row(hw), slot_table)
+
+
+def moe_expert_ffn(x_disp: torch.Tensor, params: Params,
+                   activation: str) -> torch.Tensor:
+    """Batched per-expert GLU FFN: x_disp (G, E, C, D) -> (G, E, C, D).
+
+    The groups are merged into each expert's rows, (E, G * C, D), one
+    contiguous copy (a view when G is 1), and the three products run as
+    ``moe_gmm`` launches."""
+    G, E, C, D = x_disp.shape
+    xe = x_disp.transpose(0, 1).reshape(E, G * C, D)
+    act = L._ACTS[activation]
+    h = act(moe_gmm(xe, params["w_gate"])) * moe_gmm(xe, params["w_up"])
+    return moe_gmm(h, params["w_down"]).reshape(E, G, C, D).transpose(0, 1)
+
+
+def moe_apply(params: Params, x: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based MoE with batched dispatch: x (B, S, D) -> (output,
+    load-balance aux loss).
+
+    Dispatch groups are the batch rows when S > 1, or the whole batch at
+    decode (S == 1).  The router runs in fp32.
+    """
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+
+    # Switch-style load-balance auxiliary loss, over all tokens
+    top1 = torch.argmax(probs, dim=-1)
+    frac_tokens = F.one_hot(top1, E).float().mean(dim=(0, 1))
+    mean_prob = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * mean_prob) * cfg.router_aux_coef
+
+    if S == 1:
+        xg, pg = x.reshape(1, B, D), probs.reshape(1, B, E)
+    else:
+        xg, pg = x, probs
+    G, T = xg.shape[0], xg.shape[1]
+    cap = moe_capacity(T, cfg)
+    idx, cw, slots = moe_dispatch_indices(pg, top_k=k, capacity=cap)
+    idx = idx.reshape(G, E * cap)
+    x_disp = moe_permute(xg, idx, slots).reshape(G, E, cap, D)
+    h = moe_expert_ffn(x_disp, params, cfg.activation)
+    hw = h.reshape(G, E * cap, D) * cw.reshape(G, E * cap, 1).to(h.dtype)
+    out = moe_unpermute(hw, idx, slots).reshape(B, S, D)
+    if "shared" in params:
+        out = out + L.mlp_apply(params["shared"], x, cfg.activation)
+    return out, aux
+
+
+# ===========================================================================
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# ===========================================================================
+
+def init_rglru_block(gen, cfg: ModelConfig, device) -> Params:
+    dt = cfg.activation_dtype
+    D, R = cfg.d_model, cfg.rnn_state_dim
+    # Lambda init so that a = sigmoid(lam)^(c*r) sits in [0.9, 0.999]
+    u = torch.empty((R,), dtype=torch.float32, device=device)
+    if gen is not None:
+        u.uniform_(0.9 ** 2, 0.999 ** 2, generator=gen)
+    root = u ** (1.0 / 8.0)
+    p: Params = {
+        "ln1": L.init_rmsnorm(D, dt, device),
+        "ln2": L.init_rmsnorm(D, dt, device),
+        "w_x": L.dense_init(gen, D, (R,), dt, device),
+        "w_gate_in": L.dense_init(gen, D, (R,), dt, device),
+        "w_out": L.dense_init(gen, R, (D,), dt, device),
+        "conv_w": _normal_init(gen, (cfg.conv1d_width, R), 0.02, dt, device),
+        "conv_b": torch.zeros((R,), dtype=dt, device=device),
+        "w_a": L.dense_init(gen, R, (R,), torch.float32, device),
+        "b_a": torch.zeros((R,), dtype=torch.float32, device=device),
+        "w_i": L.dense_init(gen, R, (R,), torch.float32, device),
+        "b_i": torch.zeros((R,), dtype=torch.float32, device=device),
+        "lam": torch.log(root / (1 - root)),
+    }
+    if cfg.d_ff:
+        p["mlp"] = L.init_mlp(gen, D, cfg.d_ff, cfg.activation, dt, device)
+    return p
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    R = cfg.rnn_state_dim
+    return {
+        "h": torch.zeros((batch, R), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv1d_width - 1, R),
+                            dtype=cfg.activation_dtype, device=device),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   history: Optional[torch.Tensor]):
+    """Depthwise causal conv. x (B, S, R), w (W, R).  Returns (y,
+    new_history)."""
+    W, S = w.shape[0], x.shape[1]
+    if history is None:
+        history = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
+    xp = torch.cat([history, x], dim=1)  # (B, S + W - 1, R)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(W)) + b
+    new_hist = xp[:, -(W - 1):] if W > 1 else history
+    return y, new_hist
+
+
+def rglru_scan(y: torch.Tensor, a_log: torch.Tensor, gated_in: torch.Tensor,
+               h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t * h_{t-1} + x_t through the
+    ``rglru_scan`` op (the JAX function runs an associative scan; ``y`` is
+    unused, as there).
+
+    a_log: (B, S, R) log of decay in (-inf, 0]; gated_in: (B, S, R); h0
+    (B, R) or None for zeros.  Returns (B, S, R) fp32.
+    """
+    del y
+    a = torch.exp(a_log)
+    if h0 is None:
+        h0 = a.new_zeros((a.shape[0], a.shape[2]), dtype=torch.float32)
+    return rglru_scan_op(a.contiguous(), gated_in.contiguous(), h0)
+
+
+def _rglru_gates(params: Params, y: torch.Tensor):
+    """Returns (log_a, scaled_input) for the recurrence, fp32."""
+    y32 = y.float()
+    r = torch.sigmoid(y32 @ params["w_a"] + params["b_a"])
+    i = torch.sigmoid(y32 @ params["w_i"] + params["b_i"])
+    c = 8.0
+    log_a = -c * r * F.softplus(params["lam"])  # (..., R), <= 0
+    a_sq = torch.exp(2.0 * log_a)
+    scaled = torch.sqrt(torch.clamp_min(1.0 - a_sq, 1e-8)) * (i * y32)
+    return log_a, scaled
+
+
+def apply_rglru_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
+                      cfg: ModelConfig, cache: Optional[Params] = None):
+    """Returns (y, cache, aux).  Decode updates ``cache`` in place; prefill
+    fills it in place when one is given, else a new one."""
+    xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
+    gate = F.gelu(xin @ params["w_gate_in"], approximate="tanh")
+    y = xin @ params["w_x"]
+
+    if ctx.decoding and cache is None:
+        raise ValueError("decode needs a recurrent cache")
+    hist = cache["conv"] if ctx.decoding else None
+    y, new_hist = _causal_conv1d(y, params["conv_w"], params["conv_b"], hist)
+
+    log_a, scaled = _rglru_gates(params, y)
+    new_cache = None
+    if ctx.decoding:
+        h = torch.exp(log_a[:, 0]) * cache["h"] + scaled[:, 0]
+        cache["h"].copy_(h)
+        cache["conv"].copy_(new_hist)
+        new_cache = cache
+        h_seq = h[:, None]
+    else:
+        h_seq = rglru_scan(y, log_a, scaled, None)
+        if ctx.mode == "prefill":
+            new_cache = cache if cache is not None else init_rglru_cache(
+                cfg, x.shape[0], x.device)
+            new_cache["h"].copy_(h_seq[:, -1])
+            new_cache["conv"].copy_(new_hist)
+    out = (gate.float() * h_seq).to(x.dtype)
+    x = x + out @ params["w_out"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mlp" in params:
+        x = x + L.mlp_apply(params["mlp"],
+                            L.rms_norm(x, params["ln2"], cfg.norm_eps),
+                            cfg.activation)
+    return x, new_cache, aux
+
+
+# ===========================================================================
+# registry
+# ===========================================================================
+
 def init_block(block_type: str, gen, cfg: ModelConfig, device) -> Params:
-    if block_type != "attn":
-        unported(block_type)
-    return init_attn_block(gen, cfg, device)
+    if block_type == "attn":
+        return init_attn_block(gen, cfg, device)
+    if block_type == "rglru":
+        return init_rglru_block(gen, cfg, device)
+    unported(block_type)
 
 
 def init_block_cache(block_type: str, cfg: ModelConfig, batch: int,
                      capacity: int, device):
-    if block_type != "attn":
-        unported(block_type)
-    return init_attn_cache(cfg, batch, capacity, device)
+    if block_type == "attn":
+        return init_attn_cache(cfg, batch, capacity, device)
+    if block_type == "rglru":
+        return init_rglru_cache(cfg, batch, device)
+    unported(block_type)

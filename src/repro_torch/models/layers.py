@@ -39,7 +39,7 @@ def dense_init(gen, in_dim: int, out_shape: tuple[int, ...], dtype,
     w = torch.empty((in_dim, *out_shape), dtype=torch.float32, device=device)
     if gen is not None:
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:

@@ -1,14 +1,14 @@
-"""Decoder-only language model of the dense substrate, in PyTorch.
+"""Decoder-only language model of the model substrate, in PyTorch.
 
-The JAX package's ``models/lm.py`` for stacks of attention blocks: layer
-stacks with a repeating block pattern, train / prefill / decode execution
-modes with fixed-capacity caches, and the weight carry from the JAX
-package's parameter tree.  Parameters are a plain dict of tensors whose
-tree is the JAX one (``embed``, ``final_norm``, ``head``,
-``stack.units[i].b0.attn.wq``, ...).  With ``cfg.scan_layers`` the units
-are stacked along a leading layer axis, as the JAX package stacks them for
-``lax.scan``; the port runs a Python loop over views of that axis.  KV
-caches are updated in place.
+The JAX package's ``models/lm.py`` for dense, MoE and hybrid (RG-LRU +
+local attention) stacks: layer stacks with a repeating block pattern,
+train / prefill / decode execution modes with fixed-capacity caches, and
+the weight carry from the JAX package's parameter tree.  Parameters are a
+plain dict of tensors whose tree is the JAX one (``embed``,
+``final_norm``, ``head``, ``stack.units[i].b0.attn.wq``, ...).  With
+``cfg.scan_layers`` the units are stacked along a leading layer axis, as
+the JAX package stacks them for ``lax.scan``; the port runs a Python loop
+over views of that axis.  Caches are updated in place.
 
 Not ported yet: encoder-decoder stacks and modality frontends (ROADMAP.md
 queue 1, items 10d-10e), the training loss (item 11).
@@ -52,13 +52,31 @@ def _unit(units, i: int, stacked: bool):
     return tree_map(lambda t: t[i], units) if stacked else units[i]
 
 
+def _init_unit(gen, pat: tuple[str, ...], cfg: ModelConfig, device) -> Params:
+    return {f"b{j}": B.init_block(bt, gen, cfg, device)
+            for j, bt in enumerate(pat)}
+
+
 def init_stack(gen, cfg: ModelConfig, device, cross: bool = False) -> Params:
+    """The layer stack's parameters.  The stacked layout allocates each
+    ``(n_units, ...)`` tensor once and writes every unit into its slot as
+    it is drawn, so the stack is never held twice; the generator is drawn
+    in the same order for both layouts, so they hold the same values."""
     if cross:
         B.unported("encdec")
     pat, n_units, rest = _pattern(cfg)
-    units = [{f"b{j}": B.init_block(bt, gen, cfg, device)
-              for j, bt in enumerate(pat)} for _ in range(n_units)]
-    p: Params = {"units": _stack(units) if cfg.scan_layers else units}
+    if cfg.scan_layers:
+        units = None
+        for i in range(n_units):
+            unit = _init_unit(gen, pat, cfg, device)
+            if units is None:
+                units = tree_map(lambda t: t.new_empty((n_units, *t.shape)),
+                                 unit)
+            tree_map(lambda slot, t: slot[i].copy_(t), units, unit)
+            del unit  # free it before the next unit is drawn
+    else:
+        units = [_init_unit(gen, pat, cfg, device) for _ in range(n_units)]
+    p: Params = {"units": units}
     if rest:
         p["rest"] = [B.init_block(bt, gen, cfg, device) for bt in rest]
     return p
@@ -86,10 +104,13 @@ def init_stack_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def _apply_block(bt: str, params: Params, x, ctx: B.BlockCtx,
                  cfg: ModelConfig, cache, encoder_out):
-    if bt != "attn":
+    if bt == "attn":
+        x, _, aux = B.apply_attn_block(params, x, ctx, cfg, cache=cache,
+                                       encoder_out=encoder_out)
+    elif bt == "rglru":
+        x, _, aux = B.apply_rglru_block(params, x, ctx, cfg, cache=cache)
+    else:
         B.unported(bt)
-    x, _, aux = B.apply_attn_block(params, x, ctx, cfg, cache=cache,
-                                   encoder_out=encoder_out)
     return x, aux
 
 

@@ -286,6 +286,7 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
     (1, 1, 1, 16, 5, False, 0, 3),          # the split draft's shape
     (3, 4, 2, 16, 100, True, 0, 60),        # ring not yet wrapped
     (2, 32, 8, 256, 70, False, 0, 70),      # full cache, hd 256, G = 4
+    (2, 10, 1, 256, 2048, True, 0, 3222),   # RecurrentGemma-2B: G = 10, ring
 ])
 def test_decode_attention_kernel_matches_plain(B, H, Kv, hd, W, ring, chunk,
                                                clen, dtype):
@@ -357,11 +358,32 @@ def test_model_prefill_then_decode_on_the_card():
     """A reduced dense model in fp32 on the card (both attention kernels):
     logits agree with the same model on the CPU (plain versions) within
     rel 1e-4, and decode after prefill agrees with the full forward."""
+    _model_on_the_card("internlm2-1.8b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b",
+                                  "recurrentgemma-2b"])
+def test_moe_and_hybrid_models_on_the_card(arch):
+    """The reduced MoE models (moe_gmm) and the hybrid model (rglru_scan
+    and both attention kernels) as the dense test above.  The hybrid's local
+    attention ring (window 64) does not wrap at 40 tokens; the attention
+    kernel tests cover a wrapped ring."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+
+    before = moe_gmm.launches, rglru_scan_op.launches
+    _model_on_the_card(arch)
+    launched = moe_gmm.launches - before[0], rglru_scan_op.launches - before[1]
+    assert launched[0 if arch != "recurrentgemma-2b" else 1] > 0
+
+
+def _model_on_the_card(arch):
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     dev = _cuda()
-    cfg = get_config("internlm2-1.8b").reduced()
+    cfg = get_config(arch).reduced()
     gen = torch.Generator()
     gen.manual_seed(0)
     params = lm.init_params(gen, cfg)
@@ -383,3 +405,99 @@ def test_model_prefill_then_decode_on_the_card():
     for a, b in zip(got[str(dev)], got["cpu"]):
         assert rel(a, b) < 1e-4
     assert rel(got[str(dev)][1], got[str(dev)][2]) < 2e-2
+
+
+# -- moe_gmm and rglru_scan ---------------------------------------------------
+#
+# moe_gmm fp32: max |out - ref| <= 1e-5 of max |ref| (tests/test_kernels.py's
+# bound: fp32 sums of the same products in another order).  bf16, element by
+# element: |out - ref| <= 2^-7 |ref| + 1e-5 (|x| . |w|).  Both sides round an
+# fp32 sum of the same products to bf16, each rounding at most 2^-8 of the
+# value; the sums themselves differ by far less than 1e-5 of the sum of the
+# products' magnitudes.  rglru_scan: max |out - ref| <= 1e-5 of max |ref|
+# (the same fp32 recurrence; both round the product and the sum apart).
+
+
+def _gmm_case(rng, E, C, D, F, dtype, dev):
+    x = _randn(rng, (E, C, D), torch.float32, dev) / np.sqrt(D)
+    return x.to(dtype), _randn(rng, (E, D, F), dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [
+    (4, 64, 256, 512),     # one 64-row tile
+    (8, 24, 100, 96),      # ragged D and F, 32-row tile
+    (16, 8, 512, 1024),    # decode: C = 8, one warp per block
+    (3, 80, 320, 200),     # C not a multiple of the 64-row tile
+    (2, 13, 64, 130),      # 16-row tile, one column past a 128 tile
+    (5, 1, 33, 7),         # a single row, less than one tile everywhere
+    (16, 640, 1024, 512),  # the served prefill rows per expert, narrowed
+])
+def test_moe_gmm_kernel_matches_plain(E, C, D, F, dtype):
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    dev = _cuda()
+    x, w = _gmm_case(np.random.default_rng(E * C + D), E, C, D, F, dtype, dev)
+    before = moe_gmm.launches
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    assert out.dtype == dtype and out.shape == (E, C, F)
+    ref = moe_gmm_ref(x, w).float()
+    diff = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+        return
+    mag = moe_gmm_ref(x.abs().float(), w.abs().float())
+    assert bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R", [
+    (2, 256, 128), (1, 512, 100), (3, 100, 256),  # tests/test_kernels.py
+    (2, 17, 33),       # S not a multiple of the 16-step unroll, R ragged
+    (4, 3072, 2560),   # the served RecurrentGemma-2B prefill
+])
+def test_rglru_scan_kernel_matches_plain(B, S, R, dtype):
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(S + R)
+    a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, R)),
+                        dtype=torch.float32, device=dev).to(dtype)
+    x = _randn(rng, (B, S, R), dtype, dev)
+    h0 = _randn(rng, (B, R), torch.float32, dev)
+    before = rglru_scan_op.launches
+    out = rglru_scan_op(a, x, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan_op.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (B, S, R)
+    ref = rglru_scan_ref(a, x, h0)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_moe_gmm_and_rglru_scan_refuse_what_they_cannot_take():
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+
+    dev = _cuda()
+    x = torch.zeros((2, 8, 16), device=dev)
+    w = torch.zeros((2, 16, 32), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe_gmm(x, w.bfloat16())
+    with pytest.raises(ValueError, match="do not fit"):
+        moe_gmm(x, torch.zeros((2, 15, 32), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm(x, torch.zeros((2, 32, 16), device=dev).transpose(1, 2))
+    with pytest.raises(ValueError, match="mixed"):
+        moe_gmm(x, w.cpu())
+    a = torch.zeros((2, 5, 16), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rglru_scan_op(a.half(), a.half(), torch.zeros((2, 16), device=dev))
+    with pytest.raises(ValueError, match="do not fit"):
+        rglru_scan_op(a, a, torch.zeros((2, 15), device=dev))

@@ -25,7 +25,13 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.models.config", "repro_torch.configs",
               "repro_torch.configs.internlm2_1_8b",
               "repro_torch.kernels.flash_attention.kernel",
-              "repro_torch.kernels.decode_attention.kernel"):
+              "repro_torch.kernels.decode_attention.kernel",
+              "repro_torch.kernels.moe_gmm.kernel",
+              "repro_torch.kernels.moe_gmm.ops",
+              "repro_torch.kernels.rglru_scan.kernel",
+              "repro_torch.kernels.rglru_scan.ops",
+              "repro_torch.configs.llama4_scout",
+              "repro_torch.configs.recurrentgemma_2b"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

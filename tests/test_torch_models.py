@@ -25,6 +25,9 @@ torch.set_num_threads(1)  # several xdist workers share the cores
 
 REL = 1e-4
 DENSE = ("internlm2-1.8b", "llama3-8b", "granite-8b", "gemma-7b")
+# MoE (top-1 + shared, top-2 + shared after reduced()) and hybrid (RG-LRU +
+# local attention)
+MOE_HYBRID = ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "recurrentgemma-2b")
 
 
 def _rel(got, want) -> float:
@@ -43,8 +46,10 @@ def _carried(arch, **overrides):
 
 
 @pytest.mark.parametrize("arch,overrides", [
-    *[(a, {}) for a in DENSE],
+    *[(a, {}) for a in DENSE + MOE_HYBRID],
     ("internlm2-1.8b", {"scan_layers": True}),  # the stacked layout
+    ("llama4-scout-17b-a16e", {"scan_layers": True}),
+    ("recurrentgemma-2b", {"scan_layers": True}),
     ("internlm2-1.8b", {"attention_type": "local", "window_size": 8}),
     ("internlm2-1.8b", {"attention_type": "chunked", "window_size": 8}),
 ])
@@ -71,7 +76,7 @@ def test_prefill_and_decode_match_jax(arch, overrides):
     assert _rel(step.numpy(), jstep) < REL
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
 def test_prefill_decode_consistency(arch):
     """decode_step logits after prefill == full-forward logits."""
     cfg = get_config(arch).reduced()
@@ -108,7 +113,56 @@ def test_steps_bind_the_shape_capacity():
     assert step.shape == (2, cfg.vocab_size)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def test_ring_cache_matches_full_cache():
+    """The port's twin of ``tests/test_models.py``'s ring-cache test: local
+    attention with a ring cache (window 64 < 191 prompt tokens, so the ring
+    wraps) decodes as the full forward does, and the ring stays bounded by
+    the window."""
+    cfg = get_config("recurrentgemma-2b").reduced()
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    params = lm.init_params(gen, cfg)
+    B, S = 1, 192
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S)))
+    hidden, _, _ = lm.forward(params, cfg, tokens, mode="train")
+    full = lm.logits_of(params, cfg, hidden)
+    _, cache = lm.prefill(params, cfg, tokens[:, :-1], capacity=S)
+    logits, _ = lm.decode_step(params, cfg, tokens[:, -1:], cache, S,
+                               capacity=S)
+    assert _rel(logits.numpy(), full.numpy()) < 2e-2
+    k_cache = cache["units"][0]["b2"]["k"]
+    assert k_cache.shape[1] == cfg.window_size
+    assert max(k_cache.shape) <= max(cfg.window_size, B, cfg.num_layers, S - 1)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", *MOE_HYBRID])
+def test_stacked_init_equals_per_unit_init(arch):
+    """``init_stack`` writes each unit into its slot of the stacked layout
+    as it is drawn: both layouts from one seed hold the same bits."""
+    cfg = get_config(arch).reduced().with_overrides(num_layers=6)
+    trees = {}
+    for stacked in (True, False):
+        gen = torch.Generator()
+        gen.manual_seed(11)
+        trees[stacked] = lm.init_params(
+            gen, cfg.with_overrides(scan_layers=stacked))
+    units = trees[True]["stack"]["units"]
+    n_units = len(trees[False]["stack"]["units"])
+    assert n_units >= 2
+    for i in range(n_units):
+        want = jax.tree.leaves(trees[False]["stack"]["units"][i])
+        got = [t[i] for t in jax.tree.leaves(units)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    for key in ("embed", "final_norm"):
+        assert torch.equal(trees[True][key], trees[False][key])
+    assert torch.equal(trees[True].get("head", trees[True]["embed"]),
+                       trees[False].get("head", trees[False]["embed"]))
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
 def test_param_count_equals_jax(arch):
     assert get_config(arch).param_count() == \
         jax_get_config(arch).param_count()
@@ -127,6 +181,37 @@ def test_params_round_trip_bit_for_bit(overrides):
     want, got = jax.tree.leaves(np_params), jax.tree.leaves(back)
     assert jax.tree.structure(np_params) == jax.tree.structure(back)
     for w, g in zip(want, got):
+        assert w.dtype == g.dtype and w.shape == g.shape
+        np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+
+
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+@pytest.mark.parametrize("scan_layers", [False, True])
+def test_moe_and_rglru_trees_round_trip_bit_for_bit(arch, scan_layers):
+    """The router, experts, shared expert and RG-LRU trees carry across in
+    either unit layout; fp32 leaves (router, RG-LRU gates, lam) stay fp32 in
+    a bf16 model, every leaf bit for bit."""
+    over = dict(scan_layers=scan_layers, dtype="bfloat16", num_layers=6)
+    jcfg = jax_get_config(arch).reduced().with_overrides(**over)
+    cfg = get_config(arch).reduced().with_overrides(**over)
+    np_params = jax.tree.map(np.asarray,
+                             jax_lm.init_params(jax.random.key(5), jcfg))
+    params = lm.params_from_numpy(np_params, cfg, device="cpu")
+    unit = params["stack"]["units"]
+    unit = unit if scan_layers else unit[0]
+    if cfg.num_experts:
+        moe = unit["b0"]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert moe["w_gate"].dtype == torch.bfloat16 and "shared" in moe
+    else:
+        rg = unit["b0"]
+        assert {"w_x", "w_gate_in", "w_out", "conv_w", "conv_b", "w_a", "b_a",
+                "w_i", "b_i", "lam"} <= set(rg)
+        assert rg["lam"].dtype == rg["w_a"].dtype == torch.float32
+        assert rg["conv_w"].dtype == torch.bfloat16
+    back = lm.params_to_numpy(params)
+    assert jax.tree.structure(np_params) == jax.tree.structure(back)
+    for w, g in zip(jax.tree.leaves(np_params), jax.tree.leaves(back)):
         assert w.dtype == g.dtype and w.shape == g.shape
         np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
 
@@ -150,9 +235,8 @@ def test_params_carry_across_layouts():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("llama4-scout-17b-a16e", "MoE"), ("kimi-k2-1t-a32b", "MoE"),
-    ("recurrentgemma-2b", "RG-LRU"), ("xlstm-125m", "xLSTM"),
-    ("seamless-m4t-medium", "encoder"), ("llava-next-34b", "vision")])
+    ("xlstm-125m", "xLSTM"), ("seamless-m4t-medium", "encoder"),
+    ("llava-next-34b", "vision")])
 def test_unported_families_raise_naming_their_roadmap_item(arch, what):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):

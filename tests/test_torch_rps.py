@@ -134,6 +134,18 @@ def test_engines_and_single_select_agree(rig):
     assert [_key(pnp.select(e, s)) for e, s in zip(embs, slos)] == want
 
 
+def test_single_select_parity(rig):
+    """Per-query ``select`` (one row through the DSQE) decides as the JAX
+    package's on every held-out query and SLO."""
+    jsel, psel = _selectors(rig)
+    jdom, pdom, test_idx = rig[0][0], rig[1][0], rig[1][5]
+    for e, je, s, js in zip(pdom.query_embeddings[test_idx],
+                            jdom.query_embeddings[test_idx],
+                            _slos(len(test_idx), SLO),
+                            _slos(len(test_idx), JaxSLO)):
+        assert _key(psel.select(e, s)) == _key(jsel.select(je, js))
+
+
 def test_one_bucket_count_per_bucket(rig):
     """kernel_trace_count counts distinct power-of-two buckets, not batch
     sizes, and pad rows never leak into decisions."""

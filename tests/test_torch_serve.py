@@ -3,7 +3,8 @@ against the JAX package, on the CPU.
 
 With the JAX server's trained DSQE carried across, the port's
 ``EcoLLMServer.handle_batch`` answers every request with the same path and
-the same emulated outcome as the JAX server's.
+the same emulated outcome as the JAX server's, and so does its
+one-request ``handle`` on the numpy engine.
 """
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ SLO_ARGS = [{}, {"max_latency_s": 2.0, "max_cost_usd": 0.004},
 torch.set_num_threads(1)
 
 
-def _port_server_with(dsqe_params, n_sets):
+def _port_server_with(dsqe_params, n_sets, use_kernel=True):
     dom = build_domain("agriculture", n_queries=40, seed=3)
     space = PathSpace()
     train_idx, test_idx = train_test_split(dom, 0.3)
@@ -41,7 +42,7 @@ def _port_server_with(dsqe_params, n_sets):
     dsqe = DSQE.from_numpy(dsqe_params, n_sets, device="cpu")
     rps = RuntimePathSelector(space, dsqe, cca, table,
                               dom.query_embeddings[train_idx], lam=0,
-                              use_kernel=True)
+                              use_kernel=use_kernel)
     return EcoLLMServer(dom, rps, emu.exec, n_replicas=2, seed=3), test_idx
 
 
@@ -65,6 +66,27 @@ def test_handle_batch_answers_like_the_jax_server():
     state = server.system_state()
     assert state["rps_engine"] == "kernel"
     assert state["fused_traces"] == 1
+    assert state["requests"] == len(test)
+
+
+def test_handle_answers_like_the_jax_server_one_request_at_a_time():
+    """``handle`` dispatches each request as a bucket of one through the
+    numpy engine; request by request, the port answers as the JAX server."""
+    jserver, jtest = jax_build_server("agriculture", n_queries=40, budget=3.0,
+                                      seed=3)
+    server, test = _port_server_with(jserver.rps.dsqe.params,
+                                     jserver.rps.dsqe.n_sets, use_kernel=False)
+    np.testing.assert_array_equal(test, jtest)
+    for i, (q, jq) in enumerate(zip(test, jtest)):
+        a = SLO_ARGS[i % 4]
+        w = jserver.handle(JaxRequest(prompt="", qid=jq, slo=JaxSLO(**a)))
+        g = server.handle(Request(prompt="", qid=q, slo=SLO(**a)))
+        assert (g.path_key, g.accuracy, g.latency_s, g.cost_usd, g.slo_ok,
+                g.meta["fallback"], g.meta["set_id"]) == \
+            (w.path_key, w.accuracy, w.latency_s, w.cost_usd, w.slo_ok,
+             w.meta["fallback"], w.meta["set_id"])
+    state = server.system_state()
+    assert state["rps_engine"] == "numpy"
     assert state["requests"] == len(test)
 
 
