@@ -19,10 +19,12 @@ version on the card.  Phases, one JSON line each:
    one PyTorch call that computes the same function as a library yardstick
    the port never calls: ``torch.topk(q @ c.T, k)`` for retrieval_topk,
    ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
-   served and long prefill and decode shapes) and ``torch.bmm`` for
-   moe_gmm (at the Llama-4-Scout prefill and decode shapes); rglru_scan has
-   no such call.  The MoE and hybrid models' attention shapes are checked
-   too.
+   served and long prefill and decode shapes of all three models) and
+   ``torch.bmm`` for moe_gmm (at the Llama-4-Scout prefill and decode
+   shapes); rglru_scan has no such call.  moe_gmm and flash_attention have
+   a tensor-core variant (bf16) and an FFMA variant (fp32, and bf16 shapes
+   TMA cannot take): bf16 at the served shapes must take the tensor-core
+   one, and the FFMA variant is timed beside it on the same inputs.
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
@@ -38,10 +40,11 @@ version on the card.  Phases, one JSON line each:
    ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
    8 prompts of 1024 tokens, then 150 greedy decode steps (the system's
    nominal response length).  The counters are set to 0 before each and
-   read after: 24 flash_attention launches for the prefill, 24 x 150
-   decode_attention launches for the decode.  Decode logits at three steps
-   must match the full forward's last-token logits (rel < 2e-2), and no
-   logit may be NaN.
+   read after: 24 flash_attention launches for the prefill, all on the
+   tensor-core variant (as every moe_gmm and flash_attention launch of
+   the served models must be), 24 x 150 decode_attention launches for the
+   decode.  Decode logits at three steps must match the full forward's
+   last-token logits (rel < 2e-2), and no logit may be NaN.
 5. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
@@ -77,6 +80,7 @@ SRC = ROOT / "src"
 # the bf16 dense tensor-core FLOP/s (the rate a bf16 attention could reach).
 PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 66.9e12, 989e12)}
 TIE = 1e-5  # values this close may order either way under fp32 rounding
+VARIANTS = ("tc", "ffma")  # the kernels with two variants count each apart
 ATOL = 1e-5  # unit-vector similarities and vote sums of <= k such terms
 TRIALS, LOOP = 5, 20
 
@@ -93,9 +97,10 @@ REL_DECODE = 2e-2  # prefill -> decode logits, tests/test_models.py's bound
 OUT_TOKENS = 150  # decode steps of every served model (core/pipeline.py)
 SCOUT_LAYERS = 12  # of 48: 12 x 4.4 GB of bf16 layers + 4.1 GB embed and head
 TWIN_LAYERS = 2  # the Scout fp32 twin: 2 x 8.8 GB + 8.3 GB embed and head
-KERNEL_NAMES = ("flash_attention_kernel", "decode_partial_kernel",
-                "decode_combine_kernel", "retrieval_topk_kernel",
-                "dsqe_score_kernel", "moe_gmm_kernel", "rglru_scan_kernel")
+KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
+                "decode_partial_kernel", "decode_combine_kernel",
+                "retrieval_topk_kernel", "dsqe_score_kernel", "moe_gmm_kernel",
+                "moe_gmm_tc_kernel", "rglru_scan_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -245,8 +250,11 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                           slot_visible)
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                         visible,
+                                                         visible_pairs)
 
     H, Kv, hd, dt = 16, 8, 128, torch.bfloat16
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -277,30 +285,55 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                                  f"plain version by {err}")
         return err
 
-    for shape, B, S in (("served prefill", 8, 1024), ("long prefill", 1, 8192)):
+    def flash_row(where, B, S, H, Kv, hd, masks, loops=()):
+        """One prefill shape: bf16 against the plain version (the served
+        route, which must be the tensor-core variant), fp32 (the FFMA
+        variant) at 1e-5, and the times of the served route, the plain
+        version, the FFMA variant on the same bf16 inputs (its explicit
+        route), and SDPA with the same mask.  Bound: 4 hd FLOPs per visible
+        (query, key) pair, q, k, v read and out written once."""
         q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
-        where = f"flash_attention/{shape}"
-        err, ratio = check_bf16(flash_attention(q, k, v),
-                                flash_attention_ref(q, k, v),
-                                flash_attention_ref(q, k, v.abs()), where)
+        tc0 = flash_attention.launches_tc
+        out = flash_attention(q, k, v, **masks)
+        if flash_attention.launches_tc != tc0 + 1:
+            raise AssertionError(f"{where}: bf16 did not take the "
+                                 "tensor-core variant")
+        err, ratio = check_bf16(out, flash_attention_ref(q, k, v, **masks),
+                                flash_attention_ref(q, k, v.abs(), **masks),
+                                where)
+        del out
         qf, kf, vf = q.float(), k.float(), v.float()
-        err32 = check_f32(flash_attention(qf, kf, vf),
-                          flash_attention_ref(qf, kf, vf), where)
+        err32 = check_f32(flash_attention(qf, kf, vf, **masks),
+                          flash_attention_ref(qf, kf, vf, **masks), where)
         del qf, kf, vf
-        ms = time_ms(torch, lambda: flash_attention(q, k, v))
-        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v))
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, **masks))
+        ffma_ms = time_ms(torch, lambda: flash_kernel.launch(
+            q, k, v, "ffma", **masks), *loops)
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, **masks),
+                        *loops)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        if masks.get("window"):
+            mask = visible(S, S, device=dev, **masks)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        else:  # causal; a chunk of 8192 does not cut these S
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        pairs = visible_pairs(S, S, **masks)
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
-        b_ms, b_by = bound(bw, bf16, nbytes, 2 * B * H * S * S * hd)
+        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * hd * pairs)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
-        log("kernels", kernel="flash_attention", shape=shape, B=B, S=S, H=H,
-            Kv=Kv, hd=hd, dtype="bf16", causal=True, bf16_limit_ratio=ratio,
-            fp32_max_abs_err=err32, **row)
-        summary.setdefault("flash_attention", row)
-        del q, k, v, qt, kt, vt
+        log("kernels", kernel="flash_attention", shape=where, B=B, S=S, H=H,
+            Kv=Kv, hd=hd, dtype="bf16", **masks, variant="tc",
+            visible_pairs=pairs, bf16_limit_ratio=ratio,
+            fp32_max_abs_err=err32, ffma_ms=ffma_ms, **row)
+        return row
+
+    causal = dict(causal=True, window=0, chunk_attn=0)
+    summary["flash_attention"] = flash_row("served prefill", 8, 1024, H, Kv,
+                                           hd, causal)
+    flash_row("long prefill", 1, 8192, H, Kv, hd, causal, loops=(3, 5))
 
     for shape, B, W, clen in (("served decode", 8, 1174, 1024 + 75),
                               ("long decode", 32, 32768, 32768)):
@@ -336,28 +369,11 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
 
     # the MoE and hybrid models' shapes (Llama-4-Scout: H 40, Kv 8, chunked
     # 8192; RecurrentGemma-2B: MQA with G = 10 at hd 256, window 2048, a
-    # wrapped ring at decode): checked as above, the kernel timed
-    for model, B, S, H, Kv, hd, masks in (
-            ("llama4-scout", 8, 1024, 40, 8, 128, dict(chunk_attn=8192)),
-            ("recurrentgemma-2b", 4, 3072, 10, 1, 256, dict(window=2048))):
-        q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
-        where = f"flash_attention/{model} served prefill"
-        err, ratio = check_bf16(flash_attention(q, k, v, **masks),
-                                flash_attention_ref(q, k, v, **masks),
-                                flash_attention_ref(q, k, v.abs(), **masks),
-                                where)
-        err32 = check_f32(flash_attention(q.float(), k.float(), v.float(),
-                                          **masks),
-                          flash_attention_ref(q.float(), k.float(), v.float(),
-                                              **masks), where)
-        ms = time_ms(torch, lambda: flash_attention(q, k, v, **masks),
-                     trials=3, loop=5)
-        log("kernels", kernel="flash_attention",
-            shape=f"{model} served prefill", B=B, S=S, H=H, Kv=Kv, hd=hd,
-            dtype="bf16", **masks,
-            max_abs_err=err, bf16_limit_ratio=ratio, fp32_max_abs_err=err32,
-            ms=ms)
-        del q, k, v
+    # wrapped ring at decode): checked and timed as above
+    flash_row("llama4-scout served prefill", 8, 1024, 40, 8, 128,
+              dict(causal=True, window=0, chunk_attn=8192), loops=(3, 5))
+    flash_row("recurrentgemma-2b served prefill", 4, 3072, 10, 1, 256,
+              dict(causal=True, window=2048, chunk_attn=0), loops=(3, 5))
     for model, B, W, clen, H, Kv, hd, chunk in (
             ("llama4-scout", 8, 1174, 1024 + 75, 40, 8, 128, 8192),
             ("recurrentgemma-2b", 4, 2048, 3072 + 75, 10, 1, 256, 0)):
@@ -393,8 +409,12 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
     an fp32 sum of the same products to bf16 (each rounding at most 2^-8 of
     the value), and the two sums differ by far less than 1e-5 of the sum of
     the products' magnitudes.  fp32: max |out - ref| <= F32_REL max |ref|.
-    Library yardstick: ``torch.bmm`` on the same bf16 operands.  Returns the
-    served prefill gate/up shape's numbers."""
+    The served shapes must take the tensor-core variant (the ragged one,
+    F = 300, takes the FFMA variant by the route's rule); beside its time
+    stand the FFMA variant's on the same bf16 inputs (its explicit route)
+    and, as library yardstick, ``torch.bmm``.  Returns the served prefill
+    gate/up shape's numbers."""
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -410,7 +430,13 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
             torch.bfloat16)
         w = torch.randn((E, K, N), generator=gen, device=dev).mul_(
             1.0 / math.sqrt(K)).to(torch.bfloat16)
+        variant = gmm_kernel.route(x.dtype, K, N)
+        if shape.startswith("served") and variant != "tc":
+            raise AssertionError(f"{where}: routed to {variant}")
+        before = getattr(moe_gmm, f"launches_{variant}")
         out = moe_gmm(x, w).float()
+        if getattr(moe_gmm, f"launches_{variant}") != before + 1:
+            raise AssertionError(f"{where}: the {variant} count did not move")
         ref = moe_gmm_ref(x, w).float()
         mag = moe_gmm_ref(x.abs().float(), w.abs().float())
         torch.cuda.synchronize()
@@ -431,6 +457,8 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
         del xf, wf, ref32
         loops = (3, 5) if C > 8 else ()  # a prefill call takes tens of ms
         ms = time_ms(torch, lambda: moe_gmm(x, w), *loops)
+        ffma_ms = time_ms(torch, lambda: gmm_kernel.launch(x, w, "ffma"),
+                          *loops)
         plain = time_ms(torch, lambda: moe_gmm_ref(x, w), *loops)
         lib_ms = time_ms(torch, lambda: torch.bmm(x, w))
         b_ms, b_by = bound(bw, bf16, 2 * (E * C * K + E * K * N + E * C * N),
@@ -438,7 +466,8 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
         log("kernels", kernel="moe_gmm", shape=shape, E=E, C=C, D=K, F=N,
-            dtype="bf16", bf16_limit_ratio=ratio, fp32_rel_err=rel32, **row)
+            dtype="bf16", variant=variant, bf16_limit_ratio=ratio,
+            fp32_rel_err=rel32, ffma_ms=ffma_ms, **row)
         summary = summary or row
         del x, w
     torch.cuda.empty_cache()
@@ -491,9 +520,11 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     """Serve ``prompts`` through ``launch.steps``: a warm-up prefill and
     decode step (one-time costs: cuBLAS handles, lazy module loads), then a
     timed prefill and ``out_tokens`` greedy decode steps.  Every launch
-    counter in ``ops`` is set to 0 just before the prefill and just before
-    the decode loop, and read just after each.  The logits of the decode
-    steps in ``watch`` are kept; none may be NaN or infinite."""
+    counter in ``ops`` (and the per-variant counters of moe_gmm and
+    flash_attention) is set to 0 just before the prefill and just before
+    the decode loop, and read just after each; every launch of a kernel with
+    two variants must have gone to its tensor-core variant.  The logits of
+    the decode steps in ``watch`` are kept; none may be NaN or infinite."""
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models.config import ShapeSpec
 
@@ -511,6 +542,13 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     def zero():
         for op in ops.values():
             op.launches = 0
+            for v in VARIANTS:
+                if hasattr(op, f"launches_{v}"):
+                    setattr(op, f"launches_{v}", 0)
+
+    def variants():
+        return {name: {v: getattr(op, f"launches_{v}") for v in VARIANTS}
+                for name, op in ops.items() if hasattr(op, "launches_tc")}
 
     zero()
     t0 = time.perf_counter()
@@ -518,6 +556,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = {name: op.launches for name, op in ops.items()}
+    prefill_variants = variants()
 
     kept, generated = {}, []
     token = logits.argmax(-1, keepdim=True)
@@ -534,14 +573,25 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     decode_launches = {name: op.launches for name, op in ops.items()}
+    decode_variants = variants()
     for t, lg in [*kept.items(), ("last", logits)]:
         if not torch.isfinite(lg).all():
             raise AssertionError(f"{cfg.name} decode step {t}: non-finite "
                                  "logits")
+    for what, counts, by_variant in (
+            ("prefill", prefill_launches, prefill_variants),
+            ("decode", decode_launches, decode_variants)):
+        for name, n in by_variant.items():
+            if n != {"tc": counts[name], "ffma": 0}:
+                raise AssertionError(f"{cfg.name} {what}: {name} launched "
+                                     f"{n} by variant, want every one of "
+                                     f"{counts[name]} on the tensor cores")
     return dict(batch=B, prompt_tokens=S, prefill_s=prefill_s,
                 decode_s=decode_s,
                 prefill_launches=prefill_launches,
-                decode_launches=decode_launches, watch=kept,
+                decode_launches=decode_launches,
+                prefill_variants=prefill_variants,
+                decode_variants=decode_variants, watch=kept,
                 generated=generated, token=token, cache=cache,
                 decode_step=decode_step,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -594,6 +644,8 @@ def served_fields(torch, cfg, params, run, out_tokens, init_s) -> dict:
         peak_memory_gb=run["peak_gb"],
         prefill_launches=run["prefill_launches"],
         decode_launches=run["decode_launches"],
+        prefill_launches_by_variant=run["prefill_variants"],
+        decode_launches_by_variant=run["decode_variants"],
         generated_head=[int(x) for x in torch.cat(run["generated"], 1)[0, :8]])
 
 
@@ -1108,7 +1160,8 @@ def main() -> int:
         {"name": "dsqe_score", "route": "cuda", "source": source,
          "replaces": "src/repro/kernels/dsqe_score/kernel.py:112",
          "launches": launches["dsqe_score"], **summary["dsqe_score"]},
-        {"name": "flash_attention", "route": "cuda", "source": attention,
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
          "launches": launches["flash_attention"],
          **summary["flash_attention"]},

@@ -27,21 +27,29 @@
 // absolute position qpos - ((qpos - j) mod W) and is visible when that is
 // >= 0 (and >= the chunk start for chunked attention), as kernel.py:47-53.
 //
-// Both take fp32 or bf16, compute scores, softmax and the P.V sum in fp32,
-// round p to the input type before the P.V product (the TPU kernels'
-// p.astype(v.dtype)), and write the input type.  head_dim is a multiple of 16
-// up to 256.
+// Both compute scores, softmax and the P.V sum in fp32, round p to the
+// input type before the P.V product (the TPU kernels' p.astype(v.dtype)),
+// and write the input type.  head_dim is a multiple of 16 up to 256.
 //
-// What bounds them on an H100: causal prefill at the served shape does
-// 2 * B * H * S^2 * hd FLOPs on 3 * B * S * H * hd inputs, far above the
-// card's ~295 FLOP/byte ridge, so it is bound by operations.  Decode reads the
-// whole live cache once for 4 * G FLOPs per element pair: bound by bytes.
-// This first version runs the products as fp32 FFMA from shared memory (a 4x4
-// register tile of scores per thread in prefill), far from the 989 TFLOP/s
-// of the bf16 tensor cores; wgmma with TMA-fed tiles is later work.  Decode
-// stages 64-slot K and V tiles through shared memory with 16-byte loads, and
-// enough blocks run at once (W split to about 8 blocks per SM) to keep
-// loads in flight.
+// What bounds them on an H100: causal prefill at the served shapes does
+// 4 hd FLOPs per visible (query, key) pair on 3 B S H hd inputs, far above
+// the card's ~295 FLOP/byte ridge: bound by operations.  Decode reads the
+// whole live cache once for 4 G FLOPs per element pair: bound by bytes.
+//
+// Prefill has two variants, chosen by one rule on dtype (kernels/
+// flash_attention/kernel.py: route):
+// * bf16 (every served model) goes to flash_attention_tc_kernel in
+//   flash_attention_tc.cu: wgmma on the tensor cores, K and V tiles fed by
+//   TMA through an mbarrier ring, the online softmax in registers.  TMA
+//   needs 16-byte global strides, which head_dim % 16 == 0 gives in bf16.
+// * fp32 stays here, on flash_attention_kernel, the first port's FFMA
+//   design: fp32 tiles of Q, K and V in shared memory (odd row stride, no
+//   bank conflicts), a 4 x 4 register tile of scores per thread over 16 x 16
+//   threads, p written to shared memory for the P.V sum, and the output
+//   accumulator in registers; 66.9 TFLOP/s peak on the CUDA cores.
+// Decode stages 64-slot K and V tiles through shared memory with 16-byte
+// loads, and enough blocks run at once (W split to about 8 blocks per SM)
+// to keep loads in flight.
 //
 // Each launcher returns cudaGetLastError() after its launches (0 on success).
 #include <cuda_bf16.h>
@@ -51,11 +59,12 @@
 #include <cmath>
 #include <cstddef>
 
+#include "hopper.cuh"
+
 namespace repro_torch {
 namespace {
 
 constexpr float kNegInf = -1e30f;  // running-max start, as the TPU kernels
-constexpr int kMaxDevices = 64;
 constexpr int kWarp = 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -141,23 +150,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// Raise a kernel's dynamic shared-memory limit on the current device to
-// `bytes`, once per device and larger size: the limit is only ever raised,
-// so a small launch after a large one keeps the large one's limit.
-template <typename F>
-cudaError_t allow_smem(F* fn, size_t bytes, std::atomic<size_t>* set) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (set[dev].load() >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) set[dev].store(bytes);
-  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -316,10 +308,11 @@ template <typename T, int MAXJ>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Skv, int H, int Kv, int hd, int causal,
                  int window, int chunk, cudaStream_t stream) {
-  static std::atomic<size_t> ready[kMaxDevices];
+  static std::atomic<size_t> ready[hopper::kMaxDevices];
   auto* fn = flash_attention_kernel<T, MAXJ>;
   const size_t smem = flash_smem_bytes(hd);
-  cudaError_t err = allow_smem(fn, flash_smem_bytes(16 * MAXJ), ready);
+  cudaError_t err =
+      hopper::allow_smem(fn, flash_smem_bytes(16 * MAXJ), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   fn<<<grid, kFlashThreads, smem, stream>>>(
@@ -501,10 +494,10 @@ int launch_decode(const void* q, const void* kc, const void* vc,
                   float* part_acc, void* out, int B, int W, int H, int Kv,
                   int hd, int split, int n_splits, int ring, int chunk,
                   cudaStream_t stream) {
-  static std::atomic<size_t> ready[kMaxDevices];
+  static std::atomic<size_t> ready[hopper::kMaxDevices];
   auto* fn = decode_partial_kernel<T>;
   const size_t smem = decode_smem_bytes(hd, H / Kv);
-  cudaError_t err = allow_smem(fn, smem, ready);
+  cudaError_t err = hopper::allow_smem(fn, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   fn<<<dim3(n_splits, Kv, B), kDecodeThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = (*ARCH_FLAGS, "-shared")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared", "-ldl")
 
 
 class KernelLibrary(NamedTuple):
@@ -113,8 +113,10 @@ def _build() -> KernelLibrary:
             ("retrieval_topk_launch", [P, P, P, P, I, I, I, I, P], I),
             ("dsqe_score_launch", [P] * 12 + [I] * 6 + [P], I),
             ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
+            ("flash_attention_tc_launch", [P] * 4 + [I] * 9 + [P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
             ("moe_gmm_launch", [P] * 3 + [I] * 5 + [P], I),
+            ("moe_gmm_tc_launch", [P] * 3 + [I] * 4 + [P], I),
             ("rglru_scan_launch", [P] * 4 + [I] * 4 + [P], I)):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -125,8 +127,9 @@ def _build() -> KernelLibrary:
 
 def kernel_library() -> KernelLibrary:
     """Every kernel in ``csrc/`` (retrieval_topk, dsqe_score,
-    flash_attention, decode_attention, moe_gmm, rglru_scan), built if needed
-    and loaded once per process."""
+    flash_attention and its tensor-core variant, decode_attention, moe_gmm
+    and its tensor-core variant, rglru_scan), built if needed and loaded once
+    per process."""
     global _loaded
     if _loaded is None:
         with _lock:

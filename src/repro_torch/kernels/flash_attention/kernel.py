@@ -1,31 +1,65 @@
-"""Launch of the hand-written Hopper prefill attention kernel.
+"""Launch of the hand-written Hopper prefill attention kernels.
 
-Replaces the Pallas TPU kernel ``flash_attention_kernel``
+Replace the Pallas TPU kernel ``flash_attention_kernel``
 (``src/repro/kernels/flash_attention/kernel.py:91``, ``pallas_call`` at
-:119).  The CUDA source is ``repro_torch/csrc/attention.cu``; its header
-comment states what bounds it on the card.  One block owns one
-(b, h, 64-row query tile) and loops over 64-key tiles, skipping those
-masked whole; query head h reads KV head ``h // (H // Kv)`` in place, so
-nothing is repeated, transposed or padded.
+:119).  Query head h reads KV head ``h // (H // Kv)`` in place, so nothing
+is repeated, transposed or padded.  Causal prefill is bound by operations
+on the H100 (4 hd FLOPs per visible query-key pair, hundreds per byte).
+
+* ``"tc"``, bf16: ``flash_attention_tc_kernel``
+  (``repro_torch/csrc/flash_attention_tc.cu``), the FA3 shape: TMA loads Q
+  once and K/V tiles through a two-stage mbarrier ring, two consumer
+  warpgroups run Q K^T and P V on the tensor cores (wgmma), the online
+  softmax stays in registers.  TMA needs 16-byte global strides, which the
+  attention contract (head_dim a multiple of 16) already gives in bf16.
+* ``"ffma"``, fp32: ``flash_attention_kernel`` (``csrc/attention.cu``), the
+  first port's design: fp32 tiles in shared memory and a 4 x 4 FFMA score
+  tile per thread, one block per (b, h, 64-row query tile).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
+from repro_torch.kernels.common import KERNEL_DTYPES
+
+VARIANTS = ("tc", "ffma")
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtype_code: int,
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The variant for attention inputs of ``dtype`` that pass
+    ``check_attention_inputs`` (head_dim a multiple of 16 up to 256)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= 256:
+        return "tc"
+    return "ffma"
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
            *, causal: bool, window: int, chunk_attn: int) -> torch.Tensor:
-    """(B, Sq, H, hd) in q's dtype; the caller has validated the inputs."""
+    """(B, Sq, H, hd) in q's dtype through ``variant``; the caller has
+    validated the inputs (and ``"tc"`` takes only what ``route`` sends
+    it)."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
+    if variant not in VARIANTS:
+        raise ValueError(f"flash_attention: unknown variant {variant!r}")
+    if variant == "tc" and route(q.dtype, hd) != "tc":
+        raise ValueError(f"flash_attention: the tensor-core variant takes "
+                         f"bf16, got {q.dtype}")
     out = torch.empty_like(q)
+    lib = kernel_library().lib
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    masks = (int(causal), window, chunk_attn)
     with torch.cuda.device(q.device):
-        err = kernel_library().lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dtype_code, B, Sq, Skv, H, Kv, hd, int(causal), window,
-            chunk_attn, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "tc":
+            err = lib.flash_attention_tc_launch(*ptrs, B, Sq, Skv, H, Kv, hd,
+                                                *masks, stream)
+        else:
+            err = lib.flash_attention_launch(*ptrs, KERNEL_DTYPES[q.dtype], B,
+                                             Sq, Skv, H, Kv, hd, *masks,
+                                             stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {variant} launch failed: "
+                           f"error {err}")
     return out

@@ -33,6 +33,23 @@ def visible(Sq: int, Skv: int, *, causal: bool, window: int, chunk_attn: int,
     return mask
 
 
+def visible_pairs(Sq: int, Skv: int, *, causal: bool, window: int,
+                  chunk_attn: int) -> int:
+    """The number of (query, key) pairs that ``visible`` allows, counted row
+    by row in closed form (no (Sq, Skv) mask is built): the work a kernel
+    that skips masked keys must do, 4 hd FLOPs per pair."""
+    total = 0
+    for t in range(Sq):
+        lo, hi = 0, (min(t, Skv - 1) if causal else Skv - 1)
+        if window:
+            lo = max(lo, t - window + 1)
+        if chunk_attn:
+            lo = max(lo, t // chunk_attn * chunk_attn)
+            hi = min(hi, (t // chunk_attn + 1) * chunk_attn - 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         chunk_attn: int = 0) -> torch.Tensor:

@@ -1,29 +1,58 @@
-"""Launch of the hand-written Hopper grouped expert matmul.
+"""Launch of the hand-written Hopper grouped expert matmul, in two variants.
 
 Replaces the Pallas TPU kernel ``moe_gmm_kernel``
 (``src/repro/kernels/moe_gmm/kernel.py:39``, ``pallas_call`` at :56).  The
 CUDA source is ``repro_torch/csrc/moe_gmm.cu``; its header comment states
-what bounds it on the card.  One block owns one (row tile, 128-column tile)
-of one expert's output and walks D, staging an x tile and a w tile in shared
-memory; the row tile's height follows C, so at decode (C = 8) the kernel is
-a stream of the expert weights.
+what bounds it on the card (operations at prefill, the bytes of w at
+decode) and how each variant is built.
+
+* ``"tc"``, bf16 with D and F multiples of 8: ``moe_gmm_tc_kernel``, wgmma
+  on the tensor cores fed by a TMA ring.  TMA needs every global stride to
+  be a multiple of 16 bytes, hence the rule on D and F; x is read through a
+  3-D tensor map, so rows of a tile past C are zeros, not the next expert's.
+* ``"ffma"``, everything else (fp32, and bf16 shapes TMA cannot take):
+  ``moe_gmm_kernel``, the first port's fp32 FFMA design from shared memory.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
+from repro_torch.kernels.common import KERNEL_DTYPES
+
+VARIANTS = ("tc", "ffma")
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, dtype_code: int) -> torch.Tensor:
-    """(E, C, F) in x's dtype; the caller has validated the inputs."""
+def route(dtype: torch.dtype, D: int, F: int) -> str:
+    """The variant that computes x (E, C, D) @ w (E, D, F) of ``dtype``."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        return "tc"
+    return "ffma"
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
+    """(E, C, F) in x's dtype through ``variant``; the caller has validated
+    the inputs (and ``"tc"`` takes only what ``route`` sends it)."""
     E, C, D = x.shape
     F = w.shape[2]
+    if variant not in VARIANTS:
+        raise ValueError(f"moe_gmm: unknown variant {variant!r}")
+    if variant == "tc" and route(x.dtype, D, F) != "tc":
+        raise ValueError(f"moe_gmm: the tensor-core variant takes bf16 with "
+                         f"D, F multiples of 8, got {x.dtype}, D {D}, F {F}")
+    if variant == "tc" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("moe_gmm: the tensor-core variant reads x and w "
+                         "through TMA, which needs 16-byte aligned bases")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    lib = kernel_library().lib
+    ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
-        err = kernel_library().lib.moe_gmm_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), dtype_code, E, C, D,
-            F, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "tc":
+            err = lib.moe_gmm_tc_launch(*ptrs, E, C, D, F, stream)
+        else:
+            err = lib.moe_gmm_launch(*ptrs, KERNEL_DTYPES[x.dtype], E, C, D,
+                                     F, stream)
     if err != 0:
-        raise RuntimeError(f"moe_gmm launch failed: CUDA error {err}")
+        raise RuntimeError(f"moe_gmm {variant} launch failed: error {err}")
     return out

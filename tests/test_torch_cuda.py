@@ -277,6 +277,41 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,Kv,hd,causal,window,chunk", [
+    (1, 100, 300, 4, 2, 64, False, 0, 0),    # Sq != Skv, ragged on 128 keys
+    (1, 100, 250, 4, 2, 128, True, 0, 0),    # causal with Sq < Skv
+    (1, 257, 257, 40, 8, 128, True, 0, 100),  # GQA G = 5, chunked, ragged
+    (2, 191, 191, 10, 2, 128, True, 0, 0),   # G = 5, 128-row tile ragged
+    (2, 129, 129, 10, 1, 256, True, 64, 0),  # MQA G = 10, window, 64 keys
+    (1, 65, 200, 4, 4, 256, False, 0, 0),    # hd 256, ragged on 64 keys
+    (1, 300, 300, 8, 1, 64, True, 33, 0),    # MQA, a window off the tiles
+    (2, 64, 64, 2, 2, 192, True, 0, 0),      # hd 192: three 64-wide boxes
+])
+def test_flash_attention_tensor_core_kernel_matches_plain(
+        B, Sq, Skv, H, Kv, hd, causal, window, chunk):
+    """bf16 runs the wgmma kernel (128 query rows, 128-key tiles up to
+    hd 128 and 64-key tiles above), at ragged edges and every mask."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(Sq * Skv + hd)
+    dt = torch.bfloat16
+    q = _randn(rng, (B, Sq, H, hd), dt, dev)
+    k = _randn(rng, (B, Skv, Kv, hd), dt, dev)
+    v = _randn(rng, (B, Skv, Kv, hd), dt, dev)
+    masks = dict(causal=causal, window=window, chunk_attn=chunk)
+    before = flash_attention.launches_tc, flash_attention.launches_ffma
+    out = flash_attention(q, k, v, **masks)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_tc, flash_attention.launches_ffma) == \
+        (before[0] + 1, before[1])
+    assert out.dtype == dt and out.shape == q.shape
+    _assert_attn(out, flash_attention_ref(q, k, v, **masks),
+                 flash_attention_ref(q, k, v.abs(), **masks), dt)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Kv,hd,W,ring,chunk,clen", [
     (2, 8, 4, 128, 512, False, 0, 300),
@@ -452,6 +487,63 @@ def test_moe_gmm_kernel_matches_plain(E, C, D, F, dtype):
         return
     mag = moe_gmm_ref(x.abs().float(), w.abs().float())
     assert bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,D,F", [
+    (1, 1, 520, 136),      # one row; D, F multiples of 8 but not of 64
+    (16, 8, 520, 136),     # decode rows: one 64-row tile, rows >= 8 zeros
+    (1, 63, 64, 64),       # one row short of the 64-row tile
+    (16, 64, 128, 256),    # exactly one 64-row tile, two 128-column tiles
+    (1, 65, 520, 136),     # one row past it: the 128-row prefill tile
+    (16, 129, 256, 264),   # one row past the 128-row tile, F ragged on 256
+    (16, 640, 520, 136),   # the served prefill rows per expert
+    (2, 640, 1024, 2048),  # several D stages round the 4-stage ring
+])
+def test_moe_gmm_tensor_core_kernel_matches_plain(E, C, D, F):
+    """bf16 with D, F multiples of 8 runs the wgmma kernel, at the edges of
+    its tiles (64 or 128 rows, 128 or 256 columns, 64-deep stages)."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    dev = _cuda()
+    x, w = _gmm_case(np.random.default_rng(E * C + D + F), E, C, D, F,
+                     torch.bfloat16, dev)
+    before = moe_gmm.launches_tc, moe_gmm.launches_ffma
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert (moe_gmm.launches_tc, moe_gmm.launches_ffma) == \
+        (before[0] + 1, before[1])
+    assert out.dtype == torch.bfloat16 and out.shape == (E, C, F)
+    ref = moe_gmm_ref(x, w).float()
+    mag = moe_gmm_ref(x.abs().float(), w.abs().float())
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+def test_kernel_routes_follow_dtype_and_shape():
+    """fp32, and bf16 with a width TMA cannot stride (F = 130), go to the
+    FFMA kernels; bf16 attention goes to the tensor cores."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    for dtype, F in ((torch.float32, 136), (torch.bfloat16, 130)):
+        x, w = _gmm_case(rng, 2, 13, 64, F, dtype, dev)
+        before = moe_gmm.launches_tc, moe_gmm.launches_ffma
+        moe_gmm(x, w)
+        assert (moe_gmm.launches_tc, moe_gmm.launches_ffma) == \
+            (before[0], before[1] + 1)
+    for dtype, variant in ((torch.float32, "ffma"), (torch.bfloat16, "tc")):
+        q = _randn(rng, (1, 40, 2, 64), dtype, dev)
+        before = flash_attention.launches_tc, flash_attention.launches_ffma
+        flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        moved = (flash_attention.launches_tc - before[0],
+                 flash_attention.launches_ffma - before[1])
+        assert moved == ((1, 0) if variant == "tc" else (0, 1))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,92 @@
+"""The rule that sends a kernel call to its tensor-core or its FFMA variant,
+and the attention work count that ``chip_smoke.py`` turns into a bound.
+
+Both are plain functions of dtype and shape, so they run on the CPU:
+
+* ``moe_gmm``: bf16 with D and F multiples of 8 (TMA's 16-byte global
+  strides) goes to the wgmma kernel, everything else to the FFMA kernel.
+* ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one.
+* ``visible_pairs``: the (query, key) pairs the plain version's mask lets
+  through, counted in closed form; it must equal the mask's sum exactly.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ref import visible, visible_pairs
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+
+bf16, f32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,D,F,want", [
+    (bf16, 5120, 8192, "tc"),   # Llama-4-Scout gate/up
+    (bf16, 8192, 5120, "tc"),   # and down
+    (bf16, 520, 136, "tc"),     # multiples of 8, not of 64
+    (bf16, 8, 8, "tc"),
+    (bf16, 100, 96, "ffma"),    # D: a 200-byte row stride
+    (bf16, 64, 130, "ffma"),    # F: a 260-byte row stride
+    (bf16, 33, 7, "ffma"),
+    (f32, 5120, 8192, "ffma"),  # fp32 never takes the bf16 tensor cores
+    (f32, 64, 64, "ffma"),
+])
+def test_moe_gmm_route(dtype, D, F, want):
+    assert gmm_kernel.route(dtype, D, F) == want
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (bf16, 128, "tc"), (bf16, 256, "tc"), (bf16, 64, "tc"), (bf16, 16, "tc"),
+    (bf16, 48, "tc"), (bf16, 192, "tc"),
+    (f32, 128, "ffma"), (f32, 256, "ffma"), (f32, 16, "ffma"),
+])
+def test_flash_attention_route(dtype, hd, want):
+    assert flash_kernel.route(dtype, hd) == want
+
+
+def test_variant_launch_refuses_what_its_route_does_not_send():
+    """Asking the tensor-core variant for what the rule sends elsewhere, or
+    for a base TMA cannot address, raises before anything is built or
+    launched."""
+    x = torch.zeros((1, 2, 64))
+    with pytest.raises(ValueError, match="tensor-core"):
+        gmm_kernel.launch(x, torch.zeros((1, 64, 8)), "tc")
+    w = torch.zeros((1, 64, 8), dtype=bf16)
+    x = torch.zeros(1 + 2 * 64, dtype=bf16)[1:].view(1, 2, 64)  # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte"):
+        gmm_kernel.launch(x, w, "tc")
+    q = torch.zeros((1, 4, 1, 64))
+    with pytest.raises(ValueError, match="tensor-core"):
+        flash_kernel.launch(q, q, q, "tc", causal=True, window=0,
+                            chunk_attn=0)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,chunk", [
+    (1, 1, True, 0, 0),
+    (64, 64, True, 0, 0),
+    (100, 300, False, 0, 0),
+    (100, 250, True, 0, 0),
+    (300, 120, True, 0, 0),
+    (257, 257, True, 0, 100),    # chunked
+    (257, 257, False, 0, 64),    # chunked, not causal
+    (300, 300, True, 33, 0),     # window
+    (129, 200, False, 64, 0),    # window without causal: keys ahead too
+    (300, 300, True, 48, 100),   # window and chunk together
+    (3072, 3072, True, 2048, 0),  # RecurrentGemma-2B's served prefill
+])
+def test_visible_pairs_counts_the_plain_mask(Sq, Skv, causal, window, chunk):
+    masks = dict(causal=causal, window=window, chunk_attn=chunk)
+    want = int(visible(Sq, Skv, device="cpu", **masks).sum())
+    assert visible_pairs(Sq, Skv, **masks) == want
+
+
+def test_visible_pairs_of_the_served_prefills():
+    """The counts behind the bounds of the three served prefill shapes:
+    causal S = 1024 (InternLM2, and Llama-4-Scout, whose 8192-token chunks
+    do not cut a 1024-token prompt) and RecurrentGemma's 2048 window over
+    3072 tokens."""
+    causal = visible_pairs(1024, 1024, causal=True, window=0, chunk_attn=0)
+    assert causal == 1024 * 1025 // 2
+    assert visible_pairs(1024, 1024, causal=True, window=0,
+                         chunk_attn=8192) == causal
+    assert visible_pairs(3072, 3072, causal=True, window=2048,
+                         chunk_attn=0) == 4_195_328
