@@ -21,15 +21,21 @@ version on the card.  Phases, one JSON line each:
    ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
    served and long prefill and decode shapes of all three models) and
    ``torch.bmm`` for moe_gmm (at the Llama-4-Scout prefill and decode
-   shapes); rglru_scan has no such call.  moe_gmm and flash_attention have
-   a tensor-core variant (bf16) and an FFMA variant (fp32, and bf16 shapes
-   TMA cannot take): bf16 at the served shapes must take the tensor-core
-   one, and the FFMA variant is timed beside it on the same inputs.
+   shapes); rglru_scan has no such call.  Four kernels have two variants,
+   chosen by one rule each (``kernel.route``): moe_gmm, flash_attention and
+   decode_attention a tensor-core one (bf16) and an FFMA one (fp32, and
+   bf16 shapes the tensor-core one cannot take), retrieval_topk a tiled one
+   (d a multiple of 4) and the warp-per-row one.  Every checked shape must
+   take the first, and the second is timed beside it on the same inputs
+   through its explicit route.  retrieval_topk and decode_attention rows
+   also log their grid (query tile and splits) and ``graph_ms``, device
+   time per call replayed from a CUDA graph, beside the library's.
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
    read just after.  Every request must be answered, retrieval_topk must
-   have launched once per selection pass, and every row must decide as the
+   have launched once per selection pass, all on the tiled variant, and
+   every row must decide as the
    same selector's numpy engine does.  ``select_batch`` runs retrieve +
    score as two stages, so dsqe_score launches no time on the served path;
    after the counters are read it is run once on the selector's stage state
@@ -40,11 +46,12 @@ version on the card.  Phases, one JSON line each:
    ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
    8 prompts of 1024 tokens, then 150 greedy decode steps (the system's
    nominal response length).  The counters are set to 0 before each and
-   read after: 24 flash_attention launches for the prefill, all on the
-   tensor-core variant (as every moe_gmm and flash_attention launch of
-   the served models must be), 24 x 150 decode_attention launches for the
-   decode.  Decode logits at three steps must match the full forward's
-   last-token logits (rel < 2e-2), and no logit may be NaN.
+   read after: 24 flash_attention launches for the prefill, 24 x 150
+   decode_attention launches for the decode, all on the tensor-core
+   variants (as every moe_gmm, flash_attention and decode_attention launch
+   of the served models must be).  Decode logits at three steps must
+   match the full forward's last-token logits (rel < 2e-2), and no logit
+   may be NaN.
 5. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
@@ -55,7 +62,8 @@ version on the card.  Phases, one JSON line each:
 7. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
-Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and
+Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
+kernel's launches on the served runs, by variant where it has two), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -99,8 +107,10 @@ SCOUT_LAYERS = 12  # of 48: 12 x 4.4 GB of bf16 layers + 4.1 GB embed and head
 TWIN_LAYERS = 2  # the Scout fp32 twin: 2 x 8.8 GB + 8.3 GB embed and head
 KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "decode_partial_kernel", "decode_combine_kernel",
-                "retrieval_topk_kernel", "dsqe_score_kernel", "moe_gmm_kernel",
-                "moe_gmm_tc_kernel", "rglru_scan_kernel")
+                "decode_attention_tc_kernel", "decode_tc_combine_kernel",
+                "retrieval_topk_kernel", "retrieval_topk_tiled_kernel",
+                "retrieval_topk_merge_kernel", "dsqe_score_kernel",
+                "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -126,6 +136,37 @@ def time_ms(torch, fn, trials: int = TRIALS, loop: int = LOOP) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / loop)
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, loop: int = LOOP, trials: int = TRIALS) -> float:
+    """Device time per call: ``loop`` calls captured in one CUDA graph,
+    replayed ``trials`` times (median), so the wrapper's host overhead,
+    which ``time_ms`` includes at small shapes, drops out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(loop):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / loop)
+    del graph
     return statistics.median(times)
 
 
@@ -247,6 +288,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
     numbers per kernel."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.common import KERNEL_DTYPES, sm_count
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                           slot_visible)
@@ -258,6 +301,7 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
 
     H, Kv, hd, dt = 16, 8, 128, torch.bfloat16
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
+    sms = sm_count(dev)
     summary = {}
 
     def check_bf16(out, ref, ref_abs_v, where):
@@ -335,37 +379,73 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                                            hd, causal)
     flash_row("long prefill", 1, 8192, H, Kv, hd, causal, loops=(3, 5))
 
-    for shape, B, W, clen in (("served decode", 8, 1174, 1024 + 75),
-                              ("long decode", 32, 32768, 32768)):
+    def decode_row(where, B, W, clen, H, Kv, hd, masks, loops=()):
+        """One decode shape: bf16 against the plain version (the served
+        route, which must be the tensor-core variant), fp32 (the FFMA
+        variant) at 1e-5, and the times of the served route (per call, and
+        as device time replayed from a CUDA graph), the plain version, the
+        FFMA variant on the same bf16 inputs (its explicit route), and SDPA
+        with the same mask; both variants also through their explicit
+        route (``route_ms``, ``route_graph_ms``).  Bound: the visible slots
+        of K and V read once, q read and out written; 4 G FLOPs per cached
+        element pair."""
         q = randn(B, 1, H, hd)
         kc, vc = randn(B, W, Kv, hd), randn(B, W, Kv, hd)
         cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-        where = f"decode_attention/{shape}"
-        err, ratio = check_bf16(decode_attention(q, kc, vc, cl),
-                                decode_attention_ref(q, kc, vc, clen),
-                                decode_attention_ref(q, kc, vc.abs(), clen),
-                                where)
+        variant = decode_kernel.route(q.dtype, H // Kv, hd)
+        tc0 = decode_attention.launches_tc
+        out = decode_attention(q, kc, vc, cl, **masks)
+        if variant != "tc" or decode_attention.launches_tc != tc0 + 1:
+            raise AssertionError(f"{where}: bf16 did not take the "
+                                 "tensor-core variant")
+        err, ratio = check_bf16(
+            out, decode_attention_ref(q, kc, vc, clen, **masks),
+            decode_attention_ref(q, kc, vc.abs(), clen, **masks), where)
+        del out
         qf, kf, vf = q.float(), kc.float(), vc.float()
-        err32 = check_f32(decode_attention(qf, kf, vf, cl),
-                          decode_attention_ref(qf, kf, vf, clen), where)
+        err32 = check_f32(decode_attention(qf, kf, vf, cl, **masks),
+                          decode_attention_ref(qf, kf, vf, clen, **masks),
+                          where)
         del qf, kf, vf
-        ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cl))
-        plain = time_ms(torch, lambda: decode_attention_ref(q, kc, vc, clen))
-        mask = slot_visible(W, clen, ring=False, chunk_attn=0,
-                            device=dev)[None, None, None, :]
+        op = lambda: decode_attention(q, kc, vc, cl, **masks)
+        ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
+        # both variants through their explicit route, per call and as
+        # device time: like for like, without the op's input checks
+        by_route = {v: lambda v=v: decode_kernel.launch(
+            q, kc, vc, cl.reshape(1), KERNEL_DTYPES[q.dtype], v, **masks)
+            for v in ("tc", "ffma")}
+        route_ms = {v: time_ms(torch, fn, *loops) for v, fn in by_route.items()}
+        route_graph_ms = {v: graph_ms(torch, fn, *loops)
+                          for v, fn in by_route.items()}
+        plain = time_ms(torch, lambda: decode_attention_ref(
+            q, kc, vc, clen, **masks), *loops)
+        visible = slot_visible(W, clen, device=dev, **masks)
+        mask = visible[None, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        # the live part of the cache is read once, q read, out written
-        nbytes = 2 * (2 * B * H * hd + 2 * B * clen * Kv * hd)
-        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * clen * hd)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_ms, lib_dev_ms = time_ms(torch, sdpa), graph_ms(torch, sdpa)
+        live = int(visible.sum())
+        nbytes = 2 * (2 * B * H * hd + 2 * B * live * Kv * hd)
+        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * live * hd)
+        split, n_splits = decode_kernel.tc_splits(B, Kv, W, sms, hd)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
-        log("kernels", kernel="decode_attention", shape=shape, B=B, W=W,
-            cache_len=clen, H=H, Kv=Kv, hd=hd, dtype="bf16",
-            bf16_limit_ratio=ratio, fp32_max_abs_err=err32, **row)
-        summary.setdefault("decode_attention", row)
-        del q, kc, vc, qt, kt, vt
+        log("kernels", kernel="decode_attention", shape=where, B=B, W=W,
+            cache_len=clen, H=H, Kv=Kv, hd=hd, dtype="bf16", **masks,
+            variant=variant, split=split, n_splits=n_splits,
+            visible_slots=live, bf16_limit_ratio=ratio,
+            fp32_max_abs_err=err32, graph_ms=dev_ms, route_ms=route_ms,
+            route_graph_ms=route_graph_ms, library_graph_ms=lib_dev_ms,
+            **row)
+        return row
+
+    dense = dict(ring=False, chunk_attn=0)
+    summary["decode_attention"] = decode_row(
+        "served decode", 8, 1174, 1024 + 75, H, Kv, hd, dense)
+    decode_row("long decode", 32, 32768, 32768, H, Kv, hd, dense,
+               loops=(3, 5))
+    torch.cuda.empty_cache()
 
     # the MoE and hybrid models' shapes (Llama-4-Scout: H 40, Kv 8, chunked
     # 8192; RecurrentGemma-2B: MQA with G = 10 at hd 256, window 2048, a
@@ -374,28 +454,10 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
               dict(causal=True, window=0, chunk_attn=8192), loops=(3, 5))
     flash_row("recurrentgemma-2b served prefill", 4, 3072, 10, 1, 256,
               dict(causal=True, window=2048, chunk_attn=0), loops=(3, 5))
-    for model, B, W, clen, H, Kv, hd, chunk in (
-            ("llama4-scout", 8, 1174, 1024 + 75, 40, 8, 128, 8192),
-            ("recurrentgemma-2b", 4, 2048, 3072 + 75, 10, 1, 256, 0)):
-        q = randn(B, 1, H, hd)
-        kc, vc = randn(B, W, Kv, hd), randn(B, W, Kv, hd)
-        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-        where = f"decode_attention/{model} served decode"
-        masks = dict(ring=True, chunk_attn=chunk)
-        err, ratio = check_bf16(
-            decode_attention(q, kc, vc, cl, **masks),
-            decode_attention_ref(q, kc, vc, clen, **masks),
-            decode_attention_ref(q, kc, vc.abs(), clen, **masks), where)
-        err32 = check_f32(
-            decode_attention(q.float(), kc.float(), vc.float(), cl, **masks),
-            decode_attention_ref(q.float(), kc.float(), vc.float(), clen,
-                                 **masks), where)
-        ms = time_ms(torch, lambda: decode_attention(q, kc, vc, cl, **masks))
-        log("kernels", kernel="decode_attention",
-            shape=f"{model} served decode", B=B, W=W, cache_len=clen, H=H,
-            Kv=Kv, hd=hd, dtype="bf16", **masks, max_abs_err=err,
-            bf16_limit_ratio=ratio, fp32_max_abs_err=err32, ms=ms)
-        del q, kc, vc
+    decode_row("llama4-scout served decode", 8, 1174, 1024 + 75, 40, 8, 128,
+               dict(ring=True, chunk_attn=8192))
+    decode_row("recurrentgemma-2b served decode", 4, 2048, 3072 + 75, 10, 1,
+               256, dict(ring=True, chunk_attn=0))
     torch.cuda.empty_cache()
     return summary
 
@@ -597,6 +659,17 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def variant_totals(run) -> dict:
+    """Launches by variant of a served run, prefill and decode summed."""
+    out = {}
+    for counts in (run["prefill_variants"], run["decode_variants"]):
+        for name, by in counts.items():
+            acc = out.setdefault(name, dict.fromkeys(VARIANTS, 0))
+            for v, n in by.items():
+                acc[v] += n
+    return out
+
+
 def check_launches(cfg, what, got, want):
     if got != want:
         raise AssertionError(f"{cfg.name} {what} launched {got}, want {want}")
@@ -686,9 +759,11 @@ def model_phase(torch, dev) -> dict:
     rels = prefill_decode_rel(torch, params, cfg, prompts, run)
     log("model", **served_fields(torch, cfg, params, run, OUT, init_s),
         prefill_to_decode_rel=rels)
+    by_variant = variant_totals(run)
     del params, run
     torch.cuda.empty_cache()
-    return {"flash_attention": n_layers, "decode_attention": n_layers * OUT}
+    return ({"flash_attention": n_layers, "decode_attention": n_layers * OUT},
+            by_variant)
 
 
 @contextlib.contextmanager
@@ -806,6 +881,7 @@ def moe_phase(torch, dev) -> dict:
                    {"moe_gmm": 3 * L * OUT, "flash_attention": 0,
                     "decode_attention": L * OUT})
     fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    by_variant = variant_totals(run)
     del run
 
     t_B, t_S, t_OUT = 2, 256, 16
@@ -845,8 +921,8 @@ def moe_phase(torch, dev) -> dict:
                            fp32_prefill_to_decode=fp32_twin))
     del params
     torch.cuda.empty_cache()
-    return {"moe_gmm": 3 * L * (1 + OUT), "flash_attention": L,
-            "decode_attention": L * OUT}
+    return ({"moe_gmm": 3 * L * (1 + OUT), "flash_attention": L,
+             "decode_attention": L * OUT}, by_variant)
 
 
 def hybrid_phase(torch, dev) -> dict:
@@ -884,10 +960,11 @@ def hybrid_phase(torch, dev) -> dict:
         rglru_layers=n_rec, attention_layers=n_attn,
         window=cfg.window_size, rnn_state_dim=cfg.rnn_state_dim,
         prefill_to_decode_rel=rels)
+    by_variant = variant_totals(run)
     del params, run
     torch.cuda.empty_cache()
-    return {"rglru_scan": n_rec, "flash_attention": n_attn,
-            "decode_attention": n_attn * OUT}
+    return ({"rglru_scan": n_rec, "flash_attention": n_attn,
+             "decode_attention": n_attn * OUT}, by_variant)
 
 
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
@@ -954,7 +1031,9 @@ def main() -> int:
     from repro_torch.core.rps import RuntimePathSelector
     from repro_torch.core.slo import SLO
     from repro_torch.kernels.build import kernel_library
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.dsqe_score.ops import dsqe_score
+    from repro_torch.kernels.retrieval_topk import kernel as topk_kernel
     from repro_torch.kernels.dsqe_score.ref import dsqe_score_ref
     from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
     from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_ref
@@ -1004,21 +1083,36 @@ def main() -> int:
     wide_c = unit(torch, gen, (65536, 512), dev)
     summary = {}
 
-    def run_topk(shape_name, q, c, k):
+    def run_topk(shape_name, q, c, k, loops=()):
+        """One retrieval shape: the served route (which must be the tiled
+        variant) against the plain version, its time per call and as device
+        time from a CUDA graph, the warp-per-row variant on the same inputs
+        (its explicit route), the plain version and the library call."""
         B, d = q.shape
         n = c.shape[0]
+        variant = topk_kernel.route(d)
+        before = retrieval_topk.launches_tiled
         vals, ids = retrieval_topk(q, c, k=k)
         torch.cuda.synchronize()
+        if variant != "tiled" or retrieval_topk.launches_tiled != before + 1:
+            raise AssertionError(f"topk/{shape_name}: did not take the tiled "
+                                 "variant")
         err, swaps = check_topk(torch, vals, ids, q, c, k, f"topk/{shape_name}")
-        ms = time_ms(torch, lambda: retrieval_topk(q, c, k=k))
+        op = lambda: retrieval_topk(q, c, k=k)
+        ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
+        row_ms = time_ms(torch, lambda: topk_kernel.launch(q, c, k, "row"),
+                         *loops)
         plain = time_ms(torch, lambda: retrieval_topk_ref(q, c, k=k))
-        lib_ms = time_ms(torch, lambda: torch.topk(q @ c.T, k, dim=1))
+        lib = lambda: torch.topk(q @ c.T, k, dim=1)
+        lib_ms, lib_dev_ms = time_ms(torch, lib), graph_ms(torch, lib)
         b_ms, b_by = bound(bw, fp32, 4 * (B * d + n * d) + 8 * B * k,
                            2 * B * n * d)
+        g = topk_kernel.grid(B, n, sm_count(dev))
         log("kernels", kernel="retrieval_topk", shape=shape_name,
-            B=B, n=n, d=d, k=k, max_abs_err=err, near_tie_swaps=swaps,
-            ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by)
+            B=B, n=n, d=d, k=k, variant=variant, grid=g._asdict(),
+            max_abs_err=err, near_tie_swaps=swaps, ms=ms, graph_ms=dev_ms,
+            row_ms=row_ms, plain_ms=plain, library_ms=lib_ms,
+            library_graph_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms)
 
@@ -1049,8 +1143,8 @@ def main() -> int:
                     bound_by=b_by, library_ms=None)
 
     summary["retrieval_topk"] = run_topk("served", z, corpus, knn)
-    run_topk("deployment", deploy[0], deploy[2], 16)
-    run_topk("wide", wide_q, wide_c, 50)
+    run_topk("deployment", deploy[0], deploy[2], 16, loops=(3, 5))
+    run_topk("wide", wide_q, wide_c, 50, loops=(3, 5))
     summary["dsqe_score"] = run_dsqe("served", served_args, knn)
     run_dsqe("deployment", deploy, 16)
     del wide_q, wide_c, deploy
@@ -1071,6 +1165,7 @@ def main() -> int:
         select_ms.append(1e3 * (time.perf_counter() - t0))
     batches0 = server.system_state()["dispatch_batches"]
     retrieval_topk.launches = 0
+    retrieval_topk.launches_tiled = retrieval_topk.launches_row = 0
     dsqe_score.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1079,6 +1174,8 @@ def main() -> int:
     serve_s = time.perf_counter() - t0
     launches = {"retrieval_topk": retrieval_topk.launches,
                 "dsqe_score": dsqe_score.launches}
+    variants = {"retrieval_topk": {"tiled": retrieval_topk.launches_tiled,
+                                   "row": retrieval_topk.launches_row}}
     passes = server.system_state()["dispatch_batches"] - batches0
     if len(responses) != len(reqs):
         raise AssertionError(f"served {len(responses)} of {len(reqs)}")
@@ -1086,6 +1183,10 @@ def main() -> int:
         raise AssertionError(f"retrieval_topk launched "
                              f"{launches['retrieval_topk']} times over "
                              f"{passes} selection passes")
+    if variants["retrieval_topk"] != {"tiled": passes, "row": 0}:
+        raise AssertionError(f"retrieval_topk launched "
+                             f"{variants['retrieval_topk']} by variant, want "
+                             f"all {passes} on the tiled kernel")
 
     twin = RuntimePathSelector(sel.space, sel.dsqe, sel.cca, sel.table,
                                sel._train_embeddings, lam=sel.lam,
@@ -1124,6 +1225,9 @@ def main() -> int:
     log("serve", domain="automotive", served=n, requests=len(reqs),
         selection_passes=passes,
         retrieval_topk_launches=launches["retrieval_topk"],
+        retrieval_topk_launches_by_variant=variants["retrieval_topk"],
+        selection_grid=topk_kernel.grid(z.shape[0], corpus.shape[0],
+                                        sm_count(dev))._asdict(),
         dsqe_score_launches=launches["dsqe_score"],
         dsqe_score_check_launches=check_launches,
         decision_parity=1.0 - mismatched / n,
@@ -1142,42 +1246,43 @@ def main() -> int:
     server.fleet.close()
 
     # -- 4-6. the served models: a kernel on several paths reports the sum
-    # of its launches over their served runs
+    # of its launches over their served runs, in all and by variant
     for phase in (model_phase, moe_phase, hybrid_phase):
-        for op, n in phase(torch, dev).items():
+        counts, by_variant = phase(torch, dev)
+        for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
+        for op, by in by_variant.items():
+            acc = variants.setdefault(op, dict.fromkeys(VARIANTS, 0))
+            for v, n in by.items():
+                acc[v] += n
 
     # -- 7. split --------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 
-    source = "src/repro_torch/csrc/selection.cu"
-    attention = "src/repro_torch/csrc/attention.cu"
+    csrc = "src/repro_torch/csrc/"
     kernels = [
-        {"name": "retrieval_topk", "route": "cuda", "source": source,
-         "replaces": "src/repro/kernels/retrieval_topk/kernel.py:87",
-         "launches": launches["retrieval_topk"], **summary["retrieval_topk"]},
-        {"name": "dsqe_score", "route": "cuda", "source": source,
-         "replaces": "src/repro/kernels/dsqe_score/kernel.py:112",
-         "launches": launches["dsqe_score"], **summary["dsqe_score"]},
+        {"name": "retrieval_topk", "route": "cuda",
+         "source": csrc + "retrieval_topk.cu",
+         "replaces": "src/repro/kernels/retrieval_topk/kernel.py:87"},
+        {"name": "dsqe_score", "route": "cuda", "source": csrc + "selection.cu",
+         "replaces": "src/repro/kernels/dsqe_score/kernel.py:112"},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
-         "launches": launches["flash_attention"],
-         **summary["flash_attention"]},
-        {"name": "decode_attention", "route": "cuda", "source": attention,
-         "replaces": "src/repro/kernels/decode_attention/kernel.py:77",
-         "launches": launches["decode_attention"],
-         **summary["decode_attention"]},
-        {"name": "moe_gmm", "route": "cuda",
-         "source": "src/repro_torch/csrc/moe_gmm.cu",
-         "replaces": "src/repro/kernels/moe_gmm/kernel.py:39",
-         "launches": launches["moe_gmm"], **summary["moe_gmm"]},
+         "source": csrc + "flash_attention_tc.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:91"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": csrc + "decode_attention_tc.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:77"},
+        {"name": "moe_gmm", "route": "cuda", "source": csrc + "moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:39"},
         {"name": "rglru_scan", "route": "cuda",
-         "source": "src/repro_torch/csrc/rglru_scan.cu",
-         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
-         "launches": launches["rglru_scan"], **summary["rglru_scan"]},
+         "source": csrc + "rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41"},
     ]
+    for entry in kernels:
+        op = entry["name"]
+        entry.update(launches=launches[op], variants=variants.get(op),
+                     **summary[op])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,9 +47,13 @@
 //   bank conflicts), a 4 x 4 register tile of scores per thread over 16 x 16
 //   threads, p written to shared memory for the P.V sum, and the output
 //   accumulator in registers; 66.9 TFLOP/s peak on the CUDA cores.
-// Decode stages 64-slot K and V tiles through shared memory with 16-byte
-// loads, and enough blocks run at once (W split to about 8 blocks per SM)
-// to keep loads in flight.
+// Decode has two variants, chosen by one rule on dtype and group size
+// (kernels/decode_attention/kernel.py: route): bf16 with G <= 16 goes to
+// decode_attention_tc_kernel in decode_attention_tc.cu (bf16 tiles through
+// a cp.async ring, mma.sync); the rest (fp32) stays here, on
+// decode_partial_kernel + decode_combine_kernel, which stage 64-slot K and
+// V tiles through shared memory as fp32 with 16-byte loads, with W split to
+// about 8 blocks per SM.
 //
 // Each launcher returns cudaGetLastError() after its launches (0 on success).
 #include <cuda_bf16.h>

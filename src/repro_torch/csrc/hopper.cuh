@@ -2,7 +2,9 @@
 // moe_gmm.cu, flash_attention_tc_kernel in flash_attention_tc.cu):
 // mbarriers, TMA tile loads, named barriers, wgmma shared-memory
 // descriptors, the wgmma instructions themselves, setmaxnreg, and the
-// host-side encoding of TMA tensor maps; plus the shared-memory limit
+// host-side encoding of TMA tensor maps; the cp.async, ldmatrix and
+// warp-level mma.sync of the kernels with small tiles (retrieval_topk.cu,
+// decode_attention_tc.cu); plus the shared-memory limit
 // helper of every kernel with large tiles.  Everything here is sm_90a PTX
 // written inline; nothing comes from a library of finished kernels.
 //
@@ -479,6 +481,58 @@ inline int bf16_map(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// -- cp.async, ldmatrix and mma.sync (retrieval_topk.cu,
+// decode_attention_tc.cu) ----------------------------------------------------
+// 16 bytes global -> shared without a register round trip; src_bytes = 0
+// reads nothing and writes 16 zero bytes.  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and register i receives matrix i: thread t
+// holds row t / 4, columns 2 (t % 4) and 2 (t % 4) + 1 (of the transpose
+// with .trans)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// d += a b on one warp, m16n8k16, bf16 in, fp32 accumulate.  With g = lane
+// / 4, c = lane % 4: a holds A[g][2c..2c+1], A[g+8][2c..], A[g][2c+8..],
+// A[g+8][2c+8..] (bf16 pairs, lower column in the low half); b0, b1 hold
+// B[2c..2c+1][g] and B[2c+8..2c+9][g]; d holds D[g][2c..2c+1] and
+// D[g+8][2c..2c+1].
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Raise a kernel's dynamic shared-memory limit on the current device to

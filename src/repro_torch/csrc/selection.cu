@@ -21,8 +21,10 @@
 // shared-memory load of the tile per FMA, so shared-memory bandwidth, not
 // HBM, caps the inner loop.  One block serves kWarpsPerBlock queries, so at
 // small B (the 8-query bucket launches 2 blocks) the grid underfills the 132
-// SMs and the kernel is latency bound.  Splitting n across blocks with a
-// merge pass, or a 3xTF32 wgmma similarity GEMM, is later work.
+// SMs and the kernel is latency bound.  retrieval_topk.cu splits n across
+// blocks with a merge pass and takes every width that is a multiple of 4;
+// this retrieval kernel keeps the rest (kernels/retrieval_topk/kernel.py:
+// route).
 //
 // Each launcher returns cudaGetLastError() after the launch (0 on success);
 // selection_prepare(d) must have run on the device first.

@@ -111,10 +111,13 @@ def _build() -> KernelLibrary:
             ("selection_max_k", [], I),
             ("selection_prepare", [I], I),
             ("retrieval_topk_launch", [P, P, P, P, I, I, I, I, P], I),
+            ("retrieval_topk_tiled_launch", [P] * 7 + [I] * 8 + [P], I),
             ("dsqe_score_launch", [P] * 12 + [I] * 6 + [P], I),
             ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
             ("flash_attention_tc_launch", [P] * 4 + [I] * 9 + [P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
+            ("decode_attention_tc_smem_bytes", [I], S),
+            ("decode_attention_tc_launch", [P] * 8 + [I] * 9 + [P], I),
             ("moe_gmm_launch", [P] * 3 + [I] * 5 + [P], I),
             ("moe_gmm_tc_launch", [P] * 3 + [I] * 4 + [P], I),
             ("rglru_scan_launch", [P] * 4 + [I] * 4 + [P], I)):
@@ -126,10 +129,10 @@ def _build() -> KernelLibrary:
 
 
 def kernel_library() -> KernelLibrary:
-    """Every kernel in ``csrc/`` (retrieval_topk, dsqe_score,
-    flash_attention and its tensor-core variant, decode_attention, moe_gmm
-    and its tensor-core variant, rglru_scan), built if needed and loaded once
-    per process."""
+    """Every kernel in ``csrc/`` (retrieval_topk and its tiled variant,
+    dsqe_score, flash_attention and decode_attention and their tensor-core
+    variants, moe_gmm and its tensor-core variant, rglru_scan), built if
+    needed and loaded once per process."""
     global _loaded
     if _loaded is None:
         with _lock:

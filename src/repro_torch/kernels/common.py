@@ -8,6 +8,9 @@ silent slow path.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 # Masked-score sentinel shared by the selection kernels and their refs.
@@ -35,6 +38,34 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the grid rules' input)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _sm_count(index)
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the current CUDA device for a
+    launch, or does nothing when it already is (the usual case, where
+    ``torch.cuda.device`` would still spend microseconds on lookups)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current stream of ``device`` as a ``cudaStream_t`` address for a
+    kernel's C launcher: ``torch.cuda.current_stream(device).cuda_stream``
+    without the Stream object and its device lookups."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -1,34 +1,53 @@
-"""Launch of the hand-written Hopper decode attention kernel.
+"""Launch of the hand-written Hopper decode attention kernels.
 
-Replaces the Pallas TPU kernel ``decode_attention_kernel``
+Replace the Pallas TPU kernel ``decode_attention_kernel``
 (``src/repro/kernels/decode_attention/kernel.py:77``, ``pallas_call`` at
-:115).  The CUDA source is ``repro_torch/csrc/attention.cu``; its header
-comment states what bounds it on the card.  The TPU kernel walks the cache
-sequentially for each (b, kv head); here the cache is split along W over
-about ``BLOCKS_PER_SM`` blocks per SM (flash-decoding), and a second kernel
-combines the partial softmax states.
+:115).  The TPU kernel walks the cache sequentially for each (b, kv head);
+here the cache is split along W across blocks (flash-decoding), and the
+partial softmax states are combined.  Decode is bound by bytes on the H100
+(the live cache is read once).  Two variants, chosen by one rule
+(``route``):
+
+* ``"tc"``, bf16 with G = H / Kv <= 16 and head_dim a multiple of 16 (every
+  served model): ``decode_attention_tc_kernel`` in
+  ``repro_torch/csrc/decode_attention_tc.cu``.  K and V tiles stay bf16 in
+  shared memory and arrive through a 3-stage ``cp.async`` ring; Q K^T and
+  P V run on ``mma.sync`` with the G heads padded to 16 rows, the softmax
+  in registers; one wave of blocks (``tc_splits``), and a combine kernel
+  only when W is split.
+* ``"ffma"``, the rest (fp32): the first port's ``decode_partial_kernel``
+  + ``decode_combine_kernel`` (``csrc/attention.cu``), fp32 tiles and
+  FFMA, about ``BLOCKS_PER_SM`` blocks per SM (``splits``).
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
+from repro_torch.kernels.common import on_device, raw_stream, sm_count
 
-TILE = 64  # cache slots per tile (kTK in attention.cu)
-BLOCKS_PER_SM = 8
+VARIANTS = ("tc", "ffma")
+TILE = 64  # cache slots per tile of both variants (kTK, kTile)
+BLOCKS_PER_SM = 8  # the FFMA variant's grid
+TC_STAGES = 3  # the tensor-core variant's ring (kStages)
+TC_ROWS = 16  # query heads per block, padded (kRows)
+SM_SHARED_BYTES = 233472  # 228 KB of an H100 SM; 1 KB of it per block is
+# the system's
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def route(dtype: torch.dtype, G: int, head_dim: int) -> str:
+    """The variant for decode inputs of ``dtype`` with G query heads per KV
+    head that pass ``check_attention_inputs`` (head_dim a multiple of 16 up
+    to 256)."""
+    if dtype == torch.bfloat16 and G <= TC_ROWS and head_dim % 16 == 0:
+        return "tc"
+    return "ffma"
 
 
 def splits(B: int, Kv: int, W: int, sms: int) -> tuple[int, int]:
-    """(slots per split, number of splits): enough splits that B * Kv *
-    splits blocks fill ``sms`` SMs ``BLOCKS_PER_SM`` deep, each split a
-    whole number of tiles."""
+    """FFMA variant: (slots per split, number of splits): enough splits
+    that B * Kv * splits blocks fill ``sms`` SMs ``BLOCKS_PER_SM`` deep,
+    each split a whole number of tiles."""
     want = max(1, -(-BLOCKS_PER_SM * sms // (B * Kv)))
     n = min(want, -(-W // TILE))
     split = -(-W // n)
@@ -36,28 +55,75 @@ def splits(B: int, Kv: int, W: int, sms: int) -> tuple[int, int]:
     return split, -(-W // split)
 
 
+def tc_smem_bytes(head_dim: int) -> int:
+    """Tensor-core variant: one block's shared memory, Q and a ring of K
+    and V tiles in bf16 rows padded by 16 bytes (``smem_bytes`` in
+    ``decode_attention_tc.cu``)."""
+    ld = head_dim + 8
+    return 2 * ld * (TC_ROWS + TC_STAGES * 2 * TILE)
+
+
+def tc_blocks_per_sm(head_dim: int) -> int:
+    """Blocks of the tensor-core variant that share one SM's shared
+    memory: 2 up to head_dim 128, 1 above."""
+    return max(1, SM_SHARED_BYTES // (tc_smem_bytes(head_dim) + 1024))
+
+
+def tc_splits(B: int, Kv: int, W: int, sms: int,
+              head_dim: int) -> tuple[int, int]:
+    """Tensor-core variant: (slots per split, number of splits).  As many
+    splits as keep B * Kv * splits blocks within one wave (every block
+    resident at once), each a whole number of tiles; one split when B * Kv
+    alone fills the wave, and then no combine."""
+    n_tiles = -(-W // TILE)
+    wave = tc_blocks_per_sm(head_dim) * sms
+    n = max(1, min(wave // (B * Kv), n_tiles))
+    split = -(-n_tiles // n) * TILE
+    return split, -(-W // split)
+
+
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           cache_len: torch.Tensor, dtype_code: int, *, ring: bool,
-           chunk_attn: int) -> torch.Tensor:
-    """(B, 1, H, hd) in q's dtype; the caller has validated the inputs and
-    made ``cache_len`` a (1,) int32 tensor on the cache's device."""
+           cache_len: torch.Tensor, dtype_code: int, variant: str, *,
+           ring: bool, chunk_attn: int) -> torch.Tensor:
+    """(B, 1, H, hd) in q's dtype through ``variant``; the caller has
+    validated the inputs and made ``cache_len`` a (1,) int32 tensor on the
+    cache's device (and ``"tc"`` takes only what ``route`` sends it)."""
     B, _, H, hd = q.shape
     W, Kv = k_cache.shape[1], k_cache.shape[2]
+    if variant not in VARIANTS:
+        raise ValueError(f"decode_attention: unknown variant {variant!r}")
+    if variant == "tc" and route(q.dtype, H // Kv, hd) != "tc":
+        raise ValueError(f"decode_attention: the tensor-core variant takes "
+                         f"bf16 with G <= {TC_ROWS}, got {q.dtype}, "
+                         f"G = {H // Kv}")
     dev = q.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    split, n_splits = splits(B, Kv, W, _sm_count(index))
-    part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
-                           device=dev)
+    if variant == "tc":
+        split, n_splits = tc_splits(B, Kv, W, sm_count(dev), hd)
+    else:
+        split, n_splits = splits(B, Kv, W, sm_count(dev))
+    parts = (None, None, None)
+    if variant == "ffma" or n_splits > 1:  # (m, l, acc) of each split, in
+        # one allocation: m and l (B, H, n_splits), acc (B, H, n_splits, hd)
+        scratch = torch.empty(B * H * n_splits * (hd + 2),
+                              dtype=torch.float32, device=dev)
+        n = B * H * n_splits
+        parts = (scratch.data_ptr(), scratch[n:].data_ptr(),
+                 scratch[2 * n:].data_ptr())
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        err = kernel_library().lib.decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(), dtype_code, B, W, H, Kv, hd,
-            split, n_splits, int(ring), chunk_attn,
-            torch.cuda.current_stream().cuda_stream)
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_len.data_ptr(), *parts, out.data_ptr())
+    lib = kernel_library().lib
+    with on_device(dev):
+        stream = raw_stream(dev)
+        if variant == "tc":
+            err = lib.decode_attention_tc_launch(
+                *args, B, W, H, Kv, hd, split, n_splits, int(ring),
+                chunk_attn, stream)
+        else:
+            err = lib.decode_attention_launch(
+                *args, dtype_code, B, W, H, Kv, hd, split, n_splits,
+                int(ring), chunk_attn, stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"decode_attention {variant} launch failed: CUDA "
+                           f"error {err}")
     return out

@@ -1,7 +1,9 @@
 """Public wrapper for decode attention.
 
 Dispatch (``kernels/common.py``): CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the Hopper kernel (``kernel.py``) or raise.
+``ref.py``; CUDA tensors launch a Hopper kernel (``kernel.py``) or raise.
+Which kernel is one rule on dtype and shape (``kernel.route``).  Nothing is
+caught: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     on the cache's device, which the kernel reads there (no host sync).  A
     dense cache admits slots < cache_len; a ring (``ring=True``) the slots
     whose absolute position is >= 0 and, with ``chunk_attn``, in the query's
-    chunk.  Returns (B, 1, H, hd) in q's dtype.  The kernel takes fp32 or
-    bf16 and head_dim a multiple of 16 up to 256.
-    ``decode_attention.launches`` counts kernel launches.
+    chunk.  Returns (B, 1, H, hd) in q's dtype.  The kernels take fp32 or
+    bf16 and head_dim a multiple of 16 up to 256; bf16 with H / Kv <= 16
+    runs on the tensor cores, the rest on the FFMA kernel
+    (``kernel.route``).  ``decode_attention.launches`` counts kernel calls,
+    ``decode_attention.launches_tc`` and ``decode_attention.launches_ffma``
+    those of each variant.
     """
     if not use_kernel(q, k_cache, v_cache):
         return decode_attention_ref(q, k_cache, v_cache, cache_len, ring=ring,
@@ -50,10 +55,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                device=q.device)
     if q.numel() == 0 or k_cache.shape[1] == 0:
         return torch.zeros_like(q)
-    out = kernel.launch(q, k_cache, v_cache, cache_len, code, ring=ring,
-                        chunk_attn=chunk_attn)
+    variant = kernel.route(q.dtype, q.shape[2] // k_cache.shape[2],
+                           q.shape[3])
+    out = kernel.launch(q, k_cache, v_cache, cache_len, code, variant,
+                        ring=ring, chunk_attn=chunk_attn)
     decode_attention.launches += 1
+    if variant == "tc":
+        decode_attention.launches_tc += 1
+    else:
+        decode_attention.launches_ffma += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_tc = 0
+decode_attention.launches_ffma = 0

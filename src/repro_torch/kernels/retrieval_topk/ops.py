@@ -1,7 +1,10 @@
 """Public wrapper for the batched retrieval top-k.
 
 Dispatch (``kernels/common.py``): CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the Hopper kernel (``kernel.py``) or raise.
+``ref.py``; CUDA tensors launch a Hopper kernel (``kernel.py``) or raise.
+Which kernel is one rule on shape (``kernel.route``): d a multiple of 4
+takes the tiled kernel (split corpus, then a merge), the rest the
+warp-per-row kernel.  Nothing is caught: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ def retrieval_topk(q: torch.Tensor, corpus: torch.Tensor, *, k: int):
     int32).
 
     Shapes: q (Bq, d), corpus (n, d); ``k`` is clamped to ``n``.  Scores
-    descending per row, exact ties broken by lowest corpus id.  The kernel
-    takes 1 <= k <= 64.  ``retrieval_topk.launches`` counts kernel launches.
+    descending per row, exact ties broken by lowest corpus id.  The kernels
+    take 1 <= k <= 64.  ``retrieval_topk.launches`` counts kernel calls,
+    ``retrieval_topk.launches_tiled`` and ``retrieval_topk.launches_row``
+    those of each variant.
     """
     k = min(k, corpus.shape[0])
     if not use_kernel(q, corpus):
@@ -31,9 +36,16 @@ def retrieval_topk(q: torch.Tensor, corpus: torch.Tensor, *, k: int):
     if q.shape[0] == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
-    vals, ids = kernel.launch(q, corpus, k)
+    variant = kernel.route(q.shape[1])
+    vals, ids = kernel.launch(q, corpus, k, variant)
     retrieval_topk.launches += 1
+    if variant == "tiled":
+        retrieval_topk.launches_tiled += 1
+    else:
+        retrieval_topk.launches_row += 1
     return vals, ids
 
 
 retrieval_topk.launches = 0
+retrieval_topk.launches_tiled = 0
+retrieval_topk.launches_row = 0

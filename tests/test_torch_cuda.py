@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.common import NEG_INF, resolve_device
+from repro_torch.kernels.common import NEG_INF, resolve_device, sm_count
 from repro_torch.kernels.dsqe_score.ops import dsqe_score
 from repro_torch.kernels.dsqe_score.ref import dsqe_score_ref
+from repro_torch.kernels.retrieval_topk import kernel as topk_kernel
 from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
 from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_ref
 
@@ -48,12 +49,72 @@ def test_retrieval_topk_kernel_matches_plain(Bq, n, d, k):
     dev = _cuda()
     rng = np.random.default_rng(n + d)
     q, c = _unit(rng, (Bq, d), dev), _unit(rng, (n, d), dev)
-    before = retrieval_topk.launches
+    variant = topk_kernel.route(d)
+    before = retrieval_topk.launches, _topk_variant_counts()
     vals, ids = retrieval_topk(q, c, k=k)
     torch.cuda.synchronize()
-    assert retrieval_topk.launches == before + 1
+    assert retrieval_topk.launches == before[0] + 1
+    assert _topk_variant_counts()[variant] == before[1][variant] + 1
     assert vals.dtype == torch.float32 and ids.dtype == torch.int32
     _assert_topk(vals, ids, *retrieval_topk_ref(q, c, k=min(k, n)))
+
+
+def _topk_variant_counts():
+    return {v: getattr(retrieval_topk, f"launches_{v}")
+            for v in topk_kernel.VARIANTS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bq,n,d,k", [
+    (300, 20000, 64, 64),   # five query tiles, many splits and a merge
+    (37, 5003, 100, 16),    # ragged B and n, d not a multiple of 32
+    (65, 3 * 128 + 1, 36, 50),  # one row past the last whole tile
+    (256, 16384, 256, 16),  # the deployment selection shape
+    (64, 84, 256, 16),      # the served selection shape: one split
+    (1, 129, 4, 1),
+    (130, 40000, 32, 64),
+])
+def test_retrieval_topk_tiled_kernel_matches_plain(Bq, n, d, k):
+    """The tiled variant, with the corpus split as ``grid`` cuts it for
+    this card (64- or 16-row query tiles, one split or many and a merge):
+    each case asserts the tiled counter moved."""
+    dev = _cuda()
+    rng = np.random.default_rng(Bq + n + d)
+    q, c = _unit(rng, (Bq, d), dev), _unit(rng, (n, d), dev)
+    g = topk_kernel.grid(Bq, n, sm_count(q.device))
+    assert (g.n_splits == 1) == (n <= 128)  # a split is whole 128-row tiles
+    before = _topk_variant_counts()
+    vals, ids = retrieval_topk(q, c, k=k)
+    torch.cuda.synchronize()
+    assert _topk_variant_counts() == {"tiled": before["tiled"] + 1,
+                                      "row": before["row"]}
+    _assert_topk(vals, ids, *retrieval_topk_ref(q, c, k=min(k, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 50, 64])
+def test_retrieval_topk_tiled_kernel_ties_across_splits(k):
+    """Exact ties on both sides of every split boundary and at the k-th
+    place: the corpus is 128 rows repeated 40 times (every row ties with
+    the rows 128 apart, which lie in other splits of 128 rows at B = 256),
+    and entries are multiples of 1/8 at d = 32, so every dot product is
+    exact in fp32 whatever the order of the sum.  Ids must equal the plain
+    version's in float64 (lowest id first on ties), values within 1e-5."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    base = rng.integers(-3, 4, size=(128, 32)) / 8.0
+    c = torch.as_tensor(np.tile(base, (40, 1)), dtype=torch.float32,
+                        device=dev)
+    q = torch.as_tensor(rng.integers(-3, 4, size=(256, 32)) / 8.0,
+                        dtype=torch.float32, device=dev)
+    assert topk_kernel.grid(256, c.shape[0], sm_count(q.device)).n_splits > 1
+    before = _topk_variant_counts()
+    vals, ids = retrieval_topk(q, c, k=k)
+    torch.cuda.synchronize()
+    assert _topk_variant_counts()["tiled"] == before["tiled"] + 1
+    rv, ri = retrieval_topk_ref(q.double().cpu(), c.double().cpu(), k=k)
+    np.testing.assert_array_equal(ids.cpu().numpy(), ri.numpy())
+    np.testing.assert_allclose(vals.cpu().numpy(), rv.numpy(), atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -164,9 +225,9 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
         retrieval_topk(q.double(), c.double(), k=4)
     with pytest.raises(ValueError, match="contiguous"):
         retrieval_topk(q, torch.zeros((8, 100), device=dev).T, k=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        retrieval_topk(torch.zeros((2, 4096), device=dev),
-                       torch.zeros((10, 4096), device=dev), k=4)
+    with pytest.raises(ValueError, match="shared memory"):  # row variant
+        retrieval_topk(torch.zeros((2, 4095), device=dev),
+                       torch.zeros((10, 4095), device=dev), k=4)
     with pytest.raises(ValueError, match="mixed"):
         retrieval_topk(q, c.cpu(), k=4)
 
@@ -175,13 +236,16 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
 def test_kernels_launch_across_widths_in_any_order():
     """The shared-memory limit is set once per device and width, so a
     narrow width after a wide one must not lower it for the wide one
-    (d = 640 needs more than the 48 KB a launch gets unasked)."""
+    (d = 640 needs more than the 48 KB a launch gets unasked).  Widths d + 1
+    are odd, so retrieval there takes the warp-per-row variant, whose tile
+    grows with d as dsqe_score's does; the tiled variant takes d."""
     dev = _cuda()
     rng = np.random.default_rng(7)
     for d in (640, 64, 640, 300, 900, 64):
-        q, c = _unit(rng, (6, d), dev), _unit(rng, (90, d), dev)
-        _assert_topk(*retrieval_topk(q, c, k=8),
-                     *retrieval_topk_ref(q, c, k=8))
+        for width in (d + 1, d):
+            q, c = _unit(rng, (6, width), dev), _unit(rng, (90, width), dev)
+            _assert_topk(*retrieval_topk(q, c, k=8),
+                         *retrieval_topk_ref(q, c, k=8))
         args = _dsqe_args(rng, dev, 6, d, 5, 90, 40)
         _assert_dsqe(*dsqe_score(*args, knn=8), *dsqe_score_ref(*args, knn=8))
 
@@ -336,37 +400,127 @@ def test_decode_attention_kernel_matches_plain(B, H, Kv, hd, W, ring, chunk,
     ref = decode_attention_ref(q, kc, vc, clen, ring=ring, chunk_attn=chunk)
     ref_abs_v = decode_attention_ref(q, kc, vc.abs(), clen, ring=ring,
                                      chunk_attn=chunk)
-    before = decode_attention.launches
+    variant = "tc" if dtype == torch.bfloat16 else "ffma"
+    before = decode_attention.launches, _decode_variant_counts()
     for cache_len in (clen, torch.tensor(clen, dtype=torch.int32, device=dev)):
         out = decode_attention(q, kc, vc, cache_len, ring=ring,
                                chunk_attn=chunk)
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == q.shape
         _assert_attn(out, ref, ref_abs_v, dtype)
-    assert decode_attention.launches == before + 2
+    assert decode_attention.launches == before[0] + 2
+    assert _decode_variant_counts()[variant] == before[1][variant] + 2
+    if dtype == torch.bfloat16:  # the FFMA variant, by its explicit route
+        _assert_attn(_decode_launch(q, kc, vc, clen, "ffma", ring=ring,
+                                    chunk_attn=chunk), ref, ref_abs_v, dtype)
+
+
+def _decode_variant_counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    return {"tc": decode_attention.launches_tc,
+            "ffma": decode_attention.launches_ffma}
+
+
+def _decode_launch(q, kc, vc, clen, variant, *, ring=False, chunk_attn=0):
+    """One variant through ``kernel.launch`` (no counter moves)."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    from repro_torch.kernels.decode_attention import kernel
+
+    cl = torch.full((1,), clen, dtype=torch.int32, device=q.device)
+    out = kernel.launch(q, kc, vc, cl, KERNEL_DTYPES[q.dtype], variant,
+                        ring=ring, chunk_attn=chunk_attn)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 112, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 5, 7, 8, 10, 16])
+def test_decode_attention_tensor_core_kernel_matches_plain(G, hd):
+    """The tensor-core variant at every G and head_dim of the catalog
+    (and G = 16, the padded row count), dense, ring and chunked ring, with
+    cache_len at the edges of a 64-slot tile, the whole cache and a wrapped
+    ring; W = 200 leaves a ragged last tile."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = _cuda()
+    B, Kv, W = 2, 2, 200
+    rng = np.random.default_rng(G * 1000 + hd)
+    q = _randn(rng, (B, 1, G * Kv, hd), torch.bfloat16, dev)
+    kc = _randn(rng, (B, W, Kv, hd), torch.bfloat16, dev)
+    vc = _randn(rng, (B, W, Kv, hd), torch.bfloat16, dev)
+    cases = [(False, 0, n) for n in (1, 63, 64, 65, W)]
+    cases += [(True, chunk, n) for chunk in (0, 48)
+              for n in (1, 63, 64, 65, W, 2 * W + 37)]
+    before = _decode_variant_counts()
+    for ring, chunk, clen in cases:
+        masks = dict(ring=ring, chunk_attn=chunk)
+        out = decode_attention(q, kc, vc, clen, **masks)
+        torch.cuda.synchronize()
+        _assert_attn(out, decode_attention_ref(q, kc, vc, clen, **masks),
+                     decode_attention_ref(q, kc, vc.abs(), clen, **masks),
+                     torch.bfloat16)
+    assert _decode_variant_counts() == {"tc": before["tc"] + len(cases),
+                                        "ffma": before["ffma"]}
 
 
 @pytest.mark.cuda
 def test_decode_attention_kernel_reads_no_slot_past_cache_len():
-    """A dense cache's slots at or past cache_len hold NaN: the kernel must
-    not read them (a NaN times a zero weight would still be NaN)."""
+    """A dense cache's slots at or past cache_len hold NaN: neither variant
+    may read them (a NaN times a zero weight would still be NaN).  The op
+    takes the tensor-core variant; the FFMA one runs by its explicit route,
+    and at W = 4096 the tensor-core one splits the cache and combines."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     dev = _cuda()
     rng = np.random.default_rng(11)
-    q = _randn(rng, (2, 1, 8, 128), torch.bfloat16, dev)
-    kc = _randn(rng, (2, 600, 4, 128), torch.bfloat16, dev)
-    vc = _randn(rng, (2, 600, 4, 128), torch.bfloat16, dev)
-    clean_k, clean_v = kc.clone(), vc.clone()
-    kc[:, 377:] = float("nan")
-    vc[:, 377:] = float("nan")
-    out = decode_attention(q, kc, vc, 377)
-    torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
-    _assert_attn(out, decode_attention_ref(q, clean_k, clean_v, 377),
-                 decode_attention_ref(q, clean_k, clean_v.abs(), 377),
-                 torch.bfloat16)
+    for W, clen in ((600, 377), (4096, 1500)):
+        q = _randn(rng, (2, 1, 8, 128), torch.bfloat16, dev)
+        kc = _randn(rng, (2, W, 4, 128), torch.bfloat16, dev)
+        vc = _randn(rng, (2, W, 4, 128), torch.bfloat16, dev)
+        clean_k, clean_v = kc.clone(), vc.clone()
+        kc[:, clen:] = float("nan")
+        vc[:, clen:] = float("nan")
+        ref = decode_attention_ref(q, clean_k, clean_v, clen)
+        ref_abs_v = decode_attention_ref(q, clean_k, clean_v.abs(), clen)
+        before = _decode_variant_counts()
+        out = decode_attention(q, kc, vc, clen)
+        torch.cuda.synchronize()
+        assert _decode_variant_counts()["tc"] == before["tc"] + 1
+        for got in (out, _decode_launch(q, kc, vc, clen, "ffma")):
+            assert torch.isfinite(got).all()
+            _assert_attn(got, ref, ref_abs_v, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_decode_attention_routes_follow_dtype_and_groups():
+    """fp32, and bf16 with more than 16 query heads per KV head, go to the
+    FFMA kernel; bf16 with G <= 16 to the tensor cores.  The shared memory
+    the tensor-core kernel asks for is what ``tc_smem_bytes`` (and so the
+    split rule) assumes."""
+    from repro_torch.kernels.build import kernel_library
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    for dtype, H, want in ((torch.float32, 8, "ffma"),
+                           (torch.bfloat16, 20, "ffma"),
+                           (torch.bfloat16, 16, "tc")):
+        q = _randn(rng, (1, 1, H, 64), dtype, dev)
+        kc = _randn(rng, (1, 90, 1, 64), dtype, dev)
+        before = _decode_variant_counts()
+        decode_attention(q, kc, kc, 50)
+        torch.cuda.synchronize()
+        moved = {v: n - before[v] for v, n in _decode_variant_counts().items()}
+        assert moved == {"tc": int(want == "tc"), "ffma": int(want == "ffma")}
+    lib = kernel_library().lib
+    for hd in (16, 64, 112, 128, 192, 256):
+        assert lib.decode_attention_tc_smem_bytes(hd) == \
+            kernel.tc_smem_bytes(hd)
 
 
 @pytest.mark.cuda

@@ -6,12 +6,17 @@ Both are plain functions of dtype and shape, so they run on the CPU:
 * ``moe_gmm``: bf16 with D and F multiples of 8 (TMA's 16-byte global
   strides) goes to the wgmma kernel, everything else to the FFMA kernel.
 * ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one.
+* ``decode_attention``: bf16 with G = H / Kv <= 16 goes to the mma.sync
+  kernel, everything else (fp32) to the FFMA kernel; ``tc_splits`` cuts W
+  into whole tiles within one wave of blocks.
 * ``visible_pairs``: the (query, key) pairs the plain version's mask lets
   through, counted in closed form; it must equal the mask's sum exactly.
 """
 import pytest
 import torch
 
+from repro_torch.configs import ALL_ARCHS, get_config
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import visible, visible_pairs
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
@@ -43,6 +48,64 @@ def test_flash_attention_route(dtype, hd, want):
     assert flash_kernel.route(dtype, hd) == want
 
 
+@pytest.mark.parametrize("dtype,G,hd,want", [
+    (bf16, 2, 128, "tc"),    # InternLM2-1.8B
+    (bf16, 5, 128, "tc"),    # Llama-4-Scout
+    (bf16, 10, 256, "tc"),   # RecurrentGemma-2B
+    (bf16, 8, 112, "tc"),    # Kimi-K2
+    (bf16, 1, 192, "tc"),    # xLSTM
+    (bf16, 16, 64, "tc"),    # the padded row count itself
+    (bf16, 1, 16, "tc"),
+    (bf16, 17, 128, "ffma"),  # more heads than the 16 padded rows
+    (bf16, 32, 64, "ffma"),
+    (f32, 2, 128, "ffma"),   # fp32 never takes the bf16 tensor cores
+    (f32, 10, 256, "ffma"),
+])
+def test_decode_attention_route(dtype, G, hd, want):
+    assert decode_kernel.route(dtype, G, hd) == want
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_catalog_config_decodes_on_the_tensor_cores_in_bf16(arch):
+    cfg = get_config(arch)
+    G = cfg.num_heads // cfg.num_kv_heads
+    assert decode_kernel.route(bf16, G, cfg.head_dim) == "tc"
+
+
+@pytest.mark.parametrize("B,Kv,W,hd,want", [
+    (8, 8, 1174, 128, (320, 4)),    # InternLM2 / Scout served decode
+    (32, 8, 32768, 128, (32768, 1)),  # long decode: one split, no combine
+    (4, 1, 2048, 256, (64, 32)),    # RecurrentGemma served ring
+    (1, 1, 5, 16, (64, 1)),         # the split draft's shape
+])
+def test_decode_attention_tc_splits(B, Kv, W, hd, want):
+    assert decode_kernel.tc_splits(B, Kv, W, 132, hd) == want
+
+
+@pytest.mark.parametrize("B,Kv", [(1, 1), (4, 1), (8, 8), (32, 8), (64, 8),
+                                  (3, 5)])
+@pytest.mark.parametrize("W,hd", [(5, 16), (200, 64), (1174, 128),
+                                  (2048, 256), (32768, 112)])
+def test_decode_attention_tc_splits_stay_within_one_wave(B, Kv, W, hd):
+    """Splits are whole 64-slot tiles that cover W, none empty, and the
+    blocks fit one wave (every block resident at once) unless B * Kv alone
+    exceeds it."""
+    split, n = decode_kernel.tc_splits(B, Kv, W, 132, hd)
+    assert split % decode_kernel.TILE == 0
+    assert (n - 1) * split < W <= n * split
+    wave = decode_kernel.tc_blocks_per_sm(hd) * 132
+    assert B * Kv * n <= wave or n == 1
+
+
+@pytest.mark.parametrize("hd,want", [(64, 3), (112, 2), (128, 2), (192, 1),
+                                     (256, 1)])
+def test_decode_attention_tc_blocks_per_sm(hd, want):
+    """Shared memory per block (a 3-stage ring of 64-slot K and V tiles and
+    16 query rows, bf16 rows padded by 16 bytes) against 228 KB an SM."""
+    assert decode_kernel.tc_blocks_per_sm(hd) == want
+    assert decode_kernel.tc_smem_bytes(hd) <= 232448  # one block's limit
+
+
 def test_variant_launch_refuses_what_its_route_does_not_send():
     """Asking the tensor-core variant for what the rule sends elsewhere, or
     for a base TMA cannot address, raises before anything is built or
@@ -58,6 +121,16 @@ def test_variant_launch_refuses_what_its_route_does_not_send():
     with pytest.raises(ValueError, match="tensor-core"):
         flash_kernel.launch(q, q, q, "tc", causal=True, window=0,
                             chunk_attn=0)
+    q = torch.zeros((1, 1, 4, 64))
+    cache = torch.zeros((1, 8, 1, 64))
+    with pytest.raises(ValueError, match="tensor-core"):
+        decode_kernel.launch(q, cache, cache, torch.ones(1, dtype=torch.int32),
+                             0, "tc", ring=False, chunk_attn=0)
+    q = torch.zeros((1, 1, 17, 64), dtype=bf16)
+    cache = torch.zeros((1, 8, 1, 64), dtype=bf16)
+    with pytest.raises(ValueError, match="G <= 16"):
+        decode_kernel.launch(q, cache, cache, torch.ones(1, dtype=torch.int32),
+                             1, "tc", ring=False, chunk_attn=0)
 
 
 @pytest.mark.parametrize("Sq,Skv,causal,window,chunk", [
