@@ -21,15 +21,20 @@ version on the card.  Phases, one JSON line each:
    ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
    served and long prefill and decode shapes of all three models) and
    ``torch.bmm`` for moe_gmm (at the Llama-4-Scout prefill and decode
-   shapes); rglru_scan has no such call.  Four kernels have two variants,
-   chosen by one rule each (``kernel.route``): moe_gmm, flash_attention and
-   decode_attention a tensor-core one (bf16) and an FFMA one (fp32, and
-   bf16 shapes the tensor-core one cannot take), retrieval_topk a tiled one
-   (d a multiple of 4) and the warp-per-row one.  Every checked shape must
-   take the first, and the second is timed beside it on the same inputs
-   through its explicit route.  retrieval_topk and decode_attention rows
-   also log their grid (query tile and splits) and ``graph_ms``, device
-   time per call replayed from a CUDA graph, beside the library's.
+   shapes); rglru_scan and dsqe_score have no such call.  Three kernels
+   have two variants, chosen by one rule each (``kernel.route``): moe_gmm,
+   flash_attention and decode_attention a tensor-core one (bf16) and an
+   FFMA one (fp32, and bf16 shapes the tensor-core one cannot take).  Every
+   checked shape must take the first, and the second is timed beside it on
+   the same inputs through its explicit route.  retrieval_topk and
+   dsqe_score share one rule on k: the tiled route (k <= 64) or the select
+   route (above), for every width; each checked shape must move its route's
+   counter (deployment k 100 and knn 100 take the select route, d 2049 the
+   tiled one with 4-byte row copies), and the first port's warp-per-row
+   kernel is timed beside them on the same inputs where it takes them (its
+   explicit route).  The selection and decode_attention rows also log their
+   grid (query tile and splits) and ``graph_ms``, device time per call
+   replayed from a CUDA graph, beside the library's.
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
@@ -37,10 +42,10 @@ version on the card.  Phases, one JSON line each:
    have launched once per selection pass, all on the tiled variant, and
    every row must decide as the
    same selector's numpy engine does.  ``select_batch`` runs retrieve +
-   score as two stages, so dsqe_score launches no time on the served path;
-   after the counters are read it is run once on the selector's stage state
-   and must reproduce the fused pass's scores and set ids
-   (``dsqe_score_check_launches``).
+   score as two stages (as the reference's fused program does), so
+   dsqe_score launches no time on the served path; after the counters are
+   read it is run once on the selector's stage state and must reproduce the
+   fused pass's scores and set ids (``dsqe_score_check_launches``: 1).
 4. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
    bf16 with seeded random weights, served through
    ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
@@ -91,6 +96,8 @@ TIE = 1e-5  # values this close may order either way under fp32 rounding
 VARIANTS = ("tc", "ffma")  # the kernels with two variants count each apart
 ATOL = 1e-5  # unit-vector similarities and vote sums of <= k such terms
 TRIALS, LOOP = 5, 20
+ROW_MAX_D = 1024  # widths the warp-per-row kernels are timed at (they refuse
+# above about 1600: their corpus tile must fit shared memory)
 
 
 def log(phase: str, **fields) -> None:
@@ -109,7 +116,9 @@ KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "decode_partial_kernel", "decode_combine_kernel",
                 "decode_attention_tc_kernel", "decode_tc_combine_kernel",
                 "retrieval_topk_kernel", "retrieval_topk_tiled_kernel",
-                "retrieval_topk_merge_kernel", "dsqe_score_kernel",
+                "retrieval_topk_merge_kernel", "retrieval_topk_scores_kernel",
+                "retrieval_topk_select_kernel", "dsqe_score_kernel",
+                "dsqe_score_merge_kernel", "dsqe_score_select_kernel",
                 "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel")
 
 
@@ -1032,6 +1041,7 @@ def main() -> int:
     from repro_torch.core.slo import SLO
     from repro_torch.kernels.build import kernel_library
     from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.dsqe_score import kernel as dsqe_kernel
     from repro_torch.kernels.dsqe_score.ops import dsqe_score
     from repro_torch.kernels.retrieval_topk import kernel as topk_kernel
     from repro_torch.kernels.dsqe_score.ref import dsqe_score_ref
@@ -1081,27 +1091,33 @@ def main() -> int:
     deploy = deployment_tables(torch, gen, dev, 256, 256, 32, 16384, 210)
     wide_q = unit(torch, gen, (256, 512), dev)
     wide_c = unit(torch, gen, (65536, 512), dev)
+    odd_q = unit(torch, gen, (256, 2049), dev)  # rows copied 4 bytes at a time
+    odd_c = unit(torch, gen, (4096, 2049), dev)
     summary = {}
 
     def run_topk(shape_name, q, c, k, loops=()):
-        """One retrieval shape: the served route (which must be the tiled
-        variant) against the plain version, its time per call and as device
-        time from a CUDA graph, the warp-per-row variant on the same inputs
-        (its explicit route), the plain version and the library call."""
+        """One retrieval shape: the served route (tiled for k <= 64, select
+        above; its counter must move) against the plain version, its time
+        per call and as device time from a CUDA graph, the warp-per-row
+        variant on the same inputs where it takes them (its explicit route:
+        k <= 64, d up to about 1600), the plain version and the library
+        call."""
         B, d = q.shape
         n = c.shape[0]
-        variant = topk_kernel.route(d)
-        before = retrieval_topk.launches_tiled
+        variant = topk_kernel.route(k)
+        before = getattr(retrieval_topk, f"launches_{variant}")
         vals, ids = retrieval_topk(q, c, k=k)
         torch.cuda.synchronize()
-        if variant != "tiled" or retrieval_topk.launches_tiled != before + 1:
-            raise AssertionError(f"topk/{shape_name}: did not take the tiled "
-                                 "variant")
+        if getattr(retrieval_topk, f"launches_{variant}") != before + 1:
+            raise AssertionError(f"topk/{shape_name}: did not take the "
+                                 f"{variant} route")
         err, swaps = check_topk(torch, vals, ids, q, c, k, f"topk/{shape_name}")
         op = lambda: retrieval_topk(q, c, k=k)
         ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
-        row_ms = time_ms(torch, lambda: topk_kernel.launch(q, c, k, "row"),
-                         *loops)
+        row_ms = None
+        if k <= topk_kernel.TILED_MAX_K and d <= ROW_MAX_D:
+            row_ms = time_ms(torch, lambda: topk_kernel.launch(q, c, k, "row"),
+                             *loops)
         plain = time_ms(torch, lambda: retrieval_topk_ref(q, c, k=k))
         lib = lambda: torch.topk(q @ c.T, k, dim=1)
         lib_ms, lib_dev_ms = time_ms(torch, lib), graph_ms(torch, lib)
@@ -1116,15 +1132,31 @@ def main() -> int:
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms)
 
-    def run_dsqe(shape_name, args, k):
+    def run_dsqe(shape_name, args, k, loops=()):
+        """One scoring shape: the route (tiled for knn <= 64, select above;
+        its counter must move) against the plain version, its time per call
+        and as device time from a CUDA graph, the first port's warp-per-row
+        kernel on the same inputs where it takes them (its explicit route),
+        and the plain version.  No single PyTorch call computes it."""
         q, protos, train, pathw, contains = args[:5]
         B, d = q.shape
         K, N, P = protos.shape[0], train.shape[0], pathw.shape[1]
+        variant = topk_kernel.route(k)
+        before = getattr(dsqe_score, f"launches_{variant}")
         scores, set_id = dsqe_score(*args, knn=k)
         torch.cuda.synchronize()
+        if getattr(dsqe_score, f"launches_{variant}") != before + 1:
+            raise AssertionError(f"dsqe/{shape_name}: did not take the "
+                                 f"{variant} route")
         err, tie_rows = check_dsqe(torch, scores, set_id, args, k,
                                    f"dsqe/{shape_name}")
-        ms = time_ms(torch, lambda: dsqe_score(*args, knn=k))
+        op = lambda: dsqe_score(*args, knn=k)
+        ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
+        row_ms = None
+        if k <= topk_kernel.TILED_MAX_K and d <= ROW_MAX_D:
+            flat = (*args[:5], *(t.reshape(-1) for t in args[5:9]), args[9])
+            row_ms = time_ms(torch, lambda: dsqe_kernel.launch(*flat, k, "row"),
+                             *loops)
         plain = time_ms(torch, lambda: dsqe_score_ref(*args, knn=k))
         # bytes the function must move: q, protos, train, the path-weight
         # and containment rows this data selects, four (P,) tables, SLOs,
@@ -1136,18 +1168,26 @@ def main() -> int:
                       + 4 * P + 2 * B + B * P + B)
         ops = 2 * B * N * d + 2 * B * K * d + 2 * B * k * P
         b_ms, b_by = bound(bw, fp32, nbytes, ops)
+        g = topk_kernel.grid(B, N, sm_count(dev))
         log("kernels", kernel="dsqe_score", shape=shape_name, B=B, d=d, K=K,
-            N=N, P=P, knn=k, max_abs_err=err, knn_tie_rows=tie_rows, ms=ms,
-            plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            N=N, P=P, knn=k, variant=variant, grid=g._asdict(),
+            max_abs_err=err, knn_tie_rows=tie_rows, ms=ms, graph_ms=dev_ms,
+            row_ms=row_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None)
 
     summary["retrieval_topk"] = run_topk("served", z, corpus, knn)
     run_topk("deployment", deploy[0], deploy[2], 16, loops=(3, 5))
+    run_topk("deployment k100", deploy[0], deploy[2], 100)
     run_topk("wide", wide_q, wide_c, 50, loops=(3, 5))
+    run_topk("odd width", odd_q, odd_c, 16)
+    # the same rows cut to d 2048: 16-byte copies, the same grid
+    run_topk("even width", odd_q[:, :2048].contiguous(),
+             odd_c[:, :2048].contiguous(), 16)
     summary["dsqe_score"] = run_dsqe("served", served_args, knn)
-    run_dsqe("deployment", deploy, 16)
-    del wide_q, wide_c, deploy
+    run_dsqe("deployment", deploy, 16, loops=(3, 5))
+    run_dsqe("deployment knn100", deploy, 100)
+    del wide_q, wide_c, odd_q, odd_c, deploy
     summary.update(attention_kernels(torch, dev, gen, bw, bf16))
     summary["moe_gmm"] = gmm_kernels(torch, dev, gen, bw, bf16)
     summary["rglru_scan"] = scan_kernels(torch, dev, gen, bw, fp32)
@@ -1164,9 +1204,8 @@ def main() -> int:
         torch.cuda.synchronize()
         select_ms.append(1e3 * (time.perf_counter() - t0))
     batches0 = server.system_state()["dispatch_batches"]
-    retrieval_topk.launches = 0
-    retrieval_topk.launches_tiled = retrieval_topk.launches_row = 0
-    dsqe_score.launches = 0
+    for op in (retrieval_topk, dsqe_score):
+        op.launches = op.launches_tiled = op.launches_select = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     responses = server.handle_batch(reqs)
@@ -1174,8 +1213,9 @@ def main() -> int:
     serve_s = time.perf_counter() - t0
     launches = {"retrieval_topk": retrieval_topk.launches,
                 "dsqe_score": dsqe_score.launches}
-    variants = {"retrieval_topk": {"tiled": retrieval_topk.launches_tiled,
-                                   "row": retrieval_topk.launches_row}}
+    variants = {op.__name__: {"tiled": op.launches_tiled,
+                              "select": op.launches_select}
+                for op in (retrieval_topk, dsqe_score)}
     passes = server.system_state()["dispatch_batches"] - batches0
     if len(responses) != len(reqs):
         raise AssertionError(f"served {len(responses)} of {len(reqs)}")
@@ -1183,10 +1223,15 @@ def main() -> int:
         raise AssertionError(f"retrieval_topk launched "
                              f"{launches['retrieval_topk']} times over "
                              f"{passes} selection passes")
-    if variants["retrieval_topk"] != {"tiled": passes, "row": 0}:
+    if variants["retrieval_topk"] != {"tiled": passes, "select": 0}:
         raise AssertionError(f"retrieval_topk launched "
                              f"{variants['retrieval_topk']} by variant, want "
                              f"all {passes} on the tiled kernel")
+    if variants["dsqe_score"] != {"tiled": 0, "select": 0} or \
+            launches["dsqe_score"]:
+        raise AssertionError(f"dsqe_score launched {variants['dsqe_score']} "
+                             "by variant on the served path, want none: "
+                             "select_batch runs retrieve + score as stages")
 
     twin = RuntimePathSelector(sel.space, sel.dsqe, sel.cca, sel.table,
                                sel._train_embeddings, lam=sel.lam,
@@ -1208,6 +1253,9 @@ def main() -> int:
     k_scores, k_set = dsqe_score(*served_args, knn=knn)
     check_launches = dsqe_score.launches - check_launches
     torch.cuda.synchronize()
+    if check_launches != 1:
+        raise AssertionError(f"the dsqe_score check launched {check_launches} "
+                             "times, want 1")
     B = len(test_idx)
     f_scores_t = torch.from_numpy(f_scores).to(dev)
     if not torch.equal(k_set[:B].long().cpu(), torch.from_numpy(f_set)):
@@ -1265,7 +1313,8 @@ def main() -> int:
         {"name": "retrieval_topk", "route": "cuda",
          "source": csrc + "retrieval_topk.cu",
          "replaces": "src/repro/kernels/retrieval_topk/kernel.py:87"},
-        {"name": "dsqe_score", "route": "cuda", "source": csrc + "selection.cu",
+        {"name": "dsqe_score", "route": "cuda",
+         "source": csrc + "dsqe_score.cu",
          "replaces": "src/repro/kernels/dsqe_score/kernel.py:112"},
         {"name": "flash_attention", "route": "cuda",
          "source": csrc + "flash_attention_tc.cu",

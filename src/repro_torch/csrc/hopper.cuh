@@ -3,7 +3,7 @@
 // mbarriers, TMA tile loads, named barriers, wgmma shared-memory
 // descriptors, the wgmma instructions themselves, setmaxnreg, and the
 // host-side encoding of TMA tensor maps; the cp.async, ldmatrix and
-// warp-level mma.sync of the kernels with small tiles (retrieval_topk.cu,
+// warp-level mma.sync of the kernels with small tiles (tiled_topk.cuh,
 // decode_attention_tc.cu); plus the shared-memory limit
 // helper of every kernel with large tiles.  Everything here is sm_90a PTX
 // written inline; nothing comes from a library of finished kernels.
@@ -483,13 +483,20 @@ inline int bf16_map(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
 }
 
-// -- cp.async, ldmatrix and mma.sync (retrieval_topk.cu,
+// -- cp.async, ldmatrix and mma.sync (tiled_topk.cuh,
 // decode_attention_tc.cu) ----------------------------------------------------
 // 16 bytes global -> shared without a register round trip; src_bytes = 0
 // reads nothing and writes 16 zero bytes.  Both addresses 16-byte aligned.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+// The same for 4 bytes (through L1: .cg takes only 16), both addresses
+// 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

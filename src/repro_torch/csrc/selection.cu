@@ -1,30 +1,25 @@
-// Hopper kernels of online path selection (paper Algorithm 3).
+// The first port's warp-per-row selection kernels (paper Algorithm 3), the
+// "row" variants of retrieval_topk and dsqe_score.  No route sends a call
+// here any more: retrieval_topk.cu and dsqe_score.cu (the tiled top-k core of
+// tiled_topk.cuh) take every k and d.  They stay callable by name
+// (kernel.launch(..., "row")) so that chip_smoke.py can time them beside
+// the redesign on the same inputs.
 //
 // retrieval_topk replaces the Pallas TPU kernel retrieval_topk_kernel
 // (src/repro/kernels/retrieval_topk/kernel.py:87): for each query row the
 // descending top-k of q . corpus_row over an (n, d) fp32 corpus, ties to the
-// lowest id.
-//
-// dsqe_score replaces the Pallas TPU kernel dsqe_score_kernel
+// lowest id.  dsqe_score replaces dsqe_score_kernel
 // (src/repro/kernels/dsqe_score/kernel.py:112): the same streamed kNN top-k
-// over the projected train rows, then per query the first-argmax prototype
-// (critical set), the kNN vote over the neighbours' path-weight rows plus the
-// prior, and the SLO / containment / validity mask (NEG_INF where it fails).
-// The TPU kernel scatters the votes over all N rows and multiplies by the
-// whole (N, P) path-weight table held in VMEM; here each query gathers only
-// the k rows it voted for: score[p] = prior[p] + sum_s max(v_s, 0) * W[id_s, p].
+// over the projected train rows, then per query the first-argmax prototype,
+// the kNN vote over the neighbours' path-weight rows plus the prior, and
+// the SLO / containment / validity mask (NEG_INF where it fails).
 //
-// What bounds them on an H100: the similarity pass is 2*B*n*d fp32 FLOPs on
-// CUDA cores (no TF32, no tensor cores: TF32 would move similarities enough
-// to flip kNN and argmax decisions) against n*d*4 bytes of corpus read once
-// per block of kWarpsPerBlock queries.  Per lane the dot product issues one
-// shared-memory load of the tile per FMA, so shared-memory bandwidth, not
-// HBM, caps the inner loop.  One block serves kWarpsPerBlock queries, so at
-// small B (the 8-query bucket launches 2 blocks) the grid underfills the 132
-// SMs and the kernel is latency bound.  retrieval_topk.cu splits n across
-// blocks with a merge pass and takes every width that is a multiple of 4;
-// this retrieval kernel keeps the rest (kernels/retrieval_topk/kernel.py:
-// route).
+// What bounds them on an H100: one warp per query streams 32-row corpus
+// tiles through shared memory (one shared-memory load per FMA), one block
+// serves kWarpsPerBlock queries (B / 4 blocks for 132 SMs), the tile copy is
+// synchronous and the running top-k (topk.cuh, k <= 64) inserts one
+// candidate at a time.  The shared tile grows with d: above about 1600 it
+// does not fit (kernels/retrieval_topk/kernel.py: prepare refuses it).
 //
 // Each launcher returns cudaGetLastError() after the launch (0 on success);
 // selection_prepare(d) must have run on the device first.
@@ -161,8 +156,6 @@ extern "C" size_t selection_smem_bytes(int d) {
   return smem_floats(kWarpsPerBlock, d) * sizeof(float);
 }
 
-extern "C" int selection_max_k() { return kMaxK; }
-
 // Allow both kernels the dynamic shared memory of width d on the current
 // device (above 48 KB this must be asked for).  The wrappers call it only
 // when d is wider than any width made ready before on that device, never
@@ -187,13 +180,15 @@ extern "C" int retrieval_topk_launch(const float* q, const float* corpus,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dsqe_score_launch(const float* q, const float* protos,
-                                 const float* train, const float* path_weights,
-                                 const float* contains, const float* lat,
-                                 const float* cost, const float* prior,
-                                 const float* valid, const float* slo,
-                                 float* scores, int* set_ids, int B, int K,
-                                 int N, int P, int d, int knn, void* stream) {
+extern "C" int dsqe_score_row_launch(const float* q, const float* protos,
+                                     const float* train,
+                                     const float* path_weights,
+                                     const float* contains, const float* lat,
+                                     const float* cost, const float* prior,
+                                     const float* valid, const float* slo,
+                                     float* scores, int* set_ids, int B,
+                                     int K, int N, int P, int d, int knn,
+                                     void* stream) {
   const size_t smem = selection_smem_bytes(d);
   auto kernel = dsqe_score_kernel<kWarpsPerBlock>;
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);

@@ -1,7 +1,9 @@
-// Shared pieces of the two selection kernels (retrieval_topk, dsqe_score):
-// corpus tiles staged in shared memory, one warp per query row, and the
-// per-query running top-k that replaces the TPU kernels' ``topk_merge``
-// (src/repro/kernels/retrieval_topk/kernel.py:38).
+// Shared pieces of the warp-per-row selection kernels (selection.cu, the
+// "row" variants of retrieval_topk and dsqe_score): corpus tiles staged in
+// shared memory, one warp per query row, and the per-query running top-k
+// that replaces the TPU kernels' ``topk_merge``
+// (src/repro/kernels/retrieval_topk/kernel.py:38).  kFull, kWarp and
+// kNegInf serve the tiled core (tiled_topk.cuh) too.
 //
 // Layout: a block of NW warps owns NW query rows.  The block walks the
 // (n, d) corpus in tiles of kTileRows = 32 rows; each tile is copied to
@@ -19,7 +21,6 @@ namespace repro_torch {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
 constexpr int kTileRows = 32;  // one tile row per lane
-constexpr int kMaxK = 64;      // two running slots per lane
 constexpr float kNegInf = -1e30f;  // NEG_INF of kernels/common.py
 
 // Shared-memory floats of one block: the corpus tile plus NW query rows.

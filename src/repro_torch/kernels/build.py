@@ -108,11 +108,13 @@ def _build() -> KernelLibrary:
     P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     for name, args, res in (
             ("selection_smem_bytes", [I], S),
-            ("selection_max_k", [], I),
             ("selection_prepare", [I], I),
             ("retrieval_topk_launch", [P, P, P, P, I, I, I, I, P], I),
-            ("retrieval_topk_tiled_launch", [P] * 7 + [I] * 8 + [P], I),
-            ("dsqe_score_launch", [P] * 12 + [I] * 6 + [P], I),
+            ("retrieval_topk_tiled_launch", [P] * 7 + [I] * 9 + [P], I),
+            ("retrieval_topk_select_launch", [P] * 6 + [I] * 9 + [P], I),
+            ("dsqe_score_row_launch", [P] * 12 + [I] * 6 + [P], I),
+            ("dsqe_score_tiled_launch", [P] * 15 + [I] * 11 + [P], I),
+            ("dsqe_score_select_launch", [P] * 14 + [I] * 11 + [P], I),
             ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
             ("flash_attention_tc_launch", [P] * 4 + [I] * 9 + [P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
@@ -129,8 +131,8 @@ def _build() -> KernelLibrary:
 
 
 def kernel_library() -> KernelLibrary:
-    """Every kernel in ``csrc/`` (retrieval_topk and its tiled variant,
-    dsqe_score, flash_attention and decode_attention and their tensor-core
+    """Every kernel in ``csrc/`` (retrieval_topk and dsqe_score, each with
+    its tiled, select and row variants, flash_attention and decode_attention and their tensor-core
     variants, moe_gmm and its tensor-core variant, rglru_scan), built if
     needed and loaded once per process."""
     global _loaded

@@ -1,7 +1,10 @@
 """Public wrapper for the fused path-selection scoring.
 
 Dispatch (``kernels/common.py``): CPU tensors take the plain version in
-``ref.py``; CUDA tensors launch the Hopper kernel (``kernel.py``) or raise.
+``ref.py``; CUDA tensors launch a Hopper kernel (``kernel.py``) or raise.
+Which kernel is the retrieval rule on knn (``retrieval_topk.kernel.route``):
+knn <= 64 takes the tiled top-k, the rest the select route.  Nothing is
+caught: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import torch
 from repro_torch.kernels.common import check_f32, use_kernel
 from repro_torch.kernels.dsqe_score import kernel
 from repro_torch.kernels.dsqe_score.ref import broadcast_slo, dsqe_score_ref
-from repro_torch.kernels.retrieval_topk.kernel import max_k
+from repro_torch.kernels.retrieval_topk.kernel import route
 
 
 def dsqe_score(q, protos, train, path_weights, contains, lat, cost,
@@ -21,8 +24,9 @@ def dsqe_score(q, protos, train, path_weights, contains, lat, cost,
     Shapes: q (Bq,d), protos (K,d), train (N,d), path_weights (N,P),
     contains (K,P), lat/cost/prior/valid (P,), slo (Bq,2) per-query
     [max_latency, max_cost] (a single (2,) SLO broadcasts).  ``knn`` is
-    clamped to N; the kernel takes 1 <= knn <= 64.  ``dsqe_score.launches``
-    counts kernel launches.
+    clamped to N.  ``dsqe_score.launches`` counts kernel calls,
+    ``dsqe_score.launches_tiled`` and ``dsqe_score.launches_select`` those
+    of each route.
     """
     tensors = (q, protos, train, path_weights, contains, lat, cost, prior,
                valid)
@@ -43,16 +47,23 @@ def dsqe_score(q, protos, train, path_weights, contains, lat, cost,
     if K < 1 or P < 1:
         raise ValueError(f"need K >= 1 and P >= 1, got K={K}, P={P}")
     knn = min(knn, N)
-    if not 1 <= knn <= max_k():
-        raise ValueError(f"dsqe_score kernel takes 1 <= knn <= {max_k()}, "
-                         f"got knn={knn}")
+    if knn < 1:
+        raise ValueError(f"dsqe_score takes 1 <= knn and N >= 1, got "
+                         f"knn={knn}, N={N}")
     if Bq == 0:
         return (torch.empty((0, P), dtype=torch.float32, device=q.device),
                 torch.empty((0,), dtype=torch.int32, device=q.device))
+    variant = route(knn)
     scores, set_id = kernel.launch(q, protos, train, path_weights, contains,
-                                   lat, cost, prior, valid, slo, knn)
+                                   lat, cost, prior, valid, slo, knn, variant)
     dsqe_score.launches += 1
+    if variant == "tiled":
+        dsqe_score.launches_tiled += 1
+    else:
+        dsqe_score.launches_select += 1
     return scores, set_id
 
 
 dsqe_score.launches = 0
+dsqe_score.launches_tiled = 0
+dsqe_score.launches_select = 0

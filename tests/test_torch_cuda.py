@@ -6,9 +6,11 @@ runs on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: ids equal (continuous random inputs, no near-ties at these
-sizes) and values within 1e-5 (unit-vector fp32 dot products summed in
-another order than cuBLAS); dsqe scores within 1e-5 (sums of <= knn such
-terms), masked entries exactly NEG_INF in both.
+sizes; or entries that are multiples of 1/8, whose dot products are exact
+in fp32, held against the plain version in float64) and values within 1e-5
+(unit-vector fp32 dot products summed in another order than cuBLAS); dsqe
+scores within 1e-5 (sums of <= knn such terms), masked entries exactly
+NEG_INF in both.
 """
 import numpy as np
 import pytest
@@ -44,12 +46,14 @@ def _assert_topk(vals, ids, rv, ri):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bq,n,d,k", [
     (5, 600, 64, 16), (37, 5000, 256, 16), (16, 3000, 512, 50),
-    (3, 40, 100, 64), (1, 7, 3, 1), (9, 33, 256, 32), (6, 70, 1000, 33)])
+    (3, 40, 100, 64), (1, 7, 3, 1), (9, 33, 256, 32), (6, 70, 1000, 33),
+    (3, 700, 64, 65), (5, 300, 100, 128), (4, 90, 33, 90),  # select route
+    (3, 500, 4095, 16), (2, 300, 4095, 100)])               # d = 4095
 def test_retrieval_topk_kernel_matches_plain(Bq, n, d, k):
     dev = _cuda()
     rng = np.random.default_rng(n + d)
     q, c = _unit(rng, (Bq, d), dev), _unit(rng, (n, d), dev)
-    variant = topk_kernel.route(d)
+    variant = topk_kernel.route(min(k, n))
     before = retrieval_topk.launches, _topk_variant_counts()
     vals, ids = retrieval_topk(q, c, k=k)
     torch.cuda.synchronize()
@@ -61,7 +65,7 @@ def test_retrieval_topk_kernel_matches_plain(Bq, n, d, k):
 
 def _topk_variant_counts():
     return {v: getattr(retrieval_topk, f"launches_{v}")
-            for v in topk_kernel.VARIANTS}
+            for v in topk_kernel.ROUTES}
 
 
 @pytest.mark.cuda
@@ -73,6 +77,8 @@ def _topk_variant_counts():
     (64, 84, 256, 16),      # the served selection shape: one split
     (1, 129, 4, 1),
     (130, 40000, 32, 64),
+    (37, 5003, 257, 16),    # odd d: rows copied 4 bytes at a time
+    (9, 1000, 3, 8),
 ])
 def test_retrieval_topk_tiled_kernel_matches_plain(Bq, n, d, k):
     """The tiled variant, with the corpus split as ``grid`` cuts it for
@@ -87,32 +93,83 @@ def test_retrieval_topk_tiled_kernel_matches_plain(Bq, n, d, k):
     vals, ids = retrieval_topk(q, c, k=k)
     torch.cuda.synchronize()
     assert _topk_variant_counts() == {"tiled": before["tiled"] + 1,
-                                      "row": before["row"]}
+                                      "select": before["select"]}
     _assert_topk(vals, ids, *retrieval_topk_ref(q, c, k=min(k, n)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 16, 50, 64])
+def test_retrieval_topk_tiled_kernel_takes_unaligned_rows():
+    """Views whose base is not 16-byte aligned (d a multiple of 4) take the
+    4-byte copies; the result equals the plain version's."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    qb, cb = _unit(rng, (9, 64), dev), _unit(rng, (701, 64), dev)
+    q, c = qb.reshape(-1)[1:1 + 8 * 64].reshape(8, 64), cb[1:]
+    c = c.reshape(-1)[3:3 + 600 * 64].reshape(600, 64)
+    assert q.data_ptr() % 16 and c.data_ptr() % 16
+    assert not topk_kernel.vec4(q, c)
+    for k in (16, 100):
+        _assert_topk(*retrieval_topk(q, c, k=k),
+                     *retrieval_topk_ref(q, c, k=k))
+
+
+def _exact_inputs(rng, B, n, d, repeat=1):
+    """Entries that are multiples of 1/8, so every dot product is exact in
+    fp32 whatever the order of the sum, and exact ties are everywhere; the
+    corpus is n / repeat rows repeated ``repeat`` times."""
+    base = rng.integers(-3, 4, size=(n // repeat, d)) / 8.0
+    c = np.tile(base, (repeat, 1))
+    q = rng.integers(-3, 4, size=(B, d)) / 8.0
+    return q, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 50, 64, 65, 100, 300])
 def test_retrieval_topk_tiled_kernel_ties_across_splits(k):
     """Exact ties on both sides of every split boundary and at the k-th
     place: the corpus is 128 rows repeated 40 times (every row ties with
     the rows 128 apart, which lie in other splits of 128 rows at B = 256),
-    and entries are multiples of 1/8 at d = 32, so every dot product is
-    exact in fp32 whatever the order of the sum.  Ids must equal the plain
-    version's in float64 (lowest id first on ties), values within 1e-5."""
+    and entries are multiples of 1/8 at d = 32.  Ids must equal the plain
+    version's in float64 (lowest id first on ties), values within 1e-5; k
+    above 64 takes the select route."""
     dev = _cuda()
     rng = np.random.default_rng(k)
-    base = rng.integers(-3, 4, size=(128, 32)) / 8.0
-    c = torch.as_tensor(np.tile(base, (40, 1)), dtype=torch.float32,
-                        device=dev)
-    q = torch.as_tensor(rng.integers(-3, 4, size=(256, 32)) / 8.0,
-                        dtype=torch.float32, device=dev)
+    qn, cn = _exact_inputs(rng, 256, 128 * 40, 32, repeat=40)
+    c = torch.as_tensor(cn, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(qn, dtype=torch.float32, device=dev)
     assert topk_kernel.grid(256, c.shape[0], sm_count(q.device)).n_splits > 1
+    variant = topk_kernel.route(k)
     before = _topk_variant_counts()
     vals, ids = retrieval_topk(q, c, k=k)
     torch.cuda.synchronize()
-    assert _topk_variant_counts()["tiled"] == before["tiled"] + 1
+    assert _topk_variant_counts()[variant] == before[variant] + 1
     rv, ri = retrieval_topk_ref(q.double().cpu(), c.double().cpu(), k=k)
+    np.testing.assert_array_equal(ids.cpu().numpy(), ri.numpy())
+    np.testing.assert_allclose(vals.cpu().numpy(), rv.numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,d,k", [
+    (3, 700, 32, 65), (5, 300, 33, 128), (4, 90, 7, 90), (37, 5003, 100, 100),
+    (2, 20000, 32, 9000),   # 16384 sort keys: sorted through global scratch
+    (1, 17000, 5, 17000),   # k = n, odd d, spilled sort
+    (300, 70000, 32, 100),  # two chunks of B
+])
+def test_retrieval_topk_select_route_matches_plain(B, n, d, k):
+    """The select route on exact-arithmetic inputs full of ties (radix
+    select on the k-th key, the lowest ids among those equal to it, the
+    sort in shared memory or through a global scratch, B in chunks): ids
+    equal the plain version's in float64."""
+    dev = _cuda()
+    rng = np.random.default_rng(n + k)
+    qn, cn = _exact_inputs(rng, B, n, d)
+    q = torch.as_tensor(qn, dtype=torch.float32, device=dev)
+    c = torch.as_tensor(cn, dtype=torch.float32, device=dev)
+    before = _topk_variant_counts()
+    vals, ids = retrieval_topk(q, c, k=k)
+    torch.cuda.synchronize()
+    assert _topk_variant_counts()["select"] == before["select"] + 1
+    rv, ri = retrieval_topk_ref(torch.as_tensor(qn), torch.as_tensor(cn), k=k)
     np.testing.assert_array_equal(ids.cpu().numpy(), ri.numpy())
     np.testing.assert_allclose(vals.cpu().numpy(), rv.numpy(), atol=ATOL)
 
@@ -127,19 +184,21 @@ def test_retrieval_topk_kernel_ties_and_negative_rows():
     base = _unit(rng, (50, 64), dev)
     c = torch.cat([base, base, base])  # row i ties with i+50, i+100
     q = _unit(rng, (11, 64), dev)
-    vals, ids = retrieval_topk(q, c, k=12)
-    torch.cuda.synchronize()
-    for row_v, row_i in zip(vals.cpu().numpy(), ids.cpu().numpy()):
-        assert (np.diff(row_v) <= 0).all()
-        for a in range(11):
-            if row_v[a] == row_v[a + 1]:
-                assert row_i[a] < row_i[a + 1]
-        assert ((row_i >= 0) & (row_i < 150)).all()
+    for k in (12, 120):
+        vals, ids = retrieval_topk(q, c, k=k)
+        torch.cuda.synchronize()
+        for row_v, row_i in zip(vals.cpu().numpy(), ids.cpu().numpy()):
+            assert (np.diff(row_v) <= 0).all()
+            for a in range(k - 1):
+                if row_v[a] == row_v[a + 1]:
+                    assert row_i[a] < row_i[a + 1]
+            assert ((row_i >= 0) & (row_i < 150)).all()
     c_pos = torch.abs(_unit(rng, (600, 64), dev))
     q_neg = -torch.abs(_unit(rng, (5, 64), dev))
-    vals, ids = retrieval_topk(q_neg, c_pos, k=6)
-    assert int(ids.max()) < 600 and float(vals.max()) < 0.0
-    _assert_topk(vals, ids, *retrieval_topk_ref(q_neg, c_pos, k=6))
+    for k in (6, 70):
+        vals, ids = retrieval_topk(q_neg, c_pos, k=k)
+        assert int(ids.max()) < 600 and float(vals.max()) < 0.0
+        _assert_topk(vals, ids, *retrieval_topk_ref(q_neg, c_pos, k=k))
 
 
 def _dsqe_args(rng, dev, Bq, d, K, N, P):
@@ -155,26 +214,72 @@ def _dsqe_args(rng, dev, Bq, d, K, N, P):
 
 
 def _assert_dsqe(scores, set_id, rs, rid):
-    assert torch.equal(set_id, rid)
+    assert torch.equal(set_id.cpu(), rid.cpu())
     masked = rs < NEG_INF / 2
-    assert torch.equal(scores < NEG_INF / 2, masked)
-    assert (scores[masked] == NEG_INF).all()
-    np.testing.assert_allclose(scores[~masked].cpu().numpy(),
-                               rs[~masked].cpu().numpy(), atol=ATOL)
+    assert torch.equal((scores < NEG_INF / 2).cpu(), masked.cpu())
+    assert (scores[masked.to(scores.device)] == NEG_INF).all()
+    np.testing.assert_allclose(scores.cpu()[~masked.cpu()].numpy(),
+                               rs.cpu()[~masked.cpu()].numpy(), atol=ATOL)
+
+
+def _dsqe_counts():
+    return {v: getattr(dsqe_score, f"launches_{v}")
+            for v in topk_kernel.ROUTES}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bq,d,K,N,P,knn", [
     (37, 256, 23, 1000, 210, 16), (5, 64, 7, 50, 210, 16),
-    (1, 128, 3, 20, 64, 8), (9, 256, 40, 700, 130, 64)])
+    (1, 128, 3, 20, 64, 8), (9, 256, 40, 700, 130, 64),
+    (300, 256, 32, 20000, 210, 16),   # many splits and the merge's epilogue
+    (9, 256, 40, 700, 130, 100), (37, 100, 23, 1000, 211, 65),  # select
+    (5, 64, 7, 300, 210, 300),        # knn = N
+    (3, 257, 5, 500, 33, 20)])        # odd d
 def test_dsqe_score_kernel_matches_plain(Bq, d, K, N, P, knn):
     dev = _cuda()
     args = _dsqe_args(np.random.default_rng(N), dev, Bq, d, K, N, P)
-    before = dsqe_score.launches
+    variant = topk_kernel.route(min(knn, N))
+    before = dsqe_score.launches, _dsqe_counts()
     scores, set_id = dsqe_score(*args, knn=knn)
     torch.cuda.synchronize()
-    assert dsqe_score.launches == before + 1
+    assert dsqe_score.launches == before[0] + 1
+    assert _dsqe_counts()[variant] == before[1][variant] + 1
     _assert_dsqe(scores, set_id, *dsqe_score_ref(*args, knn=knn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knn", [1, 16, 64, 65, 100])
+@pytest.mark.parametrize("B,K,N,P", [(256, 32, 128 * 40, 210),
+                                     (7, 5, 128 * 3 + 17, 33)])
+def test_dsqe_score_kernel_ties_across_splits(B, K, N, P, knn):
+    """Exact-arithmetic inputs (multiples of 1/8 at d = 32): train rows
+    repeat every 128 rows, so exact ties straddle every split boundary and
+    sit at the knn-th place; every second prototype repeats the one before
+    it, so the argmax ties on the first of equal prototypes.  Set ids and
+    masks must equal the plain version's in float64, scores within 1e-5."""
+    dev = _cuda()
+    rng = np.random.default_rng(B + knn)
+    qn, tn = _exact_inputs(rng, B, N - N % 128, 32, repeat=(N // 128))
+    tn = np.concatenate([tn, tn[:N % 128]])
+    protos = rng.integers(-3, 4, size=(K, 32)) / 8.0
+    protos[1::2] = protos[:K // 2 * 2:2]
+    pathw = np.zeros((N, P))
+    pathw[np.arange(N), rng.integers(0, P, N)] = rng.integers(1, 9, N) / 8.0
+    tables = (qn, protos, tn, pathw, rng.uniform(size=(K, P)) < 0.6,
+              rng.uniform(0.1, 5, P), rng.uniform(0, 0.01, P),
+              rng.uniform(size=P) * 1e-3, rng.uniform(size=P) < 0.9,
+              np.stack([rng.uniform(0, 6, B), rng.uniform(0, 0.012, B)], 1))
+    args = tuple(torch.as_tensor(np.asarray(t, np.float32), device=dev)
+                 for t in tables)
+    before = _dsqe_counts()
+    scores, set_id = dsqe_score(*args, knn=knn)
+    torch.cuda.synchronize()
+    variant = topk_kernel.route(knn)
+    assert _dsqe_counts()[variant] == before[variant] + 1
+    ref64 = tuple(torch.as_tensor(np.asarray(t, np.float32).astype(np.float64))
+                  for t in tables)
+    rs, rid = dsqe_score_ref(*ref64, knn=knn)
+    _assert_dsqe(scores, set_id, rs.float(), rid)
 
 
 @pytest.mark.cuda
@@ -219,35 +324,61 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     dev = _cuda()
     q = torch.zeros((2, 8), device=dev)
     c = torch.zeros((100, 8), device=dev)
-    with pytest.raises(ValueError, match="k <= 64"):
-        retrieval_topk(q, c, k=65)
     with pytest.raises(TypeError, match="float32"):
         retrieval_topk(q.double(), c.double(), k=4)
     with pytest.raises(ValueError, match="contiguous"):
         retrieval_topk(q, torch.zeros((8, 100), device=dev).T, k=4)
-    with pytest.raises(ValueError, match="shared memory"):  # row variant
-        retrieval_topk(torch.zeros((2, 4095), device=dev),
-                       torch.zeros((10, 4095), device=dev), k=4)
     with pytest.raises(ValueError, match="mixed"):
         retrieval_topk(q, c.cpu(), k=4)
+    # the variants reached only by name keep their own limits
+    with pytest.raises(ValueError, match="k <= 64"):
+        topk_kernel.launch(q, c, 65, "tiled")
+    with pytest.raises(ValueError, match="shared memory"):  # row variant
+        topk_kernel.launch(torch.zeros((2, 4095), device=dev),
+                           torch.zeros((10, 4095), device=dev), 4, "row")
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_answer_what_the_reference_takes():
+    """The inputs the first port refused (k > 64; an odd d whose warp-kernel
+    tile does not fit shared memory) are answered and equal the plain
+    version, and the smallest such input returns (1, 65)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q = torch.randn((1, 4), generator=gen, device=dev)
+    c = torch.randn((65, 4), generator=gen, device=dev)
+    vals, ids = retrieval_topk(q, c, k=65)
+    assert vals.shape == ids.shape == (1, 65)
+    _assert_topk(vals, ids, *retrieval_topk_ref(q, c, k=65))
+    rng = np.random.default_rng(1)
+    q, c = _unit(rng, (2, 4095), dev), _unit(rng, (10, 4095), dev)
+    _assert_topk(*retrieval_topk(q, c, k=4), *retrieval_topk_ref(q, c, k=4))
+    args = _dsqe_args(rng, dev, 3, 4095, 4, 80, 20)
+    _assert_dsqe(*dsqe_score(*args, knn=70), *dsqe_score_ref(*args, knn=70))
 
 
 @pytest.mark.cuda
 def test_kernels_launch_across_widths_in_any_order():
-    """The shared-memory limit is set once per device and width, so a
-    narrow width after a wide one must not lower it for the wide one
-    (d = 640 needs more than the 48 KB a launch gets unasked).  Widths d + 1
-    are odd, so retrieval there takes the warp-per-row variant, whose tile
-    grows with d as dsqe_score's does; the tiled variant takes d."""
+    """The row variants' shared-memory limit is set once per device and
+    width, so a narrow width after a wide one must not lower it for the
+    wide one (d = 640 needs more than the 48 KB a launch gets unasked).
+    The row variants are reached by name; the routes take the same widths
+    beside them."""
+    from repro_torch.kernels.dsqe_score import kernel as dsqe_kernel
+
     dev = _cuda()
     rng = np.random.default_rng(7)
     for d in (640, 64, 640, 300, 900, 64):
         for width in (d + 1, d):
             q, c = _unit(rng, (6, width), dev), _unit(rng, (90, width), dev)
-            _assert_topk(*retrieval_topk(q, c, k=8),
-                         *retrieval_topk_ref(q, c, k=8))
-        args = _dsqe_args(rng, dev, 6, d, 5, 90, 40)
-        _assert_dsqe(*dsqe_score(*args, knn=8), *dsqe_score_ref(*args, knn=8))
+            want = retrieval_topk_ref(q, c, k=8)
+            _assert_topk(*topk_kernel.launch(q, c, 8, "row"), *want)
+            _assert_topk(*retrieval_topk(q, c, k=8), *want)
+        args = _dsqe_args(rng, dev, 6, d + 1, 5, 90, 40)
+        want = dsqe_score_ref(*args, knn=8)
+        _assert_dsqe(*dsqe_kernel.launch(*args, 8, "row"), *want)
+        _assert_dsqe(*dsqe_score(*args, knn=8), *want)
 
 
 @pytest.mark.cuda

@@ -42,7 +42,9 @@ def _unit(x):
 
 
 @pytest.mark.parametrize("Bq,n,d,k", [(1, 13, 64, 6), (5, 600, 64, 16),
-                                      (8, 84, 256, 16), (3, 40, 512, 50)])
+                                      (8, 84, 256, 16), (3, 40, 512, 50),
+                                      (4, 700, 64, 65), (3, 500, 33, 100),
+                                      (2, 90, 16, 90)])
 def test_retrieval_topk_matches_jax_ref(Bq, n, d, k):
     rng = np.random.default_rng(n + d)
     q = _unit(rng.normal(size=(Bq, d))).astype(np.float32)
@@ -113,7 +115,8 @@ def _assert_scores_match(scores, set_id, js, jid):
 
 @pytest.mark.parametrize("Bq,d,K,N,P,knn", [
     (1, 128, 3, 20, 64, 8), (5, 64, 7, 50, 210, 16), (9, 256, 23, 105, 210, 16),
-    (9, 64, 5, 700, 130, 16)])
+    (9, 64, 5, 700, 130, 16), (6, 64, 5, 700, 130, 65),
+    (4, 33, 7, 400, 50, 100), (3, 32, 4, 90, 20, 90)])
 def test_dsqe_score_matches_jax_ref(Bq, d, K, N, P, knn):
     args = _dsqe_inputs(Bq, d, K, N, P, seed=Bq * N)
     scores, set_id = dsqe_score(*map(_t, args), knn=knn)
