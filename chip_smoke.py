@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
-paths (online path selection and three served language models) through the
-entry points a user calls, and holds every kernel against its plain torch
-version on the card.  Phases, one JSON line each:
+paths (online path selection, the serving runtime around it, and three
+served language models) through the entry points a user calls, and holds
+every kernel against its plain torch version on the card.  Phases, one JSON
+line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
    build time with ptxas' registers and spills for every kernel.
@@ -46,7 +47,32 @@ version on the card.  Phases, one JSON line each:
    dsqe_score launches no time on the served path; after the counters are
    read it is run once on the selector's stage state and must reproduce the
    fused pass's scores and set ids (``dsqe_score_check_launches``: 1).
-4. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
+4. ``tenants``: ``build_multi_server(["automotive", "smarthome"])`` behind
+   the ``TenantRouter`` (``drive_router_async``): four tenants with Zipf(1.1)
+   shares of every held-out query, in the deadline, standard and batch SLO
+   classes, on two admission shards.  The accounting identities (offered ==
+   admitted + shed, admitted == served + failed, per tenant and summed), a
+   typed reason for every shed request, and per domain every served row
+   deciding as that domain's numpy engine.  Mixed-domain buckets select
+   through the domain-sharded pass, which launches no selection kernel.
+   Then a single-domain router over the serve phase's selector: one tiled
+   retrieval_topk per bucket.
+5. ``adaptation``: ``build_server("smarthome")`` with the adaptation plane
+   pumped by hand.  A wave at a 4 s SLO, then the edge device throttles
+   (tflops and bandwidth / 4) and waves are served and the plane pumped
+   until it swaps a re-explored table in; the swapped rows must be
+   evaluated, and selection and serving after the swap must decide as a
+   numpy twin built on the new table.  Then 2 reader threads run the
+   kernel-backed pass while 24 swaps publish: every decision's expected
+   latency must belong to the version it reports, and
+   ``kernel_trace_count`` must not move.
+6. ``placements``: ``serve --placements --use-kernel --batch``, the
+   placement-extended path space served in one ``handle_batch`` against the
+   numpy engine; P and the placed paths are logged.
+   In phases 4-6 the launch counters are set to 0 just before each driven
+   run and read just after: tiled retrieval_topk launches must equal the
+   kernel-backed passes (counted apart, at the selector), dsqe_score none.
+7. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
    bf16 with seeded random weights, served through
    ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
    8 prompts of 1024 tokens, then 150 greedy decode steps (the system's
@@ -57,18 +83,19 @@ version on the card.  Phases, one JSON line each:
    of the served models must be).  Decode logits at three steps must
    match the full forward's last-token logits (rel < 2e-2), and no logit
    may be NaN.
-5. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
+8. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
    prefill -> decode on a dropless twin.
-6. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
+9. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
    (``hybrid_phase``): exact rglru_scan / flash / decode launch counts and
    prefill -> decode through a wrapped ring.
-7. ``split``: the split-inference draft's ``DraftState.attend`` through the
+10. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
-kernel's launches on the served runs, by variant where it has two), and
+kernel's launches on the served runs, by variant where it has two:
+retrieval_topk's are summed over phases 3-6), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -1024,6 +1051,442 @@ def split_phase(torch) -> None:
         decode_attention_launches=decode_attention.launches - before)
 
 
+SHED_REASONS = {"quota", "queue_full", "deadline", "shutdown", "stale_loop"}
+SLOWDOWN = 4.0  # edge tflops and bandwidth divisor of the drift scenario
+ADAPT_SLO_S = 4.0  # cloud paths clear it; throttled edge stages blow it
+SWAPS_UNDER_LOAD = 24
+
+
+@contextlib.contextmanager
+def counting(cls, name: str):
+    """Count the calls of ``cls.name`` (all threads) while the block runs:
+    the passes a selection engine makes, counted apart from the kernel
+    wrapper's own launch counter."""
+    import threading
+
+    orig = getattr(cls, name)
+    lock = threading.Lock()
+    calls = [0]
+
+    def wrapper(*args, **kwargs):
+        with lock:
+            calls[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(cls, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
+def zero_selection_counts() -> None:
+    from repro_torch.kernels.dsqe_score.ops import dsqe_score
+    from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
+
+    for op in (retrieval_topk, dsqe_score):
+        op.launches = op.launches_tiled = op.launches_select = 0
+
+
+def selection_counts() -> dict:
+    from repro_torch.kernels.dsqe_score.ops import dsqe_score
+    from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
+
+    return {op.__name__: {"launches": op.launches,
+                          "tiled": op.launches_tiled,
+                          "select": op.launches_select}
+            for op in (retrieval_topk, dsqe_score)}
+
+
+def check_kernel_passes(what: str, counts: dict, passes: int) -> None:
+    """One tiled retrieval_topk launch per kernel-backed selection pass,
+    no dsqe_score on the served path."""
+    want = {"retrieval_topk": {"launches": passes, "tiled": passes,
+                               "select": 0},
+            "dsqe_score": {"launches": 0, "tiled": 0, "select": 0}}
+    if passes < 1 or counts != want:
+        raise AssertionError(f"{what}: selection launches {counts} over "
+                             f"{passes} kernel-backed passes, want {want}")
+
+
+def numpy_twin(sel):
+    """The same selector on the numpy engine (the decision reference)."""
+    from repro_torch.core.rps import RuntimePathSelector
+
+    return RuntimePathSelector(sel.space, sel.dsqe, sel.cca, sel.table,
+                               sel._train_embeddings, lam=sel.lam,
+                               knn=sel.knn, use_kernel=False)
+
+
+def mismatches(responses, decisions) -> int:
+    if len(responses) != len(decisions):
+        raise AssertionError(f"{len(responses)} responses for "
+                             f"{len(decisions)} requests")
+    return sum((r.path_key, r.meta["set_id"], r.meta["fallback"])
+               != (d.path.key, d.set_id, d.used_fallback)
+               for r, d in zip(responses, decisions))
+
+
+def check_accounting(stats: dict, offered: int) -> dict:
+    """The router's identities, per tenant and summed, and a typed reason
+    for every shed request."""
+    tenants = stats["tenants"]
+    for name, t in tenants.items():
+        if t["offered"] != t["admitted"] + t["shed"] or \
+                t["admitted"] != t["served"] + t["failed"]:
+            raise AssertionError(f"tenant {name}: accounting broken: {t}")
+        if sum(t["shed_reasons"].values()) != t["shed"] or \
+                not set(t["shed_reasons"]) <= SHED_REASONS:
+            raise AssertionError(f"tenant {name}: untyped shed: {t}")
+    total = {k: sum(t[k] for t in tenants.values())
+             for k in ("offered", "admitted", "shed", "served", "failed")}
+    if total["offered"] != offered:
+        raise AssertionError(f"offered {total['offered']} of {offered}")
+    return total
+
+
+def tenants_phase(torch, single_server, single_test) -> int:
+    """Multi-tenant serving through the router: four Zipf(1.1) tenants of
+    the three SLO classes on two admission shards over a two-domain server
+    (every bucket through the domain-sharded pass: no selection kernel),
+    then a single-domain router over the served automotive selector (one
+    tiled retrieval_topk per bucket).  Returns the kernel's launches."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core.rps import DomainShardedSelector, RuntimePathSelector
+    from repro_torch.launch.serve import (build_multi_server,
+                                          drive_router_async, zipf_shares)
+    from repro_torch.runtime.router import TenantSpec
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    domains = ["automotive", "smarthome"]
+    server, tests = build_multi_server(domains, n_queries=120, budget=5.0,
+                                       device="cuda", use_kernel=True)
+    build_s = time.perf_counter() - t_phase
+    classes = ("deadline", "standard", "batch", "standard")
+    tenants = [TenantSpec(f"tenant{i:02d}", slo_class=c)
+               for i, c in enumerate(classes)]
+    shares = zipf_shares(len(tenants), 1.1)
+
+    def requests(names):
+        rng = np.random.default_rng(0)
+        return [Request(prompt="", qid=int(q), domain=name,
+                        tenant=tenants[int(rng.choice(len(tenants),
+                                                      p=shares))].name)
+                for name in names for q in tests[name]]
+
+    def served_parity(srv, reqs, responses):
+        """Per domain: served decisions against that domain's numpy twin
+        on the SLOs the router stamped (the class defaults)."""
+        out = {}
+        for name in dict.fromkeys(r.domain for r in reqs):
+            rows = [i for i, r in enumerate(reqs) if r.domain == name]
+            dom, sel, _ = srv.domain_entry(name)
+            want = numpy_twin(sel).select_batch(
+                dom.query_embeddings[[reqs[i].qid for i in rows]],
+                [reqs[i].slo for i in rows])
+            bad = mismatches([responses[i] for i in rows], want)
+            if bad:
+                raise AssertionError(f"tenants/{name}: {bad} of {len(rows)} "
+                                     "rows decide unlike the numpy engine")
+            out[name] = 1.0 - bad / len(rows)
+        return out
+
+    def drive(srv, reqs):
+        return asyncio.run(drive_router_async(
+            srv, reqs, tenants, n_shards=2, max_batch=32,
+            max_queue=max(256, len(reqs))))
+
+    # the two-domain server: mixed buckets through the sharded pass
+    reqs = requests(domains)
+    zero_selection_counts()
+    with counting(DomainShardedSelector, "select_batch") as sharded, \
+            counting(RuntimePathSelector, "_score_batch_kernel") as fused:
+        t0 = time.perf_counter()
+        responses, shed, stats = drive(server, reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    counts = selection_counts()
+    total = check_accounting(stats, len(reqs))
+    if sharded[0] < 1 or fused[0] or \
+            counts["retrieval_topk"]["launches"] or \
+            counts["dsqe_score"]["launches"]:
+        raise AssertionError(f"tenants: {sharded[0]} sharded and {fused[0]} "
+                             f"kernel-backed passes launched {counts}; "
+                             "sharded passes launch no selection kernel")
+    if shed:  # decisions are matched to requests by order
+        reasons = {n: t["shed_reasons"] for n, t in stats["tenants"].items()}
+        raise AssertionError(f"tenants: {shed} requests shed ({reasons})")
+    parity = served_parity(server, reqs, responses)
+    server.fleet.close()
+
+    # the single-domain router: one tiled retrieval_topk per bucket
+    sreqs = [Request(prompt="", qid=int(q),
+                     tenant=tenants[i % len(tenants)].name)
+             for i, q in enumerate(single_test)]
+    zero_selection_counts()
+    with counting(RuntimePathSelector, "_score_batch_kernel") as fused:
+        s_responses, s_shed, s_stats = drive(single_server, sreqs)
+        torch.cuda.synchronize()
+    s_counts = selection_counts()
+    check_accounting(s_stats, len(sreqs))
+    buckets = sum(s["batches"] for s in s_stats["shards"])
+    if fused[0] != buckets:
+        raise AssertionError(f"tenants/single: {fused[0]} passes for "
+                             f"{buckets} buckets")
+    check_kernel_passes("tenants/single", s_counts, fused[0])
+    if s_shed:
+        raise AssertionError(f"tenants/single: {s_shed} requests shed")
+    s_parity = served_parity(single_server, sreqs, s_responses)
+    log("tenants", domains=domains, tenants={
+            t.name: {"class": t.slo_class, "share": float(s),
+                     "shard": stats["tenants"].get(t.name, {}).get("shard"),
+                     "offered": stats["tenants"].get(t.name, {}).get(
+                         "offered", 0)}
+            for t, s in zip(tenants, shares)},
+        requests=len(reqs), totals=total, shed=shed,
+        shards=stats["shards"], sharded_passes=sharded[0],
+        selection_launches=counts, decision_parity=parity,
+        single_domain={"requests": len(sreqs), "buckets": buckets,
+                       "kernel_passes": fused[0],
+                       "selection_launches": s_counts,
+                       "decision_parity": s_parity[None]},
+        build_multi_server_s=build_s, router_serve_s=serve_s,
+        phase_s=time.perf_counter() - t_phase)
+    return s_counts["retrieval_topk"]["tiled"]
+
+
+def adaptation_phase(torch) -> int:
+    """Drift and online adaptation on the card: serve a wave, throttle the
+    edge device (tflops and bandwidth / SLOWDOWN), serve and pump until the
+    plane swaps a re-explored table in; then the swapped selector against a
+    numpy twin built on the new table, and 24 swaps under two reader
+    threads.  Returns retrieval_topk's launches."""
+    import asyncio
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.emulator import EvalTable
+    from repro_torch.core.rps import RuntimePathSelector
+    from repro_torch.core.slo import SLO
+    from repro_torch.launch.serve import build_server
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    server, test = build_server("smarthome", n_queries=120, use_kernel=True,
+                                device="cuda")
+    build_s = time.perf_counter() - t_phase
+    sel = server.rps
+    plane = server.enable_adaptation(
+        start=False, decay=0.15, drift_decay=0.1, viol_threshold=0.3,
+        min_obs=6.0, trip_folds=2, cooldown_folds=3, max_sweep_queries=24,
+        blend_prior=4.0)
+    slo = SLO(max_latency_s=ADAPT_SLO_S)
+
+    async def wave():
+        orch = server.orchestrator(max_batch=32, max_wait_ms=2.0,
+                                   max_queue=4096)
+        await orch.start()
+        tickets = [await orch.submit(Request(prompt="", qid=int(q), slo=slo))
+                   for q in test]
+        out = await asyncio.gather(*(t.wait() for t in tickets))
+        await orch.stop()
+        return out
+
+    zero_selection_counts()
+    batches0 = server.system_state()["dispatch_batches"]
+    waves, fallbacks, swap = [], [], None
+    with counting(RuntimePathSelector, "_score_batch_kernel") as fused:
+        for i in range(12):
+            if i == 1:  # the drift: the edge device throttles
+                dev = server.executor.device
+                server.executor.device = dataclasses.replace(
+                    dev, tflops=dev.tflops / SLOWDOWN,
+                    mem_gbps=dev.mem_gbps / SLOWDOWN)
+            responses = asyncio.run(wave())
+            torch.cuda.synchronize()
+            pumped = plane.pump()
+            waves.append(sum(r.slo_ok for r in responses) / len(responses))
+            fallbacks.append(sum(r.meta["fallback"] for r in responses)
+                             / len(responses))
+            if pumped["swaps"]:
+                swap = pumped["swaps"][0]
+                break
+        if swap is None:
+            raise AssertionError(f"adaptation: no swap in {len(waves)} "
+                                 f"waves (SLO rates {waves})")
+        # the numpy twin of the new version: the same table, the same
+        # online blend (no fold since the swap), the same v0 labels before
+        twin = numpy_twin(sel)
+        twin.swap_table(sel.table,
+                        online=plane._online_for_domain(swap["domain"], sel))
+        if sel.table_version != 1 or twin.table_version != 1:
+            raise AssertionError(f"adaptation: version {sel.table_version}")
+        set_ids = np.asarray(sel.cca.set_ids)
+        rows = [i for i, s in enumerate(set_ids)
+                if int(s) in swap["stale_sets"]][:swap["queries_swept"]]
+        if not rows or not sel.table.evaluated[rows].all():
+            raise AssertionError("adaptation: swept rows not evaluated")
+        slos = [SLO(**a) for a in (
+            {}, {"max_latency_s": 2.0, "max_cost_usd": 0.004},
+            {"max_latency_s": ADAPT_SLO_S}, {"max_latency_s": 1e-6})]
+        embs = server.domain.query_embeddings[test]
+        mixed = [slos[i % 4] for i in range(len(test))]
+
+        def key(d):
+            return (d.path.key, d.set_id, d.used_fallback,
+                    d.expected_latency_s, d.table_version)
+
+        got = [key(d) for d in sel.select_batch(embs, mixed)]
+        bad = sum(g != key(w) for g, w in
+                  zip(got, twin.select_batch(embs, mixed)))
+        post = asyncio.run(wave())
+        torch.cuda.synchronize()
+        bad_served = mismatches(post, twin.select_batch(embs, [slo] * len(test)))
+        if bad or bad_served:
+            raise AssertionError(f"adaptation: {bad} selected and "
+                                 f"{bad_served} served rows after the swap "
+                                 "decide unlike the numpy twin")
+        served_passes = server.system_state()["dispatch_batches"] - batches0
+
+        # swap under load: the kernel pass against 24 swaps
+        embs8 = embs[:8]
+        slos8 = [SLO(max_latency_s=1e9)] * 8
+        sel.select_batch(embs8, slos8)
+        traces0 = sel.kernel_trace_count
+        base, v_base = sel.table, sel.table_version
+        # per-path expected latency of each version: the serving version's
+        # own (blended with the online statistics at its swap), then the
+        # table's column means scaled by 1.03 per swap
+        factor = {v_base + k: 1.0 + 0.03 * k
+                  for k in range(1, SWAPS_UNDER_LOAD + 1)}
+        with np.errstate(invalid="ignore"):
+            base_lat = np.nanmean(base.latency, axis=0)
+        path_lat = {v: base_lat * f for v, f in factor.items()}
+        path_lat[v_base] = sel.path_latency
+        stop, decisions, errors = threading.Event(), [], []
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    decisions.extend(sel.select_batch(embs8, slos8))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        readers = [threading.Thread(target=reader) for _ in range(2)]
+        t0 = time.perf_counter()
+        for t in readers:
+            t.start()
+        try:
+            for k in range(1, SWAPS_UNDER_LOAD + 1):
+                scaled = EvalTable(
+                    query_ids=list(base.query_ids), paths=list(base.paths),
+                    accuracy=base.accuracy,
+                    latency=base.latency * factor[v_base + k],
+                    cost=base.cost, evaluated=base.evaluated)
+                if sel.swap_table(scaled) != v_base + k:
+                    raise AssertionError("adaptation: swap version skipped")
+        finally:
+            stop.set()
+            for t in readers:
+                t.join(timeout=120)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in readers):
+            raise AssertionError(f"adaptation: readers failed: {errors}")
+        pkey = {p.key: j for j, p in enumerate(base.paths)}
+        versions = sorted({d.table_version for d in decisions})
+        if not set(versions) <= set(path_lat):
+            raise AssertionError(f"adaptation: versions {versions}")
+        torn = sum(bool(abs(d.expected_latency_s
+                            - path_lat[d.table_version][pkey[d.path.key]])
+                        >= 1e-9 * max(1.0, d.expected_latency_s))
+                   for d in decisions)
+        if torn or not decisions or \
+                sel.kernel_trace_count != traces0:
+            raise AssertionError(
+                f"adaptation: {torn} of {len(decisions)} decisions off their "
+                f"version, versions {versions}, buckets "
+                f"{traces0} -> {sel.kernel_trace_count}")
+    counts = selection_counts()
+    check_kernel_passes("adaptation", counts, fused[0])
+    a = plane.state()
+    log("adaptation", domain="smarthome", slowdown=SLOWDOWN,
+        slo_latency_s=ADAPT_SLO_S, wave_slo_rates=waves,
+        wave_fallback_rates=fallbacks, swap=swap,
+        table_version_after_swap=1, twin_parity=1.0 - bad / len(test),
+        served_parity_after_swap=1.0 - bad_served / len(test),
+        post_swap_slo_rate=sum(r.slo_ok for r in post) / len(post),
+        post_swap_fallback_rate=sum(r.meta["fallback"] for r in post)
+        / len(post),
+        served_passes=served_passes, swaps_under_load=SWAPS_UNDER_LOAD,
+        reader_decisions=len(decisions), versions_seen=len(versions),
+        torn_decisions=torn, kernel_trace_count=sel.kernel_trace_count,
+        swap_under_load_s=load_s, kernel_passes=fused[0],
+        selection_launches=counts,
+        monitors={k: v["domains"] for k, v in a["shards"].items()},
+        build_server_s=build_s, phase_s=time.perf_counter() - t_phase)
+    server.fleet.close()
+    return counts["retrieval_topk"]["tiled"]
+
+
+def placements_phase(torch) -> int:
+    """The placement-extended path space served in one ``handle_batch``
+    (``serve --placements --use-kernel --batch``) against its numpy twin.
+    Returns retrieval_topk's launches."""
+    from repro_torch.core.paths import (DEFAULT_PLACEMENT_CHAINS,
+                                        DEFAULT_PLACEMENT_MODELS, PLACED_IMPL)
+    from repro_torch.core.rps import RuntimePathSelector
+    from repro_torch.core.slo import SLO
+    from repro_torch.launch.serve import build_server
+    from repro_torch.runtime.placement import get_plan
+    from repro_torch.runtime.server import Request
+
+    t_phase = time.perf_counter()
+    server, test = build_server("automotive", n_queries=120, budget=5.0,
+                                use_kernel=True, placements=True,
+                                device="cuda")
+    build_s = time.perf_counter() - t_phase
+    sel = server.rps
+    slos = [SLO(**a) for a in (
+        {}, {"max_latency_s": 2.0, "max_cost_usd": 0.004},
+        {"max_latency_s": 1e-6, "max_cost_usd": 0.0},
+        {"max_latency_s": 4.0, "max_cost_usd": 0.008})]
+    mixed = [slos[i % 4] for i in range(len(test))]
+    reqs = [Request(prompt="", qid=int(q), slo=s) for q, s in zip(test, mixed)]
+    zero_selection_counts()
+    with counting(RuntimePathSelector, "_score_batch_kernel") as fused:
+        t0 = time.perf_counter()
+        responses = server.handle_batch(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    counts = selection_counts()
+    check_kernel_passes("placements", counts, fused[0])
+    bad = mismatches(responses, numpy_twin(sel).select_batch(
+        server.domain.query_embeddings[test], mixed))
+    if bad:
+        raise AssertionError(f"placements: {bad} rows decide unlike the "
+                             "numpy engine")
+    placed = [p for p in sel.table.paths if p.model.impl == PLACED_IMPL]
+    log("placements", domain="automotive", P=len(sel.table.paths),
+        placed_paths=len(placed),
+        placed_served=sum(r.path_key in {p.key for p in placed}
+                          for r in responses),
+        plans=[get_plan(m, c).describe() for m in DEFAULT_PLACEMENT_MODELS
+               for c in DEFAULT_PLACEMENT_CHAINS],
+        requests=len(reqs), decision_parity=1.0 - bad / len(reqs),
+        kernel_passes=fused[0], selection_launches=counts,
+        handle_batch_s=serve_s, build_server_s=build_s,
+        phase_s=time.perf_counter() - t_phase)
+    server.fleet.close()
+    return counts["retrieval_topk"]["tiled"]
+
+
 def main() -> int:
     import torch
 
@@ -1037,7 +1500,6 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
 
-    from repro_torch.core.rps import RuntimePathSelector
     from repro_torch.core.slo import SLO
     from repro_torch.kernels.build import kernel_library
     from repro_torch.kernels.common import sm_count
@@ -1204,8 +1666,7 @@ def main() -> int:
         torch.cuda.synchronize()
         select_ms.append(1e3 * (time.perf_counter() - t0))
     batches0 = server.system_state()["dispatch_batches"]
-    for op in (retrieval_topk, dsqe_score):
-        op.launches = op.launches_tiled = op.launches_select = 0
+    zero_selection_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     responses = server.handle_batch(reqs)
@@ -1233,14 +1694,7 @@ def main() -> int:
                              "by variant on the served path, want none: "
                              "select_batch runs retrieve + score as stages")
 
-    twin = RuntimePathSelector(sel.space, sel.dsqe, sel.cca, sel.table,
-                               sel._train_embeddings, lam=sel.lam,
-                               knn=sel.knn, use_kernel=False)
-    want = twin.select_batch(embs, slos)
-    got = [(r.path_key, r.meta["set_id"], r.meta["fallback"])
-           for r in responses]
-    mismatched = sum(g != (d.path.key, d.set_id, d.used_fallback)
-                     for g, d in zip(got, want))
+    mismatched = mismatches(responses, numpy_twin(sel).select_batch(embs, slos))
     if mismatched:
         raise AssertionError(f"{mismatched} rows decide unlike the numpy "
                              "engine")
@@ -1291,9 +1745,17 @@ def main() -> int:
         fused_traces=server.system_state()["fused_traces"],
         total_s=time.perf_counter() - t_start)
 
+    # -- 4-6. the serving runtime: tenants (the served selector behind a
+    # single-domain router too), adaptation, placements; every one of their
+    # kernel-backed selection passes launches one tiled retrieval_topk
+    runtime_launches = tenants_phase(torch, server, test_idx)
     server.fleet.close()
+    runtime_launches += adaptation_phase(torch)
+    runtime_launches += placements_phase(torch)
+    launches["retrieval_topk"] += runtime_launches
+    variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 4-6. the served models: a kernel on several paths reports the sum
+    # -- 7-9. the served models: a kernel on several paths reports the sum
     # of its launches over their served runs, in all and by variant
     for phase in (model_phase, moe_phase, hybrid_phase):
         counts, by_variant = phase(torch, dev)
@@ -1304,7 +1766,7 @@ def main() -> int:
             for v, n in by.items():
                 acc[v] += n
 
-    # -- 7. split --------------------------------------------------------
+    # -- 10. split -------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 

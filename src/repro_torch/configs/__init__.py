@@ -26,6 +26,9 @@ _ARCH_MODULES = {
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
 
+# encoder source length paired with decode shapes on enc-dec archs
+ENCDEC_DECODE_SRC_LEN = 4096
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:

@@ -180,12 +180,21 @@ class PathSpace:
                             module, impl, tuple(zip(keys, combo))))
                     continue
                 if impl == PLACED_IMPL:
-                    # placed paths are filtered by their placement plan's
-                    # memory fit, and the planner is outside this port
-                    raise NotImplementedError(
-                        "placed paths need runtime.placement, not ported yet "
-                        "(ROADMAP.md queue 1: serving runtime — adaptation, "
-                        "router, placement)")
+                    # placed paths run on their OWN device chain, not the
+                    # space's resident device: a configuration is feasible
+                    # iff its plan's stages all fit their chain members
+                    # (memory-infeasible plans never enter the path space)
+                    from repro_torch.runtime.placement import get_plan
+
+                    keys = sorted(grid)
+                    for combo in itertools.product(*(grid[k] for k in keys)):
+                        params = dict(zip(keys, combo))
+                        plan = get_plan(params["model"], params["chain"])
+                        if not plan.memory_ok:
+                            continue
+                        out.append(ComponentChoice(
+                            module, impl, tuple(zip(keys, combo))))
+                    continue
                 prof = MODEL_CATALOG[impl]
                 if not model_fits_device(prof, self.device):
                     continue

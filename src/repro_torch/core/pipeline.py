@@ -233,10 +233,9 @@ class PipelineExecutor:
 
     @staticmethod
     def _placement_plan(choice: ComponentChoice):
-        raise NotImplementedError(
-            "placed paths need runtime.placement, not ported yet "
-            "(ROADMAP.md queue 1: serving runtime — adaptation, router, "
-            "placement)")
+        from repro_torch.runtime.placement import get_plan
+
+        return get_plan(choice.param("model"), choice.param("chain"))
 
     def _run_placed_model(self, q: Query, choice: ComponentChoice,
                           st: StageState) -> StageState:

@@ -155,9 +155,23 @@ class EcoLLMServer:
         ``attach_router`` call too).  ``knobs`` are ``AdaptConfig`` fields;
         ``start=False`` skips the background fold thread (deterministic
         tests drive ``plane.pump()`` by hand).  Idempotent."""
-        raise NotImplementedError(
-            "runtime.adaptation is not ported yet (ROADMAP.md queue 1: "
-            "serving runtime — adaptation, router, placement)")
+        from repro_torch.runtime.adaptation import (AdaptationPlane,
+                                                    AdaptConfig)
+
+        if self._adaptation is not None:
+            return self._adaptation
+        cfg = config if config is not None else AdaptConfig(**knobs)
+        plane = AdaptationPlane(self, config=cfg)
+        self._adaptation = plane
+        with self._orch_lock:
+            if self._orchestrator is not None:
+                self._orchestrator.attach_adaptation(plane)
+        if self._router is not None:
+            for sh in self._router.shard_list():
+                sh.attach_adaptation(plane)
+        if start:
+            plane.start()
+        return plane
 
     @property
     def adaptation(self):

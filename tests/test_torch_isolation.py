@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.rglru_scan.kernel",
               "repro_torch.kernels.rglru_scan.ops",
               "repro_torch.configs.llama4_scout",
-              "repro_torch.configs.recurrentgemma_2b"):
+              "repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.perf", "repro_torch.perf.cost_model",
+              "repro_torch.runtime", "repro_torch.runtime.placement",
+              "repro_torch.runtime.router",
+              "repro_torch.runtime.adaptation"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -90,29 +90,62 @@ def test_handle_answers_like_the_jax_server_one_request_at_a_time():
     assert state["requests"] == len(test)
 
 
-@pytest.mark.parametrize("mode", ["--batch", "--async"])
+@pytest.mark.parametrize("mode", ["--batch", "--async", "--tenants 4 --async",
+                                  "--adapt --async", "--placements --batch"])
 def test_main_serves_every_held_out_query(mode, capsys):
     serve.main(["--domain", "agriculture", "--queries", "40", "--budget",
-                "3", "--use-kernel", "--device", "cpu", mode])
+                "3", "--use-kernel", "--device", "cpu", *mode.split()])
     out = capsys.readouterr().out
     assert "agriculture: served 12/12 queries" in out
     assert "'rps_engine': 'kernel'" in out
+    if "--tenants" in mode:
+        assert "router: 2 shards, 4 tenants (zipf 1.1), shed 0" in out
+    if "--adapt" in mode:
+        assert "adaptation    0 table swap(s)" in out
+    if "--placements" in mode:
+        assert "gemma-7b@orin+m4: m4[0:28]" in out
 
 
-@pytest.mark.parametrize("flag", [["--placements"], ["--adapt"],
-                                  ["--tenants", "2"], ["--repl"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_repl_answers_each_prompt_line(capsys, monkeypatch):
+    import io
+
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        "how do I rotate the crops\nwhen should I irrigate\n\n"))
+    serve.main(["--domain", "agriculture", "--queries", "40", "--budget",
+                "3", "--device", "cpu", "--repl", "--adapt"])
+    out = capsys.readouterr().out
+    assert out.count("  path=") == 2
+    assert "system state: " in out and "'admitted': 2" in out
+
+
+@pytest.mark.parametrize("flag", [["--placements", "--adapt"],
+                                  ["--adapt", "--batch"],
+                                  ["--tenants", "2"],
+                                  ["--repl", "--tenants", "2"]])
+def test_unported_flags_raise(flag, capsys):
+    """The flags the port once refused run now (above); they raise only
+    where the JAX package's entry point refuses them: ``--adapt`` needs the
+    async or REPL serving loop, ``--tenants`` the async one."""
+    with pytest.raises(SystemExit):
         serve.main(flag + ["--device", "cpu"])
+    need = "--adapt requires --async or --repl" if "--adapt" in flag \
+        else "--tenants requires --async"
+    assert need in capsys.readouterr().err
 
 
 def test_unported_branches_raise():
-    from repro_torch.core.paths import with_placements
+    """Placed paths enter the path space now; what still raises behind
+    them is the model families the port does not build yet (ROADMAP.md
+    queue 1, items 10c-e), whose plans need a parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.paths import PLACED_IMPL, with_placements
+    from repro_torch.runtime.placement import search_placement
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PathSpace(spec=with_placements())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EcoLLMServer.enable_adaptation(None)
+    assert any(p.model.impl == PLACED_IMPL
+               for p in PathSpace(spec=with_placements()).paths)
+    for arch in ("xlstm-125m", "seamless-m4t-medium", "llava-next-34b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            search_placement(get_config(arch), ("orin", "cloud"))
 
 
 def test_draft_attend_through_decode_attention():
