@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
-paths (online path selection, the serving runtime around it, and three
+paths (online path selection, the serving runtime around it, and six
 served language models) through the entry points a user calls, and holds
 every kernel against its plain torch version on the card.  Phases, one JSON
 line each:
@@ -20,7 +20,9 @@ line each:
    one PyTorch call that computes the same function as a library yardstick
    the port never calls: ``torch.topk(q @ c.T, k)`` for retrieval_topk,
    ``scaled_dot_product_attention`` for the attention kernels (bf16, at the
-   served and long prefill and decode shapes of all three models) and
+   served and long prefill and decode shapes of the attention models: the
+   encoder-decoder's non-causal encoder and cross-attention, the latter
+   one row at a time at decode, among them) and
    ``torch.bmm`` for moe_gmm (at the Llama-4-Scout prefill and decode
    shapes); rglru_scan and dsqe_score have no such call.  Three kernels
    have two variants, chosen by one rule each (``kernel.route``): moe_gmm,
@@ -90,7 +92,17 @@ line each:
 9. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
    (``hybrid_phase``): exact rglru_scan / flash / decode launch counts and
    prefill -> decode through a wrapped ring.
-10. ``split``: the split-inference draft's ``DraftState.attend`` through the
+10. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
+   (``xlstm_phase``): no attention launches, prefill -> decode by teacher
+   forcing (the mLSTM prefill takes whole 256-token chunks only).
+11. ``encdec_model``: SeamlessM4T-medium whole (``encdec_phase``): 4096
+   stub audio frames encoded once by the prefill step, a 128-token decoder
+   prefix, exact flash / decode launch counts (encoder, decoder and cross
+   attention) and prefill -> decode on the served encoder output.
+12. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+   576 stub patch embeddings in the first prompt slots, exact flash /
+   decode launch counts, prefill -> decode.
+13. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
@@ -139,6 +151,8 @@ REL_DECODE = 2e-2  # prefill -> decode logits, tests/test_models.py's bound
 OUT_TOKENS = 150  # decode steps of every served model (core/pipeline.py)
 SCOUT_LAYERS = 12  # of 48: 12 x 4.4 GB of bf16 layers + 4.1 GB embed and head
 TWIN_LAYERS = 2  # the Scout fp32 twin: 2 x 8.8 GB + 8.3 GB embed and head
+MLSTM_CHUNK = 256  # the mLSTM prefill's chunk (models/blocks.py)
+VLM_TWIN_LAYERS = 4  # LLaVA's fp32 twin: 4 x 2.2 GB + 3.9 GB embed, head, frontend
 KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "decode_partial_kernel", "decode_combine_kernel",
                 "decode_attention_tc_kernel", "decode_tc_combine_kernel",
@@ -365,14 +379,17 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                                  f"plain version by {err}")
         return err
 
-    def flash_row(where, B, S, H, Kv, hd, masks, loops=()):
-        """One prefill shape: bf16 against the plain version (the served
-        route, which must be the tensor-core variant), fp32 (the FFMA
-        variant) at 1e-5, and the times of the served route, the plain
-        version, the FFMA variant on the same bf16 inputs (its explicit
-        route), and SDPA with the same mask.  Bound: 4 hd FLOPs per visible
-        (query, key) pair, q, k, v read and out written once."""
-        q, k, v = randn(B, S, H, hd), randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+    def flash_row(where, B, S, H, Kv, hd, masks, loops=(), Skv=None):
+        """One prefill shape, S query rows against ``Skv`` keys (S when not
+        given): bf16 against the plain version (the served route, which
+        must be the tensor-core variant), fp32 (the FFMA variant) at 1e-5,
+        and the times of the served route, the plain version, the FFMA
+        variant on the same bf16 inputs (its explicit route), and SDPA with
+        the same mask.  Bound: 4 hd FLOPs per visible (query, key) pair, q,
+        k, v read and out written once."""
+        Skv = S if Skv is None else Skv
+        q = randn(B, S, H, hd)
+        k, v = randn(B, Skv, Kv, hd), randn(B, Skv, Kv, hd)
         tc0 = flash_attention.launches_tc
         out = flash_attention(q, k, v, **masks)
         if flash_attention.launches_tc != tc0 + 1:
@@ -393,19 +410,19 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                         *loops)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if masks.get("window"):
-            mask = visible(S, S, device=dev, **masks)
+            mask = visible(S, Skv, device=dev, **masks)
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        else:  # causal; a chunk of 8192 does not cut these S
+        else:  # causal or none; a chunk of 8192 does not cut these S
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        pairs = visible_pairs(S, S, **masks)
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
+                qt, kt, vt, is_causal=masks["causal"], enable_gqa=True))
+        pairs = visible_pairs(S, Skv, **masks)
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * Kv * hd)
         b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * hd * pairs)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
-        log("kernels", kernel="flash_attention", shape=where, B=B, S=S, H=H,
-            Kv=Kv, hd=hd, dtype="bf16", **masks, variant="tc",
+        log("kernels", kernel="flash_attention", shape=where, B=B, S=S,
+            Skv=Skv, H=H, Kv=Kv, hd=hd, dtype="bf16", **masks, variant="tc",
             visible_pairs=pairs, bf16_limit_ratio=ratio,
             fp32_max_abs_err=err32, ffma_ms=ffma_ms, **row)
         return row
@@ -494,6 +511,29 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                dict(ring=True, chunk_attn=8192))
     decode_row("recurrentgemma-2b served decode", 4, 2048, 3072 + 75, 10, 1,
                256, dict(ring=True, chunk_attn=0))
+    torch.cuda.empty_cache()
+
+    # the encoder-decoder's and the VLM's shapes (SeamlessM4T-medium: 16
+    # heads of 64, a bidirectional encoder over 4096 frames, cross-attention
+    # of the 128-token decoder prefix and of each decode row; LLaVA-NeXT-34B:
+    # 56 / 8 heads of 128): checked and timed as above
+    from repro_torch.configs import ENCDEC_DECODE_SRC_LEN as T
+    from repro_torch.configs import ENCDEC_DECODER_PREFIX as P
+
+    full = dict(causal=False, window=0, chunk_attn=0)
+    flash_row("seamless-m4t-medium encoder prefill", 8, T, 16, 16, 64, full,
+              loops=(3, 5))
+    torch.cuda.empty_cache()
+    flash_row("seamless-m4t-medium cross prefill", 8, P, 16, 16, 64, full,
+              loops=(3, 5), Skv=T)
+    flash_row("seamless-m4t-medium cross decode", 8, 1, 16, 16, 64, full,
+              Skv=T)
+    decode_row("seamless-m4t-medium served decode", 8, P + OUT_TOKENS,
+               P + 75, 16, 16, 64, dense)
+    flash_row("llava-next-34b served prefill", 4, 1024, 56, 8, 128, causal,
+              loops=(3, 5))
+    decode_row("llava-next-34b served decode", 4, 1024 + OUT_TOKENS, 1024 + 75,
+               56, 8, 128, dense)
     torch.cuda.empty_cache()
     return summary
 
@@ -614,7 +654,8 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
     return summary
 
 
-def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
+def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
+             frontend=None):
     """Serve ``prompts`` through ``launch.steps``: a warm-up prefill and
     decode step (one-time costs: cuBLAS handles, lazy module loads), then a
     timed prefill and ``out_tokens`` greedy decode steps.  Every launch
@@ -622,7 +663,10 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     flash_attention) is set to 0 just before the prefill and just before
     the decode loop, and read just after each; every launch of a kernel with
     two variants must have gone to its tensor-core variant.  The logits of
-    the decode steps in ``watch`` are kept; none may be NaN or infinite."""
+    the decode steps in ``watch`` are kept; none may be NaN or infinite.
+    ``frontend`` (stub frames of an encoder-decoder, patch embeddings of a
+    VLM) goes to the prefill step; an encoder-decoder's prefill returns the
+    encoder output, which every decode step takes back."""
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
     from repro_torch.models.config import ShapeSpec
 
@@ -630,10 +674,11 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     shape = ShapeSpec("served", S + out_tokens, B, "prefill")
     prefill_step = build_prefill_step(cfg, shape)
     decode_step = build_decode_step(cfg, shape)
-    logits, cache = prefill_step(params, prompts)
+    step_in = () if frontend is None else (frontend,)
+    logits, cache, *extra = prefill_step(params, prompts, *step_in)
     decode_step(params, logits.argmax(-1, keepdim=True), cache,
-                torch.tensor(S + 1, dtype=torch.int32, device=dev))
-    del logits, cache
+                torch.tensor(S + 1, dtype=torch.int32, device=dev), *extra)
+    del logits, cache, extra
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -650,7 +695,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
 
     zero()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, prompts)
+    logits, cache, *extra = prefill_step(params, prompts, *step_in)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = {name: op.launches for name, op in ops.items()}
@@ -663,7 +708,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
     t0 = time.perf_counter()
     for t in range(out_tokens):
         generated.append(token)
-        logits, cache = decode_step(params, token, cache, cache_len)
+        logits, cache = decode_step(params, token, cache, cache_len, *extra)
         if t in watch:
             kept[t] = logits.clone()
         token = logits.argmax(-1, keepdim=True)
@@ -691,7 +736,8 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch):
                 prefill_variants=prefill_variants,
                 decode_variants=decode_variants, watch=kept,
                 generated=generated, token=token, cache=cache,
-                decode_step=decode_step,
+                decode_step=decode_step, decode_extra=tuple(extra),
+                frontend=frontend,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -711,20 +757,27 @@ def check_launches(cfg, what, got, want):
         raise AssertionError(f"{cfg.name} {what} launched {got}, want {want}")
 
 
-def prefill_decode_rel(torch, params, cfg, prompts, run) -> dict:
+def prefill_decode_rel(torch, params, cfg, prompts, run,
+                       limit=REL_DECODE) -> dict:
     """Decode step t ran the token at position S + t: the full forward over
     the first S + t + 1 tokens must give the same last-token logits, within
-    rel REL_DECODE of the largest logit."""
+    rel ``limit`` of the largest logit (None: measured only; a NaN always
+    fails)."""
     from repro_torch.models import lm
 
     S = prompts.shape[1]
     seq = torch.cat([prompts, *run["generated"]], dim=1)
+    if cfg.num_encoder_layers:  # the served encoder output
+        side = dict(encoder_out=run["decode_extra"][0])
+    else:  # a VLM's patches take the first slots again
+        side = dict(frontend=run["frontend"])
     rels = {}
     for t, lg in run["watch"].items():
-        hidden, _, _ = lm.forward(params, cfg, seq[:, :S + t + 1])
+        hidden, _, _ = lm.forward(params, cfg, seq[:, :S + t + 1], **side)
         full = lm.logits_of(params, cfg, hidden)
         rels[str(t)] = float((full - lg).abs().max() / full.abs().max())
-    if not max(rels.values()) < REL_DECODE:
+    worst = max(rels.values())
+    if not (worst < limit if limit is not None else worst == worst):
         raise AssertionError(f"{cfg.name}: decode logits differ from the "
                              f"full forward by rel {rels} (step: rel)")
     return rels
@@ -735,7 +788,8 @@ def served_fields(torch, cfg, params, run, out_tokens, init_s) -> dict:
     steps."""
     B, S = run["batch"], run["prompt_tokens"]
     busy_ms, wall_ms, top = decode_device_time(
-        torch, run["decode_step"], params, run["token"], run["cache"], S + 1)
+        torch, run["decode_step"], params, run["token"], run["cache"], S + 1,
+        extra=run["decode_extra"])
     return dict(
         arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
@@ -1003,26 +1057,272 @@ def hybrid_phase(torch, dev) -> dict:
              "decode_attention": n_attn * OUT}, by_variant)
 
 
+def stub_frontend(torch, dev, cfg, B, n, seed):
+    """Stub modality embeddings (B, n, d_model) in the activation dtype:
+    the audio frames or vision patches a config's frontend stands for."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((B, n, cfg.d_model), generator=gen,
+                       device=dev).to(cfg.activation_dtype)
+
+
+def greedy_run(torch, params, cfg, prompts, steps, watch, frontend) -> dict:
+    """A prefill of ``prompts`` (with a VLM's ``frontend``) and ``steps``
+    greedy decode steps through ``lm`` directly, uncounted: the generated
+    tokens and the logits of the steps in ``watch``, in the form
+    ``prefill_decode_rel`` reads."""
+    from repro_torch.models import lm
+
+    S = prompts.shape[1]
+    logits, cache = lm.prefill(params, cfg, prompts, frontend=frontend,
+                               capacity=S + steps)
+    token, generated, kept = logits.argmax(-1, keepdim=True), [], {}
+    for t in range(steps):
+        generated.append(token)
+        logits, cache = lm.decode_step(params, cfg, token, cache, S + t + 1,
+                                       capacity=S + steps)
+        if t in watch:
+            kept[t] = logits
+        token = logits.argmax(-1, keepdim=True)
+    return dict(generated=generated, watch=kept, decode_extra=(),
+                frontend=frontend)
+
+
+def teacher_forced_rel(torch, params, cfg, prompts, first, lengths,
+                       limit=REL_DECODE) -> dict:
+    """Prefill the first ``first`` prompt tokens, then decode the rest of
+    the prompt one token at a time; at each length in ``lengths`` the
+    decode step's logits against the full forward over the same tokens,
+    as max |diff| over max |full|, which must be below ``limit`` (None:
+    measured only; a NaN always fails)."""
+    from repro_torch.models import lm
+
+    S = prompts.shape[1]
+    _, cache = lm.prefill(params, cfg, prompts[:, :first], capacity=S)
+    rels = {}
+    for n in range(first, max(lengths)):
+        logits, cache = lm.decode_step(params, cfg, prompts[:, n:n + 1],
+                                       cache, n + 1, capacity=S)
+        if n + 1 in lengths:
+            hidden, _, _ = lm.forward(params, cfg, prompts[:, :n + 1])
+            full = lm.logits_of(params, cfg, hidden)
+            rels[str(n + 1)] = float((full - logits).abs().max()
+                                     / full.abs().max())
+    worst = max(rels.values())
+    if not (worst < limit if limit is not None else worst == worst):
+        raise AssertionError(f"{cfg.name}: teacher-forced decode logits "
+                             f"differ from the full forward by rel {rels} "
+                             "(tokens: rel)")
+    return rels
+
+
+def xlstm_phase(torch, dev) -> dict:
+    """The smallest edge SLM of ``MODEL_CATALOG``, xlstm-125m whole ((5 mLSTM + 1 sLSTM) x 2, d
+    768, 4 heads; mLSTM inner width 1536 in heads of 384), bf16, seeded
+    random weights: prefill 8 x 1024 tokens, then 150 greedy decode steps.
+    None of the six kernels is on this path (the JAX package has no Pallas
+    kernel for these blocks): flash and decode attention must launch 0
+    times.  The mLSTM prefill runs chunks of MLSTM_CHUNK tokens and refuses
+    a sequence that is not a whole number of them, so no full forward
+    exists over the 1025..1174 tokens of the served steps: prefill ->
+    decode is checked by teacher forcing instead (prefill 256 prompt
+    tokens, decode the other 768 one at a time, compare at 512, 768 and
+    1024 tokens).  In bf16 the two schedules part by more than REL_DECODE
+    at random weights (each layer turns one-ulp differences of its bf16
+    output into larger ones, and the recurrent state keeps them), so the
+    bf16 run is measured and the check, rel < REL_DECODE, is held on an
+    fp32 twin: the served weights widened to fp32.  One sLSTM layer's
+    prefill (a Python loop of 1024 steps) is timed alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import blocks
+    from repro_torch.optim.optimizers import tree_map
+
+    B, S, OUT = 8, 1024, OUT_TOKENS
+    cfg = get_config("xlstm-125m")
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=4)
+    ops = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops, watch=set())
+    none = {"flash_attention": 0, "decode_attention": 0}
+    check_launches(cfg, "prefill", run["prefill_launches"], none)
+    check_launches(cfg, "decode", run["decode_launches"], none)
+    fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    by_variant = variant_totals(run)
+    del run
+    lengths = (2 * MLSTM_CHUNK, 3 * MLSTM_CHUNK, S)
+    t0 = time.perf_counter()
+    bf16_rels = teacher_forced_rel(torch, params, cfg, prompts, MLSTM_CHUNK,
+                                   lengths, limit=None)
+    forced_s = time.perf_counter() - t0
+    twin = cfg.with_overrides(dtype="float32")
+    rels = teacher_forced_rel(torch, tree_map(lambda t: t.float(), params),
+                              twin, prompts, MLSTM_CHUNK, lengths)
+
+    j = cfg.block_pattern.index("slstm")
+    units = params["stack"]["units"]
+    slstm = (units[0] if isinstance(units, list)
+             else tree_map(lambda t: t[0], units))[f"b{j}"]
+    x = stub_frontend(torch, dev, cfg, B, S, seed=9)  # any (B, S, d) input
+    ctx = blocks.BlockCtx(mode="train",
+                          positions=torch.arange(S, device=dev)[None])
+    blocks.apply_slstm_block(slstm, x[:, :8], ctx, cfg)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks.apply_slstm_block(slstm, x, ctx, cfg)
+    torch.cuda.synchronize()
+    slstm_ms = 1e3 * (time.perf_counter() - t0)
+    inner = 2 * cfg.d_model
+    log("xlstm_model", **fields, block_pattern=list(cfg.block_pattern),
+        mlstm_inner=inner, mlstm_head_dim=inner // cfg.num_heads,
+        mlstm_chunk=MLSTM_CHUNK, slstm_layer_prefill_ms=slstm_ms,
+        teacher_forced=dict(prefill_tokens=MLSTM_CHUNK,
+                            decode_steps=S - MLSTM_CHUNK,
+                            bf16_seconds=forced_s,
+                            bf16_prefill_to_decode_rel=bf16_rels,
+                            fp32_prefill_to_decode_rel=rels))
+    del params, x
+    torch.cuda.empty_cache()
+    return none, by_variant
+
+
+def encdec_phase(torch, dev) -> dict:
+    """The speech tier, seamless-m4t-medium whole (12 bidirectional encoder
+    layers over stub audio frames, 12 decoder layers with
+    cross-attention; d 1024, 16 heads of 64, vocab 256206), bf16, seeded
+    random weights: 8 x 4096 frames (ENCDEC_DECODE_SRC_LEN) and an 8 x 128
+    decoder prefix (ENCDEC_DECODER_PREFIX) through the enc-dec prefill
+    step, which encodes once and returns the encoder output, then 150
+    greedy decode steps that take it back.  Launches: 36 flash_attention
+    per prefill (12 encoder, non-causal over 4096 frames; 12 decoder,
+    causal; 12 cross, 128 rows against 4096 frames), 12 decode_attention
+    and 12 flash_attention (cross, one row against 4096 frames) per decode
+    step.  Prefill -> decode at steps 0, 74 and 149 within REL_DECODE,
+    against the full decoder forward on the served encoder output."""
+    from repro_torch.configs import (ENCDEC_DECODE_SRC_LEN,
+                                     ENCDEC_DECODER_PREFIX, get_config)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    B, S, T, OUT = 8, ENCDEC_DECODER_PREFIX, ENCDEC_DECODE_SRC_LEN, OUT_TOKENS
+    cfg = get_config("seamless-m4t-medium")
+    L, Le = cfg.num_layers, cfg.num_encoder_layers
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=5)
+    frames = stub_frontend(torch, dev, cfg, B, T, seed=6)
+    ops = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
+                   watch={0, OUT // 2 - 1, OUT - 1}, frontend=frames)
+    check_launches(cfg, "prefill", run["prefill_launches"],
+                   {"flash_attention": Le + 2 * L, "decode_attention": 0})
+    check_launches(cfg, "decode", run["decode_launches"],
+                   {"flash_attention": L * OUT, "decode_attention": L * OUT})
+    rels = prefill_decode_rel(torch, params, cfg, prompts, run)
+    log("encdec_model", **served_fields(torch, cfg, params, run, OUT, init_s),
+        encoder_layers=Le, source_frames=T,
+        source_frames_per_s=B * T / run["prefill_s"],
+        prefill_to_decode_rel=rels)
+    by_variant = variant_totals(run)
+    del params, run, frames
+    torch.cuda.empty_cache()
+    return ({"flash_attention": Le + 2 * L + L * OUT,
+             "decode_attention": L * OUT}, by_variant)
+
+
+def vlm_phase(torch, dev) -> dict:
+    """The VLM family, llava-next-34b at full width and depth (60 layers, d 7168, 56 / 8
+    heads of 128, d_ff 20480, vocab 64000; 68.9 GB of bf16 weights),
+    seeded random weights: 4 prompts of 1024 tokens whose first 576 slots
+    are stub patch embeddings (the VLM prefill step merges them), then 150
+    greedy decode steps.  Launches: 60 flash_attention per prefill, 60
+    decode_attention per decode step.  Prefill -> decode at steps 0, 74
+    and 149 within REL_DECODE against the full forward, whose first 576
+    slots are the same patches.
+
+    At 60 bf16 layers that difference is above REL_DECODE (one-ulp
+    differences of the bf16 hidden state grow with depth: InternLM2's 24
+    layers give ~1.4e-2), so the served run's is measured, and the check,
+    rel < REL_DECODE at the same steps, is held on an fp32 twin: the served
+    weights' first VLM_TWIN_LAYERS layers, embedding, head and frontend
+    projection, widened to fp32, on the same prompts and patches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.optim.optimizers import tree_map
+
+    B, S, OUT = 4, 1024, OUT_TOKENS
+    cfg = get_config("llava-next-34b")
+    L, P = cfg.num_layers, cfg.frontend_len
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=7)
+    torch.cuda.empty_cache()  # the init's fp32 draws
+    patches = stub_frontend(torch, dev, cfg, B, P, seed=8)
+    ops = {"flash_attention": flash_attention,
+           "decode_attention": decode_attention}
+    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
+                   watch={0, OUT // 2 - 1, OUT - 1}, frontend=patches)
+    check_launches(cfg, "prefill", run["prefill_launches"],
+                   {"flash_attention": L, "decode_attention": 0})
+    check_launches(cfg, "decode", run["decode_launches"],
+                   {"flash_attention": 0, "decode_attention": L * OUT})
+    watch = set(run["watch"])
+    bf16_rels = prefill_decode_rel(torch, params, cfg, prompts, run,
+                                   limit=None)
+    fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    by_variant = variant_totals(run)
+    del run
+
+    # the fp32 twin: slice the first layers out, free the rest, widen
+    n = min(VLM_TWIN_LAYERS, L)
+    units = params["stack"]["units"]  # stacked, or a per-unit list
+    units = units[:n] if isinstance(units, list) else \
+        tree_map(lambda t: t[:n].clone(), units)
+    del params["stack"]
+    torch.cuda.empty_cache()
+    params["stack"] = {"units": units}
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    twin = cfg.with_overrides(num_layers=n, dtype="float32")
+    twin_run = greedy_run(torch, params, twin, prompts, OUT, watch,
+                          patches.float())
+    rels = prefill_decode_rel(torch, params, twin, prompts, twin_run)
+    log("vlm_model", **fields, patch_slots=P,
+        weights_gb=cfg.param_count() * 2 / 1e9,
+        bf16_prefill_to_decode_rel=bf16_rels,
+        fp32_twin=dict(layers=n, prefill_to_decode_rel=rels))
+    del params, twin_run, patches
+    torch.cuda.empty_cache()
+    return ({"flash_attention": L, "decode_attention": L * OUT}, by_variant)
+
+
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
-                       steps=5):
+                       steps=5, extra=()):
     """Profile ``steps`` decode steps (writing cache slots from
-    ``first_len - 1`` on again): (device busy ms per step, or None when the
-    profiler records no device time; wall ms per step; the five kernels
-    with the most device time, as [name, ms per step, calls per step])."""
+    ``first_len - 1`` on again; a recurrent state steps on): (device busy
+    ms per step, or None when the profiler records no device time; wall ms
+    per step; the five kernels with the most device time, as [name, ms per
+    step, calls per step]); busy time is the sum of the device kernels'
+    times.  ``extra``: the step's arguments after
+    ``cache_len`` (an encoder-decoder's encoder output)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cache_len = torch.tensor(first_len, dtype=torch.int32, device=token.device)
-    decode_step(params, token, cache, cache_len)  # warm the profiler path
+    decode_step(params, token, cache, cache_len, *extra)  # warm the profiler
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            decode_step(params, token, cache, cache_len)
+            decode_step(params, token, cache, cache_len, *extra)
             cache_len += 1
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # device kernels only: the aten op that launched a kernel reports the
+    # same time again as its own device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     events.sort(key=lambda e: -e.self_device_time_total)
     top = [[e.key[:100], e.self_device_time_total / 1e3 / steps,
@@ -1755,9 +2055,11 @@ def main() -> int:
     launches["retrieval_topk"] += runtime_launches
     variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 7-9. the served models: a kernel on several paths reports the sum
-    # of its launches over their served runs, in all and by variant
-    for phase in (model_phase, moe_phase, hybrid_phase):
+    # -- 7-12. the served models: a kernel on several paths reports the sum
+    # of its launches over their served runs, in all and by variant; the
+    # largest model last, once every earlier phase's tensors are freed
+    for phase in (model_phase, moe_phase, hybrid_phase, xlstm_phase,
+                  encdec_phase, vlm_phase):
         counts, by_variant = phase(torch, dev)
         for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
@@ -1766,7 +2068,7 @@ def main() -> int:
             for v, n in by.items():
                 acc[v] += n
 
-    # -- 10. split -------------------------------------------------------
+    # -- 13. split -------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 

@@ -26,6 +26,8 @@ _ARCH_MODULES = {
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
 
+# decoder prefix length used when "prefill" is driven on an enc-dec arch
+ENCDEC_DECODER_PREFIX = 128
 # encoder source length paired with decode shapes on enc-dec archs
 ENCDEC_DECODE_SRC_LEN = 4096
 

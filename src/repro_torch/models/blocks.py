@@ -1,7 +1,8 @@
 """Transformer, MoE and recurrent blocks of the model substrate, in PyTorch.
 
-The JAX package's ``models/blocks.py`` for the attention block (dense MLP
-or MoE FFN) and the RG-LRU recurrent block:
+The JAX package's ``models/blocks.py``: the attention block (dense MLP or
+MoE FFN, with cross-attention in an encoder-decoder), the bidirectional
+encoder block, and the RG-LRU, mLSTM and sLSTM recurrent blocks:
     init_<type>_block(gen, cfg, device) -> params
     apply_<type>_block(params, x, ctx, cfg, cache) -> (y, cache, aux)
 
@@ -13,9 +14,9 @@ Caches (KV and recurrent state) are updated in place; the JAX blocks return
 new ones.  The MoE expert FFN runs its three products through the
 ``moe_gmm`` op and the RG-LRU prefill its recurrence through the
 ``rglru_scan`` op, where the JAX package runs einsums and an associative
-scan.  The mLSTM and sLSTM blocks, cross-attention and the bidirectional
-encoder block are not ported yet: each raises ``NotImplementedError``
-naming its ROADMAP.md item.
+scan.  The mLSTM and sLSTM blocks have no kernel in the JAX package either:
+they stay torch ops, and the sLSTM prefill is a Python loop over the
+sequence where the JAX package runs ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -32,19 +33,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
-
-_ROADMAP = {
-    "mlstm": "the xLSTM mLSTM block (ROADMAP.md queue 1, item 10c)",
-    "slstm": "the xLSTM sLSTM block (ROADMAP.md queue 1, item 10c)",
-    "encdec": "cross-attention and the encoder stack (ROADMAP.md queue 1, "
-              "item 10d)",
-    "vlm": "the vision frontend (ROADMAP.md queue 1, item 10e)",
-}
-
-
-def unported(what: str):
-    raise NotImplementedError(f"{_ROADMAP[what]} is not ported yet")
-
 
 @dataclass(frozen=True)
 class BlockCtx:
@@ -64,14 +52,15 @@ class BlockCtx:
 
 def init_attn_block(gen, cfg: ModelConfig, device,
                     cross: bool = False) -> Params:
-    if cross:
-        unported("encdec")
     dt = cfg.activation_dtype
     p: Params = {
         "ln1": L.init_rmsnorm(cfg.d_model, dt, device),
         "ln2": L.init_rmsnorm(cfg.d_model, dt, device),
         "attn": L.init_attention(gen, cfg, device),
     }
+    if cross:
+        p["ln_x"] = L.init_rmsnorm(cfg.d_model, dt, device)
+        p["xattn"] = L.init_attention(gen, cfg, device)
     if cfg.num_experts:
         p["moe"] = init_moe(gen, cfg, device)
     elif cfg.d_ff:
@@ -135,12 +124,16 @@ def _self_attention(params: Params, x: torch.Tensor, ctx: BlockCtx,
 def apply_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
                      cfg: ModelConfig, cache: Optional[Params] = None,
                      encoder_out: Optional[torch.Tensor] = None):
-    if encoder_out is not None or "xattn" in params:
-        unported("encdec")
     h, new_cache = _self_attention(params["attn"],
                                    L.rms_norm(x, params["ln1"], cfg.norm_eps),
                                    ctx, cfg, cache)
     x = x + h
+    if "xattn" in params:
+        if encoder_out is None:
+            raise ValueError("cross-attention needs encoder_out")
+        x = x + _cross_attention(params["xattn"],
+                                 L.rms_norm(x, params["ln_x"], cfg.norm_eps),
+                                 encoder_out, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     y = L.rms_norm(x, params["ln2"], cfg.norm_eps)
     if "moe" in params:
@@ -150,6 +143,35 @@ def apply_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
     else:
         h = torch.zeros_like(x)
     return x + h, new_cache, aux
+
+
+def _cross_attention(params: Params, x: torch.Tensor, enc: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Full (non-causal) attention from decoder states to encoder output,
+    no rotary.  The K/V projections of ``enc`` are recomputed at every call
+    (every decode step), as the JAX block does."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", enc, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, params["wv"])
+    out = L.flash_attention_xla(q, k, v, causal=False)
+    return L.attention_out(params, out)
+
+
+def init_bidir_attn_block(gen, cfg: ModelConfig, device) -> Params:
+    """Encoder block: bidirectional self-attention + FFN."""
+    return init_attn_block(gen, cfg, device)
+
+
+def apply_bidir_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
+                           cfg: ModelConfig):
+    q, k, v = L.attention_qkv(params["attn"],
+                              L.rms_norm(x, params["ln1"], cfg.norm_eps),
+                              ctx.positions, cfg)
+    out = L.flash_attention_xla(q, k, v, causal=False)
+    x = x + L.attention_out(params["attn"], out)
+    h = L.mlp_apply(params["mlp"], L.rms_norm(x, params["ln2"], cfg.norm_eps),
+                    cfg.activation)
+    return x + h, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ===========================================================================
@@ -480,15 +502,287 @@ def apply_rglru_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
 
 
 # ===========================================================================
+# mLSTM block (xLSTM): chunkwise-parallel matrix-memory LSTM
+# ===========================================================================
+
+def _mlstm_dims(cfg: ModelConfig) -> tuple[int, int]:
+    inner = 2 * cfg.d_model  # up-projection factor 2 (xLSTM paper)
+    return inner, inner // cfg.num_heads
+
+
+def init_mlstm_block(gen, cfg: ModelConfig, device) -> Params:
+    dt, f32 = cfg.activation_dtype, torch.float32
+    D, NH = cfg.d_model, cfg.num_heads
+    inner, _ = _mlstm_dims(cfg)
+    return {
+        "ln1": L.init_rmsnorm(D, dt, device),
+        "w_up": L.dense_init(gen, D, (inner,), dt, device),
+        "w_gate": L.dense_init(gen, D, (inner,), dt, device),
+        "wq": L.dense_init(gen, inner, (inner,), dt, device),
+        "wk": L.dense_init(gen, inner, (inner,), dt, device),
+        "wv": L.dense_init(gen, inner, (inner,), dt, device),
+        "w_i": L.dense_init(gen, inner, (NH,), f32, device),
+        "b_i": torch.zeros((NH,), dtype=f32, device=device),
+        "w_f": L.dense_init(gen, inner, (NH,), f32, device),
+        "b_f": torch.full((NH,), 3.0, dtype=f32, device=device),
+        "out_norm": L.init_rmsnorm(inner, dt, device),
+        "w_down": L.dense_init(gen, inner, (D,), dt, device),
+    }
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    NH = cfg.num_heads
+    _, dh = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {
+        "C": torch.zeros((batch, NH, dh, dh), dtype=f32, device=device),
+        "n": torch.zeros((batch, NH, dh), dtype=f32, device=device),
+        "m": torch.full((batch, NH), -1e30, dtype=f32, device=device),
+    }
+
+
+def mlstm_chunkwise(q, k, v, li, lf, state: Params, chunk: int = 256):
+    """Chunkwise-parallel stabilized mLSTM.
+
+    q, k, v: (B, S, NH, DH); li / lf: (B, S, NH) log input / log forget
+    gate.  ``state``: {"C", "n", "m"} carried across chunks, read only.
+    Returns (h, new_state).  S must be a multiple of the chunk (``min(chunk,
+    S)``), as in the JAX function: nothing is padded.
+    """
+    B, S, NH, DH = q.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"mlstm_chunkwise: S = {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    n_chunks = S // chunk
+    scale = 1.0 / math.sqrt(DH)
+
+    def chunks(t):  # (B, S, NH, ...) -> (N, B, NH, L, ...)
+        t = t.reshape(B, n_chunks, chunk, NH, *t.shape[3:])
+        return t.transpose(2, 3).transpose(0, 1)
+
+    qr, kr, vr, lir, lfr = (chunks(t) for t in (q, k, v, li, lf))
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    C, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for c in range(n_chunks):
+        qc, kc, vc, lic, lfc = qr[c], kr[c], vr[c], lir[c], lfr[c]
+        b = torch.cumsum(lfc, dim=-1)  # inclusive logcumsum of forget gates
+        # per-position stabilizer
+        intra_max = torch.cummax(lic - b, dim=-1).values
+        m_t = torch.maximum(m[..., None] + b, b + intra_max)  # (B, NH, L)
+        # inter-chunk: read from running memory
+        inter_coef = torch.exp(m[..., None] + b - m_t)
+        h_inter = torch.einsum("bhld,bhde->bhle", qc, C) * scale
+        n_inter = torch.einsum("bhld,bhd->bhl", qc, n) * scale
+        # intra-chunk decay D[t, s] = exp(b_t - b_s + li_s - m_t), s <= t
+        logD = (b[..., :, None] - b[..., None, :] + lic[..., None, :]
+                - m_t[..., None])
+        Dmat = torch.where(mask, torch.exp(logD), 0.0)
+        scores = torch.einsum("bhld,bhsd->bhls", qc, kc) * scale * Dmat
+        h_intra = torch.einsum("bhls,bhsd->bhld", scores.to(vc.dtype), vc)
+        n_intra = scores.sum(dim=-1)
+        h_num = h_inter * inter_coef[..., None] + h_intra
+        denom = torch.maximum((n_inter * inter_coef + n_intra).abs(),
+                              torch.exp(-m_t))
+        hs.append(h_num / denom[..., None])
+        # state update to the end of the chunk
+        bL = b[..., -1:]
+        g = bL - b + lic  # per-position contribution in log space
+        m_new = torch.maximum(m + bL[..., 0], g.max(dim=-1).values)
+        state_coef = torch.exp(m + bL[..., 0] - m_new)  # (B, NH)
+        w = torch.exp(g - m_new[..., None])  # (B, NH, L)
+        C = C * state_coef[..., None, None] + torch.einsum(
+            "bhl,bhld,bhle->bhde", w, kc, vc)
+        n = n * state_coef[..., None] + torch.einsum("bhl,bhld->bhd", w, kc)
+        m = m_new
+    h = torch.stack(hs).transpose(0, 1).transpose(2, 3).reshape(B, S, NH, DH)
+    return h, {"C": C, "n": n, "m": m}
+
+
+def mlstm_step(q, k, v, li, lf, state: Params):
+    """Single-token recurrent mLSTM step. q/k/v: (B, 1, NH, DH) in the
+    activation dtype, ``state`` fp32.  q, k and v are widened to fp32
+    first: the JAX function multiplies k by v in their dtype, but its
+    serving step runs jitted, where XLA keeps that product in fp32 (excess
+    precision) before it meets the fp32 gate.  Returns (h (B, 1, NH * DH)
+    fp32, new_state)."""
+    B, _, NH, DH = q.shape
+    scale = 1.0 / math.sqrt(DH)
+    qs, ks, vs = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+    lis, lfs = li[:, 0], lf[:, 0]  # (B, NH)
+    m_new = torch.maximum(lfs + state["m"], lis)
+    f_p = torch.exp(lfs + state["m"] - m_new)
+    i_p = torch.exp(lis - m_new)
+    C = state["C"] * f_p[..., None, None] + i_p[..., None, None] * (
+        ks[..., :, None] * vs[..., None, :])
+    n = state["n"] * f_p[..., None] + i_p[..., None] * ks
+    h_num = torch.einsum("bhd,bhde->bhe", qs, C) * scale
+    denom = torch.maximum(
+        (torch.einsum("bhd,bhd->bh", qs, n) * scale).abs(), torch.exp(-m_new))
+    h = (h_num / denom[..., None])[:, None]  # (B, 1, NH, DH)
+    return h.reshape(B, 1, NH * DH), {"C": C, "n": n, "m": m_new}
+
+
+def _write_state(cache: Params, state: Params) -> Params:
+    """Copy a recurrent state into ``cache`` in place (its entries may be
+    views into a stacked cache) and return the cache."""
+    for name, t in state.items():
+        cache[name].copy_(t)
+    return cache
+
+
+def apply_mlstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
+                      cfg: ModelConfig, cache: Optional[Params] = None):
+    """Returns (y, cache, aux).  Prefill starts from ``cache`` when one is
+    given (a fresh one: zeros, m = -1e30) and writes the end state into it
+    in place; decode updates it in place."""
+    B, S, _ = x.shape
+    NH = cfg.num_heads
+    inner, dh = _mlstm_dims(cfg)
+    xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
+    up = xin @ params["w_up"]
+    gate = xin @ params["w_gate"]
+    q = (up @ params["wq"]).reshape(B, S, NH, dh)
+    k = (up @ params["wk"]).reshape(B, S, NH, dh)
+    v = (up @ params["wv"]).reshape(B, S, NH, dh)
+    up32 = up.float()
+    li = up32 @ params["w_i"] + params["b_i"]
+    lf = F.logsigmoid(up32 @ params["w_f"] + params["b_f"])
+
+    new_cache = None
+    if ctx.decoding:
+        if cache is None:
+            raise ValueError("decode needs a recurrent cache")
+        h, state = mlstm_step(q, k, v, li, lf, cache)
+        new_cache = _write_state(cache, state)
+    else:
+        state = cache if cache is not None else init_mlstm_cache(cfg, B,
+                                                                 x.device)
+        h, end_state = mlstm_chunkwise(q.float(), k.float(), v.float(), li,
+                                       lf, state)
+        h = h.reshape(B, S, inner)
+        if ctx.mode == "prefill":
+            new_cache = end_state if cache is None else _write_state(
+                cache, end_state)
+    h = L.rms_norm(h.to(x.dtype), params["out_norm"], cfg.norm_eps)
+    h = h * F.silu(gate)
+    out = h @ params["w_down"]
+    return x + out, new_cache, torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
+# ===========================================================================
+# sLSTM block (xLSTM): scalar-memory LSTM with exponential gating
+# ===========================================================================
+
+_SLSTM_GATES = ("z", "i", "f", "o")
+
+
+def init_slstm_block(gen, cfg: ModelConfig, device) -> Params:
+    dt, f32 = cfg.activation_dtype, torch.float32
+    D, NH = cfg.d_model, cfg.num_heads
+    dh = D // NH
+    ff = int(math.ceil(4.0 / 3.0 * D / 8.0)) * 8
+    p: Params = {"ln1": L.init_rmsnorm(D, dt, device),
+                 "ln2": L.init_rmsnorm(D, dt, device)}
+    for g in _SLSTM_GATES:
+        p[f"w_{g}"] = L.dense_init(gen, D, (D,), dt, device)
+        p[f"r_{g}"] = _normal_init(gen, (NH, dh, dh), 1.0 / math.sqrt(dh), dt,
+                                   device)
+        p[f"b_{g}"] = torch.full((D,), 3.0 if g == "f" else 0.0, dtype=f32,
+                                 device=device)
+    p["w_out"] = L.dense_init(gen, D, (D,), dt, device)
+    p["mlp"] = L.init_mlp(gen, D, ff, "geglu", dt, device)
+    return p
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    D, f32 = cfg.d_model, torch.float32
+    return {
+        "h": torch.zeros((batch, D), dtype=f32, device=device),
+        "c": torch.zeros((batch, D), dtype=f32, device=device),
+        "n": torch.ones((batch, D), dtype=f32, device=device),
+        "m": torch.zeros((batch, D), dtype=f32, device=device),
+    }
+
+
+def _slstm_cell(params: Params, xt: Params, state: Params, NH: int) -> Params:
+    """One sLSTM step. xt: dict of per-gate input preactivations (B, D)."""
+    B, D = xt["z"].shape
+    dh = D // NH
+    h_prev = state["h"].reshape(B, NH, dh)
+
+    def rec(g):
+        r = params[f"r_{g}"].float()
+        return torch.einsum("bhd,hde->bhe", h_prev, r).reshape(B, D)
+
+    z = torch.tanh(xt["z"] + rec("z"))
+    o = torch.sigmoid(xt["o"] + rec("o"))
+    i_tilde = xt["i"] + rec("i")
+    f_tilde = xt["f"] + rec("f")
+    lf = F.logsigmoid(f_tilde)
+    m_new = torch.maximum(lf + state["m"], i_tilde)
+    i_p = torch.exp(i_tilde - m_new)
+    f_p = torch.exp(lf + state["m"] - m_new)
+    c = f_p * state["c"] + i_p * z
+    n = f_p * state["n"] + i_p
+    h = o * c / torch.clamp_min(n, 1e-6)
+    return {"h": h, "c": c, "n": n, "m": m_new}
+
+
+def apply_slstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
+                      cfg: ModelConfig, cache: Optional[Params] = None):
+    """Returns (y, cache, aux), the cache handled as in the mLSTM block.
+    The prefill runs the cell once per position in a Python loop."""
+    B, S, _ = x.shape
+    NH = cfg.num_heads
+    xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
+    pre = {g: (xin @ params[f"w_{g}"]).float() + params[f"b_{g}"]
+           for g in _SLSTM_GATES}
+    # the recurrent weights widened once, not once per step
+    cell = {f"r_{g}": params[f"r_{g}"].float() for g in _SLSTM_GATES}
+    new_cache = None
+    if ctx.decoding:
+        if cache is None:
+            raise ValueError("decode needs a recurrent cache")
+        state = _slstm_cell(cell, {g: pre[g][:, 0] for g in pre}, cache, NH)
+        new_cache = _write_state(cache, state)
+        h_seq = state["h"][:, None]
+    else:
+        state = cache if cache is not None else init_slstm_cache(cfg, B,
+                                                                 x.device)
+        hs = []
+        for t in range(S):
+            state = _slstm_cell(cell, {g: pre[g][:, t] for g in pre}, state,
+                                NH)
+            hs.append(state["h"])
+        h_seq = torch.stack(hs, dim=1)  # (B, S, D)
+        if ctx.mode == "prefill":
+            new_cache = state if cache is None else _write_state(cache, state)
+    x = x + h_seq.to(x.dtype) @ params["w_out"]
+    x = x + L.mlp_apply(params["mlp"], L.rms_norm(x, params["ln2"],
+                                                  cfg.norm_eps), "geglu")
+    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ===========================================================================
 # registry
 # ===========================================================================
 
-def init_block(block_type: str, gen, cfg: ModelConfig, device) -> Params:
+_INITS = {"rglru": init_rglru_block, "mlstm": init_mlstm_block,
+          "slstm": init_slstm_block}
+_APPLIES = {"rglru": apply_rglru_block, "mlstm": apply_mlstm_block,
+            "slstm": apply_slstm_block}
+
+
+def init_block(block_type: str, gen, cfg: ModelConfig, device,
+               cross: bool = False) -> Params:
+    """``cross`` adds cross-attention to an attention block."""
     if block_type == "attn":
-        return init_attn_block(gen, cfg, device)
-    if block_type == "rglru":
-        return init_rglru_block(gen, cfg, device)
-    unported(block_type)
+        return init_attn_block(gen, cfg, device, cross=cross)
+    return _INITS[block_type](gen, cfg, device)
 
 
 def init_block_cache(block_type: str, cfg: ModelConfig, batch: int,
@@ -497,4 +791,19 @@ def init_block_cache(block_type: str, cfg: ModelConfig, batch: int,
         return init_attn_cache(cfg, batch, capacity, device)
     if block_type == "rglru":
         return init_rglru_cache(cfg, batch, device)
-    unported(block_type)
+    if block_type == "mlstm":
+        return init_mlstm_cache(cfg, batch, device)
+    if block_type == "slstm":
+        return init_slstm_cache(cfg, batch, device)
+    raise ValueError(block_type)
+
+
+def apply_block(block_type: str, params: Params, x: torch.Tensor,
+                ctx: BlockCtx, cfg: ModelConfig, cache: Optional[Params],
+                encoder_out: Optional[torch.Tensor] = None):
+    """(y, cache, aux) of one block of any type; only attention blocks read
+    ``encoder_out``."""
+    if block_type == "attn":
+        return apply_attn_block(params, x, ctx, cfg, cache=cache,
+                                encoder_out=encoder_out)
+    return _APPLIES[block_type](params, x, ctx, cfg, cache=cache)

@@ -1,17 +1,19 @@
-"""Decoder-only language model of the model substrate, in PyTorch.
+"""Language model assembly of the model substrate, in PyTorch.
 
-The JAX package's ``models/lm.py`` for dense, MoE and hybrid (RG-LRU +
-local attention) stacks: layer stacks with a repeating block pattern,
-train / prefill / decode execution modes with fixed-capacity caches, and
-the weight carry from the JAX package's parameter tree.  Parameters are a
+The JAX package's ``models/lm.py`` for every family it builds: dense, MoE,
+recurrent (xLSTM) and hybrid (RG-LRU + local attention) stacks with a
+repeating block pattern, the encoder-decoder composition (a bidirectional
+encoder over stub audio frames, cross-attention in the decoder) and the
+vision stub whose patch embeddings replace the first token slots; train /
+prefill / decode execution modes with fixed-capacity caches, and the
+weight carry from the JAX package's parameter tree.  Parameters are a
 plain dict of tensors whose tree is the JAX one (``embed``,
 ``final_norm``, ``head``, ``stack.units[i].b0.attn.wq``, ...).  With
 ``cfg.scan_layers`` the units are stacked along a leading layer axis, as
 the JAX package stacks them for ``lax.scan``; the port runs a Python loop
 over views of that axis.  Caches are updated in place.
 
-Not ported yet: encoder-decoder stacks and modality frontends (ROADMAP.md
-queue 1, items 10d-10e), the training loss (item 11).
+Not ported yet: the training loss (ROADMAP.md queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -52,8 +54,17 @@ def _unit(units, i: int, stacked: bool):
     return tree_map(lambda t: t[i], units) if stacked else units[i]
 
 
-def _init_unit(gen, pat: tuple[str, ...], cfg: ModelConfig, device) -> Params:
-    return {f"b{j}": B.init_block(bt, gen, cfg, device)
+def _encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack of an encoder-decoder: attention blocks with a
+    dense FFN and no cross-attention."""
+    return cfg.with_overrides(num_layers=cfg.num_encoder_layers,
+                              block_pattern=(), num_experts=0,
+                              cross_attention=False)
+
+
+def _init_unit(gen, pat: tuple[str, ...], cfg: ModelConfig, device,
+               cross: bool) -> Params:
+    return {f"b{j}": B.init_block(bt, gen, cfg, device, cross=cross)
             for j, bt in enumerate(pat)}
 
 
@@ -61,24 +72,25 @@ def init_stack(gen, cfg: ModelConfig, device, cross: bool = False) -> Params:
     """The layer stack's parameters.  The stacked layout allocates each
     ``(n_units, ...)`` tensor once and writes every unit into its slot as
     it is drawn, so the stack is never held twice; the generator is drawn
-    in the same order for both layouts, so they hold the same values."""
-    if cross:
-        B.unported("encdec")
+    in the same order for both layouts, so they hold the same values.
+    ``cross`` adds cross-attention to the attention blocks."""
     pat, n_units, rest = _pattern(cfg)
     if cfg.scan_layers:
         units = None
         for i in range(n_units):
-            unit = _init_unit(gen, pat, cfg, device)
+            unit = _init_unit(gen, pat, cfg, device, cross)
             if units is None:
                 units = tree_map(lambda t: t.new_empty((n_units, *t.shape)),
                                  unit)
             tree_map(lambda slot, t: slot[i].copy_(t), units, unit)
             del unit  # free it before the next unit is drawn
     else:
-        units = [_init_unit(gen, pat, cfg, device) for _ in range(n_units)]
+        units = [_init_unit(gen, pat, cfg, device, cross)
+                 for _ in range(n_units)]
     p: Params = {"units": units}
     if rest:
-        p["rest"] = [B.init_block(bt, gen, cfg, device) for bt in rest]
+        p["rest"] = [B.init_block(bt, gen, cfg, device, cross=cross)
+                     for bt in rest]
     return p
 
 
@@ -90,8 +102,8 @@ def init_stack_cache(cfg: ModelConfig, batch: int, capacity: int,
         return {f"b{j}": B.init_block_cache(bt, cfg, batch, capacity, device)
                 for j, bt in enumerate(pat)}
 
-    if cfg.scan_layers:
-        units = tree_map(lambda t: t.new_zeros((n_units, *t.shape)),
+    if cfg.scan_layers:  # every unit starts from the block's initial state
+        units = tree_map(lambda t: t.new_empty((n_units, *t.shape)).copy_(t),
                          unit_cache())
     else:
         units = [unit_cache() for _ in range(n_units)]
@@ -100,18 +112,6 @@ def init_stack_cache(cfg: ModelConfig, batch: int, capacity: int,
         c["rest"] = [B.init_block_cache(bt, cfg, batch, capacity, device)
                      for bt in rest]
     return c
-
-
-def _apply_block(bt: str, params: Params, x, ctx: B.BlockCtx,
-                 cfg: ModelConfig, cache, encoder_out):
-    if bt == "attn":
-        x, _, aux = B.apply_attn_block(params, x, ctx, cfg, cache=cache,
-                                       encoder_out=encoder_out)
-    elif bt == "rglru":
-        x, _, aux = B.apply_rglru_block(params, x, ctx, cfg, cache=cache)
-    else:
-        B.unported(bt)
-    return x, aux
 
 
 def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
@@ -135,19 +135,19 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
             if want_cache else None
         for j, bt in enumerate(pat):
             c_j = None if unit_cache is None else unit_cache[f"b{j}"]
-            x, aux = _apply_block(bt, unit_params[f"b{j}"], x, ctx, cfg, c_j,
-                                  encoder_out)
+            x, _, aux = B.apply_block(bt, unit_params[f"b{j}"], x, ctx, cfg,
+                                      c_j, encoder_out)
             aux_total = aux_total + aux
     for i, bt in enumerate(rest):
         c_i = cache["rest"][i] if want_cache else None
-        x, aux = _apply_block(bt, params["rest"][i], x, ctx, cfg, c_i,
-                              encoder_out)
+        x, _, aux = B.apply_block(bt, params["rest"][i], x, ctx, cfg, c_i,
+                                  encoder_out)
         aux_total = aux_total + aux
     return x, (cache if want_cache else None), aux_total
 
 
 # ---------------------------------------------------------------------------
-# full decoder-only LM
+# full LM (dense / moe / ssm / hybrid / vlm / encoder-decoder)
 # ---------------------------------------------------------------------------
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -155,17 +155,23 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     """Random weights from ``gen`` on its device (or on ``device``).  With
     ``gen=None`` the tensors are only allocated: ``count_params`` uses that
     on the ``meta`` device."""
-    if cfg.num_encoder_layers:
-        B.unported("encdec")
-    if cfg.frontend:
-        B.unported("vlm")
     device = device if device is not None else gen.device
-    dt = cfg.activation_dtype
+    dt, D = cfg.activation_dtype, cfg.d_model
     p: Params = {
-        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
-        "stack": init_stack(gen, cfg, device),
+        "embed": L.embed_init(gen, cfg.vocab_padded, D, dt, device),
+        "final_norm": L.init_rmsnorm(D, dt, device),
     }
+    if cfg.num_encoder_layers:
+        p["encoder"] = {
+            "stack": init_stack(gen, _encoder_config(cfg), device),
+            "final_norm": L.init_rmsnorm(D, dt, device),
+        }
+        p["stack"] = init_stack(gen, cfg, device, cross=True)
+    else:
+        p["stack"] = init_stack(gen, cfg, device)
+    if cfg.frontend:
+        p["frontend_norm"] = L.init_rmsnorm(D, dt, device)
+        p["frontend_proj"] = L.dense_init(gen, D, (D,), dt, device)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, (cfg.vocab_padded,), dt,
                                  device)
@@ -187,6 +193,38 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
     return x
 
 
+def _merge_frontend(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    frontend: Optional[torch.Tensor]) -> torch.Tensor:
+    """VLM: precomputed patch embeddings (B, P, D), projected and normed,
+    replace the first P token slots."""
+    if frontend is None or not cfg.frontend:
+        return x
+    f = frontend.to(x.dtype) @ params["frontend_proj"]
+    f = L.rms_norm(f, params["frontend_norm"], cfg.norm_eps)
+    P = f.shape[1]
+    if x.shape[1] == P:
+        return f
+    return torch.cat([f, x[:, P:]], dim=1)
+
+
+def encode(params: Params, cfg: ModelConfig,
+           frontend: torch.Tensor) -> torch.Tensor:
+    """Encoder pass (enc-dec archs). ``frontend``: (B, T_src, D) stub
+    frames, projected and normed, then bidirectional blocks at positions
+    [0..T_src)."""
+    enc_cfg = _encoder_config(cfg)
+    f = frontend.to(cfg.activation_dtype) @ params["frontend_proj"]
+    x = L.rms_norm(f, params["frontend_norm"], cfg.norm_eps)
+    S = x.shape[1]
+    ctx = B.BlockCtx(mode="train",
+                     positions=torch.arange(S, device=x.device)[None])
+    units = params["encoder"]["stack"]["units"]
+    for i in range(_pattern(enc_cfg)[1]):
+        unit = _unit(units, i, enc_cfg.scan_layers)
+        x, _, _ = B.apply_bidir_attn_block(unit["b0"], x, ctx, enc_cfg)
+    return L.rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "train", frontend: Optional[torch.Tensor] = None,
             cache: Optional[Params] = None, cache_len=None, capacity: int = 0,
@@ -194,10 +232,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Backbone forward. Returns (hidden (B,S,D), cache, aux).
 
     ``cache_len`` (decode): the tokens processed including this one, an int
-    or a 0-d int tensor on the model's device.
+    or a 0-d int tensor on the model's device.  An encoder-decoder takes
+    ``encoder_out``, or encodes ``frontend`` when it is not given; a VLM
+    merges ``frontend`` into the prompt (not at decode).
     """
-    if frontend is not None or encoder_out is not None:
-        B.unported("vlm" if frontend is not None else "encdec")
     Bsz, S = tokens.shape
     if mode == "decode":
         if isinstance(cache_len, torch.Tensor):
@@ -211,7 +249,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         positions = torch.arange(S, device=tokens.device)[None].expand(Bsz, S)
         ctx = B.BlockCtx(mode=mode, positions=positions, capacity=capacity or S)
     x = _embed_tokens(params, cfg, tokens)
-    x, new_cache, aux = apply_stack(params["stack"], x, ctx, cfg, cache=cache)
+    if cfg.num_encoder_layers:
+        if encoder_out is None:
+            if frontend is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder forward "
+                                 "needs encoder_out or frontend")
+            encoder_out = encode(params, cfg, frontend)
+    elif mode != "decode":
+        x = _merge_frontend(params, cfg, x, frontend)
+    x, new_cache, aux = apply_stack(params["stack"], x, ctx, cfg, cache=cache,
+                                    encoder_out=encoder_out)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, new_cache, aux
 
@@ -278,16 +325,20 @@ def params_from_numpy(np_params: Params, cfg: ModelConfig, *,
     (numpy arrays, or anything ``np.asarray`` takes), in either layout of
     the units: stacked along a leading layer axis (``scan_layers=True``) or
     a per-unit list.  The result has the layout ``cfg.scan_layers`` asks
-    for, bit for bit the same values."""
+    for, bit for bit the same values; an encoder-decoder's encoder stack
+    too."""
     dev = resolve_device(device)
     params = tree_map(lambda a: _to_tensor(a, dev), np_params)
-    units = params["stack"]["units"]
-    n_units = _pattern(cfg)[1]
-    if cfg.scan_layers and isinstance(units, list):
-        params["stack"]["units"] = _stack(units)
-    elif not cfg.scan_layers and isinstance(units, dict):
-        params["stack"]["units"] = [tree_map(lambda t: t[i].clone(), units)
-                                    for i in range(n_units)]
+    stacks = [(params["stack"], cfg)]
+    if "encoder" in params:
+        stacks.append((params["encoder"]["stack"], _encoder_config(cfg)))
+    for stack, c in stacks:
+        units = stack["units"]
+        if cfg.scan_layers and isinstance(units, list):
+            stack["units"] = _stack(units)
+        elif not cfg.scan_layers and isinstance(units, dict):
+            stack["units"] = [tree_map(lambda t: t[i].clone(), units)
+                              for i in range(_pattern(c)[1])]
     return params
 
 

@@ -18,9 +18,7 @@ stack into contiguous pipeline stages:
     Per-layer parameter counts are analytic (projection/GLU shapes) and then
     calibrated so blocks + embedding + head sum EXACTLY to
     ``ModelConfig.param_count()`` / ``active_param_count()`` — the port's
-    count of the real init on the ``meta`` device.  Archs whose blocks the
-    port does not build yet (xLSTM, encoder-decoder, VLM) raise its
-    ``NotImplementedError`` there: nothing is estimated for them.
+    count of the real init on the ``meta`` device.
   * The link model prices inter-stage activation transfers: a
     ``LinkProfile`` is (sustained GB/s, per-hop RTT) and
     ``transfer_time_s`` = rtt + bytes/bandwidth.  ``LAN_LINK`` is an

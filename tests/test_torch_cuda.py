@@ -449,6 +449,12 @@ def _assert_attn(out, ref, ref_abs_v, dtype):
     (1, 200, 200, 4, 1, 32, True, 0, 64),     # chunked, MQA
     (2, 33, 190, 4, 2, 256, False, 0, 0),     # non-causal, Sq != Skv, hd 256
     (1, 64, 64, 2, 2, 48, True, 0, 0),        # hd 48: not a power of two
+    # SeamlessM4T-medium's served shapes at batch 1 (16 heads of 64, 4096
+    # encoder frames): cross-attention of one decode row and of the
+    # 128-token decoder prefix, and the bidirectional encoder
+    (1, 1, 4096, 16, 16, 64, False, 0, 0),
+    (1, 128, 4096, 16, 16, 64, False, 0, 0),
+    (1, 4096, 4096, 16, 16, 64, False, 0, 0),
 ])
 def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
                                               window, chunk, dtype):
@@ -517,6 +523,8 @@ def test_flash_attention_tensor_core_kernel_matches_plain(
     (3, 4, 2, 16, 100, True, 0, 60),        # ring not yet wrapped
     (2, 32, 8, 256, 70, False, 0, 70),      # full cache, hd 256, G = 4
     (2, 10, 1, 256, 2048, True, 0, 3222),   # RecurrentGemma-2B: G = 10, ring
+    (8, 16, 16, 64, 278, False, 0, 203),    # SeamlessM4T-medium decoder
+    (4, 56, 8, 128, 1174, False, 0, 1099),  # LLaVA-NeXT-34B: G = 7
 ])
 def test_decode_attention_kernel_matches_plain(B, H, Kv, hd, W, ring, chunk,
                                                clen, dtype):
@@ -698,6 +706,20 @@ def test_moe_and_hybrid_models_on_the_card(arch):
     assert launched[0 if arch != "recurrentgemma-2b" else 1] > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-medium",
+                                  "llava-next-34b"])
+def test_xlstm_encdec_and_vlm_models_on_the_card(arch):
+    """The reduced xLSTM (no kernel), encoder-decoder (non-causal flash in
+    the encoder and the cross-attention, one row at decode) and VLM (patch
+    embeddings in the first 8 slots) models as the dense test above."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    before = flash_attention.launches
+    _model_on_the_card(arch)
+    assert (flash_attention.launches > before) == (arch != "xlstm-125m")
+
+
 def _model_on_the_card(arch):
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -711,20 +733,77 @@ def _model_on_the_card(arch):
                                       device="cuda")
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 40)))
+    frames = 24 if cfg.num_encoder_layers else cfg.frontend_len
+    fe = torch.as_tensor(rng.standard_normal((2, frames, cfg.d_model)),
+                         dtype=torch.float32)
     rel = lambda a, b: float((a.cpu() - b.cpu()).abs().max()
                              / b.cpu().abs().max())
     got = {}
     for p, d in ((params, "cpu"), (params_dev, dev)):
         t = toks.to(d)
-        logits, cache = lm.prefill(p, cfg, t[:, :-1], capacity=48)
+        pre, dec = {}, {}
+        if cfg.num_encoder_layers:  # stub audio frames, encoded once
+            pre["encoder_out"] = dec["encoder_out"] = lm.encode(
+                p, cfg, fe.to(d))
+        elif cfg.frontend:  # patch embeddings in the first slots
+            pre["frontend"] = fe.to(d)
+        logits, cache = lm.prefill(p, cfg, t[:, :-1], capacity=48, **pre)
         step, _ = lm.decode_step(p, cfg, t[:, -1:], cache,
                                  torch.tensor(40, dtype=torch.int32, device=d),
-                                 capacity=48)
-        hidden, _, _ = lm.forward(p, cfg, t)
+                                 capacity=48, **dec)
+        hidden, _, _ = lm.forward(p, cfg, t, **pre)
         got[str(d)] = (logits, step, lm.logits_of(p, cfg, hidden))
     for a, b in zip(got[str(dev)], got["cpu"]):
         assert rel(a, b) < 1e-4
     assert rel(got[str(dev)][1], got[str(dev)][2]) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_block_in_bf16_tracks_fp32_on_the_card(kind):
+    """One xlstm-125m block at its served widths (d 768, 4 heads): a prefill
+    of 256 tokens then 4 decode steps, in bf16 and in fp32 on the same
+    bf16-rounded weights and inputs, on the card.  The block's update (y -
+    x) in bf16 is within rel 2e-2 (the served prefill -> decode bound) of
+    the fp32 one: a few bf16 roundings (2^-8 each) of the block's
+    activations.  The fp32 run equals the same block on the CPU within rel
+    1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.optim.optimizers import tree_map
+
+    dev = _cuda()
+    cfg = get_config("xlstm-125m")
+    init = blocks.init_mlstm_block if kind == "mlstm" else \
+        blocks.init_slstm_block
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    p16 = init(gen, cfg, "cpu")
+    B, S, T = 2, 256, 4
+    x = torch.randn((B, S + T, cfg.d_model), generator=gen).bfloat16()
+    runs = {}
+    for name, c, d, p, xx in (
+            ("bf16", cfg, dev, p16, x),
+            ("fp32", cfg.with_overrides(dtype="float32"), dev,
+             tree_map(lambda t: t.float(), p16), x.float()),
+            ("cpu", cfg.with_overrides(dtype="float32"), "cpu",
+             tree_map(lambda t: t.float(), p16), x.float())):
+        p = tree_map(lambda t: t.to(d), p)
+        xx = xx.to(d)
+        cache = blocks.init_block_cache(kind, c, B, S + T, d)
+        pos = torch.arange(S + T, device=d)[None].expand(B, S + T)
+        ctx = blocks.BlockCtx(mode="prefill", positions=pos[:, :S],
+                              capacity=S + T)
+        ys = [blocks.apply_block(kind, p, xx[:, :S], ctx, c, cache)[0]]
+        for t in range(S, S + T):
+            ctx = blocks.BlockCtx(mode="decode", positions=pos[:, t:t + 1],
+                                  cache_len=t + 1, capacity=S + T)
+            ys.append(blocks.apply_block(kind, p, xx[:, t:t + 1], ctx, c,
+                                         cache)[0])
+        runs[name] = (torch.cat(ys, 1).float() - xx.float()).cpu()
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    assert rel(runs["bf16"], runs["fp32"]) < 2e-2
+    assert rel(runs["fp32"], runs["cpu"]) < 1e-4
 
 
 # -- moe_gmm and rglru_scan ---------------------------------------------------

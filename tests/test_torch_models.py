@@ -162,7 +162,8 @@ def test_stacked_init_equals_per_unit_init(arch):
                        trees[False].get("head", trees[False]["embed"]))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE_HYBRID + (
+    "xlstm-125m", "seamless-m4t-medium", "llava-next-34b"))
 def test_param_count_equals_jax(arch):
     assert get_config(arch).param_count() == \
         jax_get_config(arch).param_count()
@@ -234,10 +235,22 @@ def test_params_carry_across_layouts():
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("xlstm-125m", "xLSTM"), ("seamless-m4t-medium", "encoder"),
-    ("llava-next-34b", "vision")])
-def test_unported_families_raise_naming_their_roadmap_item(arch, what):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        lm.init_params(torch.Generator(), cfg)
+@pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-medium",
+                                  "llava-next-34b"])
+def test_new_family_init_matches_jax_tree(arch):
+    """The xLSTM, encoder-decoder and VLM inits build JAX's tree: the same
+    structure (encoder subtree, cross-attention, frontend projection, mLSTM
+    and sLSTM leaves), shapes and dtypes, in both unit layouts."""
+    for scan_layers in (False, True):
+        cfg = get_config(arch).reduced().with_overrides(
+            scan_layers=scan_layers, dtype="bfloat16")
+        jcfg = jax_get_config(arch).reduced().with_overrides(
+            scan_layers=scan_layers, dtype="bfloat16")
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        got = lm.params_to_numpy(lm.init_params(gen, cfg))
+        want = jax.eval_shape(lambda: jax_lm.init_params(jax.random.key(0),
+                                                         jcfg))
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.shape == w.shape and g.dtype == w.dtype

@@ -133,19 +133,32 @@ def test_unported_flags_raise(flag, capsys):
     assert need in capsys.readouterr().err
 
 
-def test_unported_branches_raise():
-    """Placed paths enter the path space now; what still raises behind
-    them is the model families the port does not build yet (ROADMAP.md
-    queue 1, items 10c-e), whose plans need a parameter count."""
+def test_placed_paths_and_new_families_plan_like_jax(monkeypatch):
+    """Placed paths enter the path space, and the xLSTM, encoder-decoder
+    and VLM archs, whose plans need the parameter count of the port's init,
+    get the JAX package's placement plan field for field."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models.config import ModelConfig as JaxModelConfig
+    from repro.runtime.placement import search_placement as jax_search
     from repro_torch.configs import get_config
     from repro_torch.core.paths import PLACED_IMPL, with_placements
     from repro_torch.runtime.placement import search_placement
 
     assert any(p.model.impl == PLACED_IMPL
                for p in PathSpace(spec=with_placements()).paths)
+    jax_count = JaxModelConfig.param_count
     for arch in ("xlstm-125m", "seamless-m4t-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            search_placement(get_config(arch), ("orin", "cloud"))
+        jcfg = jax_get_config(arch)
+        # the JAX count traces the whole init: count once per arch
+        count = jax_count(jcfg)
+        monkeypatch.setattr(JaxModelConfig, "param_count",
+                            lambda self, n=count: n)
+        for chain in (("orin", "cloud"), ("orin", "m4", "cloud")):
+            got = search_placement(get_config(arch), chain)
+            want = jax_search(jcfg, chain)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_draft_attend_through_decode_attention():
