@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
-paths (online path selection, the serving runtime around it, and six
-served language models) through the entry points a user calls, and holds
-every kernel against its plain torch version on the card.  Phases, one JSON
+paths (online path selection, the serving runtime around it, six served
+language models, and training InternLM2-1.8B) through the entry points a
+user calls, and holds every kernel against its plain torch version on the
+card.  Phases, one JSON
 line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
@@ -99,15 +100,25 @@ line each:
    stub audio frames encoded once by the prefill step, a 128-token decoder
    prefix, exact flash / decode launch counts (encoder, decoder and cross
    attention) and prefill -> decode on the served encoder output.
-12. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+12. ``train_model``: InternLM2-1.8B trained at full width in bf16 through
+   ``launch.train.train`` (``train_phase``): B 4 x S 4096 in 2 microbatches,
+   4 AdamW steps; exact per-step launches of the flash forward's lse twin
+   (96: 24 layers x 2 microbatches x 2 under remat) and of the flash
+   backward kernel (48), finite losses and grad norms, one profiled step;
+   the backward kernel against its plain version at the training and long
+   shapes (a bf16 bound, bit-equal repeats, lse within 1e-5); an fp32
+   2-layer twin's loss and grads against the plain attention; and restart
+   from a checkpoint against an uninterrupted run.
+13. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-13. ``split``: the split-inference draft's ``DraftState.attend`` through the
+14. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
-kernel's launches on the served runs, by variant where it has two:
-retrieval_topk's are summed over phases 3-6), and
+kernel's launches on the served and trained runs, by variant where it has
+two: retrieval_topk's are summed over phases 3-6, flash_attention's
+training forwards are its ``lse_tc`` variant), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -160,7 +171,10 @@ KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "retrieval_topk_merge_kernel", "retrieval_topk_scores_kernel",
                 "retrieval_topk_select_kernel", "dsqe_score_kernel",
                 "dsqe_score_merge_kernel", "dsqe_score_select_kernel",
-                "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel")
+                "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel",
+                "flash_bwd_delta_kernel", "flash_bwd_dkdv_tc_kernel",
+                "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -311,6 +325,7 @@ def ptxas_report(log: str) -> list[dict]:
             args = ["bf16"] if "bfloat16" in mangled else (
                 ["f32"] if name + "If" in mangled else [])
             args += re.findall(r"Li(\d+)E", mangled)  # int template args
+            args += ["lse"] * ("Lb1E" in mangled)  # the training twin
             entry = f"{name}<{','.join(args)}>" if args else name
             spill = 0
             continue
@@ -1295,6 +1310,353 @@ def vlm_phase(torch, dev) -> dict:
     return ({"flash_attention": L, "decode_attention": L * OUT}, by_variant)
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_STEPS = 4  # optimizer steps of the full-width run
+TRAIN_B, TRAIN_S, TRAIN_MB = 4, 4096, 2  # SHAPE_SUITE's train_4k length
+TRAIN_LONG_S = 8192  # the backward kernel's long shape (B 1)
+TWIN_TRAIN_LAYERS = 2  # the fp32 twin and the restart run: 2 layers, full width
+LSE_ATOL = 1e-5  # the lse forward against its plain version
+F32_GRAD_REL = 1e-4  # fp32 twin grads: within 1e-4 of each leaf's max |g|
+F32_LOSS_REL = 1e-5
+RESTART_ATOL = 1e-4  # tests/test_fault_tolerance.py::test_train_restart_determinism
+
+
+@contextlib.contextmanager
+def cut_layers(n: int):
+    """``repro_torch.configs.get_config`` hands out its configs cut to ``n``
+    layers while the block runs (``launch.train.train`` takes an arch
+    name)."""
+    import repro_torch.configs as configs
+
+    orig = configs.get_config
+    configs.get_config = lambda name: orig(name).with_overrides(num_layers=n)
+    try:
+        yield
+    finally:
+        configs.get_config = orig
+
+
+@contextlib.contextmanager
+def timed_writes():
+    """Seconds and bytes of every checkpoint write (``Checkpointer._write``,
+    the thread's part of ``save_async``) while the block runs."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    orig = Checkpointer._write
+    writes = []
+
+    def wrapper(self, step, leaves, treedef):
+        t0 = time.perf_counter()
+        out = orig(self, step, leaves, treedef)
+        writes.append(dict(step=step, ms=1e3 * (time.perf_counter() - t0),
+                           bytes=sum(f.stat().st_size
+                                     for f in out.iterdir())))
+        return out
+
+    Checkpointer._write = wrapper
+    try:
+        yield writes
+    finally:
+        Checkpointer._write = orig
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's prefill attention through the plain version on the card
+    (``flash_attention_ref``, differentiated by autograd) while the block
+    runs: the reference the fp32 twin's kernels are held against."""
+    import repro_torch.models.layers as layers
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    orig = layers.flash_attention
+    layers.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        layers.flash_attention = orig
+
+
+def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
+    """The flash backward kernel (and the lse forward) against their plain
+    versions at the training shape (B 4, S 4096, H 16, Kv 8, hd 128: one
+    InternLM2 layer's microbatch pair) and the long shape (B 1, S 8192),
+    bf16, causal.  The backward element by element within
+    |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products over magnitudes,
+    ``flash_attention_bwd_ref(..., magnitudes=True)``); two calls bit-equal;
+    lse within LSE_ATOL.  The served route (``route_bwd``: the tensor-core
+    variant) must be checked; times per call and replayed from a CUDA
+    graph, the FFMA variant's on the same inputs (its explicit route), the
+    plain version's and the library's (autograd through SDPA, minus its
+    forward).  Bound: q, k, v, out, dout, lse read once, dq, dk, dv written
+    once; 10 hd FLOPs per visible pair (the five products; the dQ kernel's
+    recomputed S and dP are not counted).  Returns the training shape's
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref, visible_pairs)
+
+    H, Kv, hd, dt = 16, 8, 128, torch.bfloat16
+    causal = dict(causal=True, window=0, chunk_attn=0)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
+    rows = {}
+    for where, B, S in (("train", TRAIN_B, TRAIN_S),
+                        ("long", 1, TRAIN_LONG_S)):
+        q, dout = randn(B, S, H, hd), randn(B, S, H, hd)
+        k, v = randn(B, S, Kv, hd), randn(B, S, Kv, hd)
+        out, lse = flash_kernel.launch(q, k, v, "tc", with_lse=True, **causal)
+        _, ref_lse = flash_attention_lse_ref(q, k, v, **causal)
+        torch.cuda.synchronize()
+        lse_err = float((lse - ref_lse).abs().max())
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"flash lse/{where}: differs from the plain "
+                                 f"version by {lse_err}")
+        del ref_lse
+        variant = flash_kernel.route_bwd(dt, hd)
+        bwd = lambda v_=variant: flash_kernel.launch_bwd(
+            q, k, v, out, lse, dout, v_, **causal)
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash backward/{where}: two calls differ")
+        del again
+        ref = flash_attention_bwd_ref(q, k, v, out, lse, dout, **causal)
+        mag = flash_attention_bwd_ref(q, k, v, out, lse, dout, **causal,
+                                      magnitudes=True)
+        err, ratio = 0.0, 0.0
+        for name, g, r, m in zip(("dq", "dk", "dv"), got, ref, mag):
+            diff = (g.float() - r.float()).abs()
+            lim = 2.0 ** -7 * r.float().abs() + 2.0 ** -8 * m
+            worst = float((diff / lim).max())
+            if not worst <= 1.0:  # NaN fails too
+                raise AssertionError(f"flash backward/{where} {name}: exceeds "
+                                     f"its bf16 limit by {worst}x")
+            err, ratio = max(err, float(diff.max())), max(ratio, worst)
+        del got, ref, mag
+        ms = time_ms(torch, bwd, 3, 3)
+        dev_ms = graph_ms(torch, bwd, 3, 3)
+        ffma_ms = time_ms(torch, lambda: bwd("ffma"), 3, 3)
+        plain = time_ms(torch, lambda: flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, **causal), 2, 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = dout.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            lib_fwd = time_ms(torch, sdpa, 3, 5)
+        lib_ms = time_ms(torch, sdpa_fwd_bwd, 3, 5) - lib_fwd
+        pairs = visible_pairs(S, S, **causal)
+        nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * Kv * hd) \
+            + 4 * B * H * S + 2 * (B * S * H * hd + 2 * B * S * Kv * hd)
+        b_ms, b_by = bound(bw, bf16, nbytes, 10 * hd * B * H * pairs)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        log("kernels", kernel="flash_attention_bwd", shape=where, B=B, S=S,
+            H=H, Kv=Kv, hd=hd, dtype="bf16", **causal, variant=variant,
+            ffma_ms=ffma_ms, visible_pairs=pairs,
+            bf16_limit_ratio=ratio, lse_max_abs_err=lse_err, graph_ms=dev_ms,
+            library_fwd_ms=lib_fwd, bit_equal_repeat=True, **row)
+        rows[where] = row
+        del q, k, v, out, lse, dout, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows["train"]
+
+
+def twin_grads(torch, dev) -> dict:
+    """The fp32 twin: InternLM2 at full width cut to 2 layers, fp32, B 1 x S
+    1024, seeded weights and tokens.  ``lm.train_loss`` and every grad leaf
+    with the kernels (the lse forward twice per layer under remat, the
+    backward once) against the same with the plain attention on the card:
+    loss within F32_LOSS_REL, each leaf within F32_GRAD_REL of its max |g|."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = get_config("internlm2-1.8b").with_overrides(
+        num_layers=TWIN_TRAIN_LAYERS, dtype="float32")
+    params, tokens, _ = init_model(torch, dev, cfg, 1, 1025, seed=11)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def loss_and_grads():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = lm.train_loss(leaves, cfg, batch)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, tree_leaves(leaves)))
+
+    lse0 = flash_attention.launches_lse_ffma
+    bwd0 = flash_attention.launches_bwd_ffma
+    loss, grads = loss_and_grads()
+    launches = {"lse_ffma": flash_attention.launches_lse_ffma - lse0,
+                "bwd_ffma": flash_attention.launches_bwd_ffma - bwd0}
+    want = {"lse_ffma": 2 * TWIN_TRAIN_LAYERS, "bwd_ffma": TWIN_TRAIN_LAYERS}
+    if launches != want:
+        raise AssertionError(f"fp32 twin launched {launches}, want {want}")
+    with plain_attention():
+        ref_loss, ref_grads = loss_and_grads()
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    worst = max(float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(grads, ref_grads))
+    if not (loss_rel <= F32_LOSS_REL and worst <= F32_GRAD_REL):
+        raise AssertionError(f"fp32 twin: loss rel {loss_rel}, worst grad "
+                             f"leaf {worst}")
+    del params, grads, ref_grads
+    torch.cuda.empty_cache()
+    return dict(layers=TWIN_TRAIN_LAYERS, batch=1, seq=1024, loss=loss,
+                plain_loss=ref_loss, loss_rel=loss_rel,
+                worst_grad_leaf_rel=worst, launches=launches)
+
+
+def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
+    """InternLM2-1.8B trained at full width in bf16 through
+    ``launch.train.train`` (``build_train_step`` -> ``lm.train_loss``):
+    B 4 x S 4096 in 2 microbatches, 4 AdamW steps on warmup_cosine(3e-4,
+    2000, 100 000), seed 0.  The counters are set to 0 just before the run
+    and read just after: per optimizer step 24 layers x 2 microbatches x 2
+    (remat) lse-twin flash forwards and 24 x 2 backward launches, all on
+    the tensor-core variants; no serving flash and no decode launch.  Every
+    loss and grad norm finite.  The third step runs under the profiler
+    (device kernels only).  Beside it: the backward kernel's rows
+    (``flash_bwd_kernels``), the fp32 twin (``twin_grads``), and restart:
+    the 2-layer cut, B 2 x S 1024, 4 steps uninterrupted against 2 steps
+    with a checkpoint at step 2 resumed by a fresh ``train`` call, final
+    losses within RESTART_ATOL (bit equality logged), the checkpoints in a
+    directory under ``build/`` that the phase removes."""
+    import shutil
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.train import train
+
+    summary["flash_attention_bwd"] = flash_bwd_kernels(torch, dev, gen, bw,
+                                                       bf16)
+    twin = twin_grads(torch, dev)
+
+    cfg = get_config("internlm2-1.8b")
+    L = cfg.num_layers
+    flash_counters = ("launches", "launches_tc", "launches_ffma",
+                      "launches_lse", "launches_lse_tc", "launches_lse_ffma",
+                      "launches_bwd", "launches_bwd_tc", "launches_bwd_ffma")
+
+    def counts():
+        out = {c: getattr(flash_attention, c) for c in flash_counters}
+        out["decode_attention"] = decode_attention.launches
+        return out
+
+    steps, per_step, prof = [], [], profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    last = [None]
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        now = counts()
+        per_step.append({k: now[k] - last[0][k] for k in now})
+        last[0] = now
+        steps.append(dict(step=i, **metrics))
+        if i == 1:
+            prof.start()
+        elif i == 2:
+            prof.stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in flash_counters:
+        setattr(flash_attention, c, 0)
+    decode_attention.launches = 0
+    last[0] = counts()
+    t0 = time.perf_counter()
+    losses = train("internlm2-1.8b", reduced=False, steps=TRAIN_STEPS,
+                   batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB,
+                   log_every=TRAIN_STEPS, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"launches": 0, "launches_tc": 0, "launches_ffma": 0,
+            "launches_lse": 2 * TRAIN_MB * L,
+            "launches_lse_tc": 2 * TRAIN_MB * L,
+            "launches_lse_ffma": 0, "launches_bwd": TRAIN_MB * L,
+            "launches_bwd_tc": TRAIN_MB * L, "launches_bwd_ffma": 0,
+            "decode_attention": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"train step {i} launched {got}, want {want}")
+    for s in steps:
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])):
+            raise AssertionError(f"train step {s['step']}: loss {s['loss']}, "
+                                 f"grad norm {s['grad_norm']}")
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    top = [[e.key[:100], e.self_device_time_total / 1e3, e.count]
+           for e in events[:8]]
+    prof_step_ms = 1e3 * steps[2]["step_s"]
+    timed = [1e3 * s["step_s"] for s in steps if s["step"] in (1, 3)]
+    step_ms = statistics.mean(timed)
+    del prof, events
+    torch.cuda.empty_cache()
+
+    # restart: the 2-layer cut at full width, uninterrupted and resumed
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(reduced=False, batch=2, seq=1024, log_every=100,
+              device="cuda", ckpt_every=2)
+    try:
+        with cut_layers(TWIN_TRAIN_LAYERS), timed_writes() as writes:
+            full = train("internlm2-1.8b", steps=4, **kw)
+            train("internlm2-1.8b", steps=2, ckpt_dir=str(ckpt_dir), **kw)
+            resumed = train("internlm2-1.8b", steps=4, ckpt_dir=str(ckpt_dir),
+                            **kw)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restart_diff = abs(full[-1] - resumed[-1])
+    if not (len(resumed) == 2 and restart_diff <= RESTART_ATOL):
+        raise AssertionError(f"restart: resumed losses {resumed}, "
+                             f"uninterrupted {full}")
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_B * TRAIN_S
+    log("train_model", arch=cfg.name, dtype=cfg.dtype, layers=L,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=cfg.param_count(),
+        batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB, steps=TRAIN_STEPS,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
+        run_s=run_s, step_ms=step_ms, step_ms_by_step=[
+            1e3 * s["step_s"] for s in steps],
+        tokens_per_s=tokens / (step_ms / 1e3), peak_memory_gb=peak_gb,
+        losses=losses, grad_norms=[s["grad_norm"] for s in steps],
+        launches_per_step=per_step[0], launches=total,
+        profiled_step_ms=prof_step_ms, profiled_device_busy_ms=busy_ms,
+        profiled_device_idle_share=1.0 - busy_ms / prof_step_ms,
+        profiled_top_kernels=top, fp32_twin=twin,
+        restart=dict(layers=TWIN_TRAIN_LAYERS, batch=2, seq=1024, steps=4,
+                     checkpoint_step=2, uninterrupted=full, resumed=resumed,
+                     final_loss_diff=restart_diff,
+                     bit_equal=full[-1] == resumed[-1],
+                     checkpoint_writes=writes,
+                     bytes_written=sum(w["bytes"] for w in writes)))
+    return ({"flash_attention": total["launches_lse"],
+             "flash_attention_bwd": total["launches_bwd"]},
+            {"flash_attention": {"lse_tc": total["launches_lse_tc"],
+                                 "lse_ffma": total["launches_lse_ffma"]},
+             "flash_attention_bwd": {"tc": total["launches_bwd_tc"],
+                                     "ffma": total["launches_bwd_ffma"]}})
+
+
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
                        steps=5, extra=()):
     """Profile ``steps`` decode steps (writing cache slots from
@@ -2055,20 +2417,22 @@ def main() -> int:
     launches["retrieval_topk"] += runtime_launches
     variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 7-12. the served models: a kernel on several paths reports the sum
-    # of its launches over their served runs, in all and by variant; the
-    # largest model last, once every earlier phase's tensors are freed
+    # -- 7-13. the served models, then training: a kernel on several paths
+    # reports the sum of its launches over their runs, in all and by variant
+    # (the training forwards as "lse_tc" / "lse_ffma"); the largest model
+    # last, once every earlier phase's tensors are freed
+    train = lambda torch, dev: train_phase(torch, dev, gen, bw, bf16, summary)
     for phase in (model_phase, moe_phase, hybrid_phase, xlstm_phase,
-                  encdec_phase, vlm_phase):
+                  encdec_phase, train, vlm_phase):
         counts, by_variant = phase(torch, dev)
         for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
         for op, by in by_variant.items():
             acc = variants.setdefault(op, dict.fromkeys(VARIANTS, 0))
             for v, n in by.items():
-                acc[v] += n
+                acc[v] = acc.get(v, 0) + n
 
-    # -- 13. split -------------------------------------------------------
+    # -- 14. split -------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 
@@ -2091,6 +2455,11 @@ def main() -> int:
         {"name": "rglru_scan", "route": "cuda",
          "source": csrc + "rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:41"},
+        # the backward of the flash forward (#4): the JAX package's custom
+        # VJP backward, XLA (no pallas_call) beside the Pallas forward
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:189"},
     ]
     for entry in kernels:
         op = entry["name"]

@@ -55,6 +55,11 @@
 // V tiles through shared memory as fp32 with 16-byte loads, with W split to
 // about 8 blocks per SM.
 //
+// The prefill kernel's training variant (LSE = true, a template flag) also
+// writes lse (B, H, Sq) in fp32, m + log(l) of the scaled scores (the JAX
+// package's units, layers.py:173-175; -1e30 for a row that sees no key),
+// for the backward in flash_attention_bwd.cu.
+//
 // Each launcher returns cudaGetLastError() after its launches (0 on success).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,10 +176,11 @@ size_t flash_smem_bytes(int hd) {
 
 // MAXJ = hd / 16 rounded up to a power of two: each thread keeps 4 rows x
 // MAXJ columns (stride 16) of the output accumulator in registers.
-template <typename T, int MAXJ>
+template <typename T, int MAXJ, bool LSE>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int H, int Kv, int hd, float scale, int causal,
                        int window, int chunk) {
   extern __shared__ float smem[];
@@ -300,6 +306,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q_lo + ty * 4 + r;
     if (qpos >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[(static_cast<size_t>(b) * H + h) * Sq + qpos] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
+    }
     T* o = out + (static_cast<size_t>(b) * Sq + qpos) * q_stride +
            static_cast<size_t>(h) * hd;
 #pragma unroll
@@ -308,12 +319,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int MAXJ>
+template <typename T, int MAXJ, bool LSE>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Skv, int H, int Kv, int hd, int causal,
-                 int window, int chunk, cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Skv, int H, int Kv, int hd,
+                 int causal, int window, int chunk, cudaStream_t stream) {
   static std::atomic<size_t> ready[hopper::kMaxDevices];
-  auto* fn = flash_attention_kernel<T, MAXJ>;
+  auto* fn = flash_attention_kernel<T, MAXJ, LSE>;
   const size_t smem = flash_smem_bytes(hd);
   cudaError_t err =
       hopper::allow_smem(fn, flash_smem_bytes(16 * MAXJ), ready);
@@ -321,25 +332,36 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   fn<<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Kv, hd,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, Kv, hd,
       1.f / sqrtf(static_cast<float>(hd)), causal, window, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool LSE>
+int dispatch_flash_hd(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Kv, int hd,
+                   int causal, int window, int chunk, cudaStream_t stream) {
+  const int nj = hd / 16;
+#define REPRO_FLASH(MAXJ)                                                  \
+  return launch_flash<T, MAXJ, LSE>(q, k, v, out, lse, B, Sq, Skv, H, Kv, \
+                                    hd, causal, window, chunk, stream)
+  if (nj <= 1) REPRO_FLASH(1);
+  if (nj <= 2) REPRO_FLASH(2);
+  if (nj <= 4) REPRO_FLASH(4);
+  if (nj <= 8) REPRO_FLASH(8);
+  REPRO_FLASH(16);
+#undef REPRO_FLASH
+}
+
 template <typename T>
 int dispatch_flash(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int Kv, int hd, int causal,
-                   int window, int chunk, cudaStream_t stream) {
-  const int nj = hd / 16;
-  if (nj <= 1)
-    return launch_flash<T, 1>(q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, stream);
-  if (nj <= 2)
-    return launch_flash<T, 2>(q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, stream);
-  if (nj <= 4)
-    return launch_flash<T, 4>(q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, stream);
-  if (nj <= 8)
-    return launch_flash<T, 8>(q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, stream);
-  return launch_flash<T, 16>(q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, stream);
+                   float* lse, int B, int Sq, int Skv, int H, int Kv, int hd,
+                   int causal, int window, int chunk, cudaStream_t stream) {
+  if (lse)
+    return dispatch_flash_hd<T, true>(q, k, v, out, lse, B, Sq, Skv, H, Kv,
+                                      hd, causal, window, chunk, stream);
+  return dispatch_flash_hd<T, false>(q, k, v, out, nullptr, B, Sq, Skv, H,
+                                     Kv, hd, causal, window, chunk, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -517,19 +539,22 @@ int launch_decode(const void* q, const void* kc, const void* vc,
 }  // namespace
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16 (the same for every tensor of a call)
+// dtype: 0 = float32, 1 = bfloat16 (the same for every tensor of a call).
+// flash_attention_launch's lse: null for the serving variant, else (B, H,
+// Sq) fp32 (the training variant).
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
-                                      int B, int Sq, int Skv, int H, int Kv,
-                                      int hd, int causal, int window,
+                                      const void* v, void* out, float* lse,
+                                      int dtype, int B, int Sq, int Skv, int H,
+                                      int Kv, int hd, int causal, int window,
                                       int chunk, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro_torch::dispatch_flash<float>(q, k, v, out, B, Sq, Skv, H, Kv,
-                                              hd, causal, window, chunk, s);
+    return repro_torch::dispatch_flash<float>(q, k, v, out, lse, B, Sq, Skv,
+                                              H, Kv, hd, causal, window, chunk,
+                                              s);
   return repro_torch::dispatch_flash<__nv_bfloat16>(
-      q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
+      q, k, v, out, lse, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
 }
 
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,

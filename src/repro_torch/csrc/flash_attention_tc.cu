@@ -44,6 +44,14 @@
 //   named barriers, the "ping-pong" of FA3), so one warpgroup's softmax
 //   runs while the other's products hold the tensor cores.
 //
+// The training variant (LSE = true, a template flag, so the serving
+// variant's code is unchanged) also writes lse (B, H, Sq) in fp32: the
+// natural log of the sum of exp(scaled score) over the keys a row sees, the
+// units of the JAX package's m + log(max(l, 1e-30)) (layers.py:173-175).  The
+// softmax state runs in base 2, so lse = m ln 2 + ln l, once per row at the
+// end; a row that sees no key gets -1e30.  The backward
+// (flash_attention_bwd.cu) recomputes P = exp(S scale - lse) from it.
+//
 // flash_attention_tc_launch returns cudaGetLastError() after its launch
 // (0 on success), or hopper.cuh's tensor-map error codes.
 #include <cuda_bf16.h>
@@ -59,6 +67,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // running-max start, as the TPU kernels
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBQ = 128;  // query rows per block: two warpgroups of 64
 constexpr int kStages = 2;
 
@@ -108,14 +117,15 @@ struct Masks {
 };
 
 // grid (ceil(Sq / 128), H, B), 384 threads: warpgroups 0 and 1 consume,
-// warpgroup 2 produces.
-template <int HDP, int BKEYS>
+// warpgroup 2 produces.  lse is written only when LSE.
+template <int HDP, int BKEYS, bool LSE>
 __global__ void __launch_bounds__(384, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          __nv_bfloat16* __restrict__ out, int H, int Kv,
-                          int hd, float scale_log2, Masks mk) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int H, int Kv, int hd,
+                          float scale_log2, Masks mk) {
   using Cfg = TcFlash<HDP, BKEYS>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -302,6 +312,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
       inv[hr] = 1.f / fmaxf(l[hr], 1e-30f);  // no visible key: o = 0
     }
+    if constexpr (LSE) {
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = row0 + 8 * hr;
+          if (row < Sq)
+            lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+                l[hr] > 0.f ? m[hr] * kLn2 + logf(l[hr]) : kNegInf;
+        }
+      }
+    }
     const size_t q_stride = static_cast<size_t>(H) * hd;
 #pragma unroll
     for (int j = 0; j < HDP / 8; ++j) {
@@ -335,10 +356,10 @@ int attention_map(CUtensorMap* map, const void* base, int B, int S,
   return hopper::bf16_map(map, base, 4, dims, strides, box);
 }
 
-template <int HDP, int BKEYS>
+template <int HDP, int BKEYS, bool LSE>
 int launch_flash_tc(const void* q, const void* k, const void* v, void* out,
-                    int B, int Sq, int Skv, int H, int Kv, int hd, int causal,
-                    int window, int chunk, cudaStream_t stream) {
+                    float* lse, int B, int Sq, int Skv, int H, int Kv, int hd,
+                    int causal, int window, int chunk, cudaStream_t stream) {
   using Cfg = TcFlash<HDP, BKEYS>;
   static std::atomic<size_t> ready[hopper::kMaxDevices];
   CUtensorMap qmap, kmap, vmap;
@@ -346,37 +367,51 @@ int launch_flash_tc(const void* q, const void* k, const void* v, void* out,
   if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, BKEYS);
   if (!err) err = attention_map(&vmap, v, B, Skv, Kv, hd, BKEYS);
   if (err) return err;
-  auto* fn = flash_attention_tc_kernel<HDP, BKEYS>;
+  auto* fn = flash_attention_tc_kernel<HDP, BKEYS, LSE>;
   const cudaError_t serr = hopper::allow_smem(fn, Cfg::kSmem, ready);
   if (serr != cudaSuccess) return static_cast<int>(serr);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(hd));
   fn<<<grid, 384, Cfg::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), H, Kv, hd,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, H, Kv, hd,
       scale_log2, Masks{Sq, Skv, causal, window, chunk});
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool LSE>
+int dispatch_flash_tc(const void* q, const void* k, const void* v, void* out,
+                      float* lse, int B, int Sq, int Skv, int H, int Kv,
+                      int hd, int causal, int window, int chunk,
+                      cudaStream_t s) {
+  const int hdp = (hd + 63) / 64 * 64;
+  if (hdp == 64)
+    return launch_flash_tc<64, 128, LSE>(q, k, v, out, lse, B, Sq, Skv, H, Kv,
+                                         hd, causal, window, chunk, s);
+  if (hdp == 128)
+    return launch_flash_tc<128, 128, LSE>(q, k, v, out, lse, B, Sq, Skv, H,
+                                          Kv, hd, causal, window, chunk, s);
+  if (hdp == 192)
+    return launch_flash_tc<192, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, H, Kv,
+                                         hd, causal, window, chunk, s);
+  return launch_flash_tc<256, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, H, Kv,
+                                       hd, causal, window, chunk, s);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// bf16 q, k, v and out; hd a multiple of 16 up to 256 (the caller's route)
+// bf16 q, k, v and out; hd a multiple of 16 up to 256 (the caller's route).
+// lse: null for the serving variant, else (B, H, Sq) fp32 (the training
+// variant).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* out, int B,
-                                         int Sq, int Skv, int H, int Kv,
+                                         const void* v, void* out, float* lse,
+                                         int B, int Sq, int Skv, int H, int Kv,
                                          int hd, int causal, int window,
                                          int chunk, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int hdp = (hd + 63) / 64 * 64;
-  if (hdp == 64)
-    return repro_torch::launch_flash_tc<64, 128>(
-        q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
-  if (hdp == 128)
-    return repro_torch::launch_flash_tc<128, 128>(
-        q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
-  if (hdp == 192)
-    return repro_torch::launch_flash_tc<192, 64>(
-        q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
-  return repro_torch::launch_flash_tc<256, 64>(
-      q, k, v, out, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
+  if (lse)
+    return repro_torch::dispatch_flash_tc<true>(
+        q, k, v, out, lse, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
+  return repro_torch::dispatch_flash_tc<false>(
+      q, k, v, out, nullptr, B, Sq, Skv, H, Kv, hd, causal, window, chunk, s);
 }

@@ -115,8 +115,9 @@ def _build() -> KernelLibrary:
             ("dsqe_score_row_launch", [P] * 12 + [I] * 6 + [P], I),
             ("dsqe_score_tiled_launch", [P] * 15 + [I] * 11 + [P], I),
             ("dsqe_score_select_launch", [P] * 14 + [I] * 11 + [P], I),
-            ("flash_attention_launch", [P] * 4 + [I] * 10 + [P], I),
-            ("flash_attention_tc_launch", [P] * 4 + [I] * 9 + [P], I),
+            ("flash_attention_launch", [P] * 5 + [I] * 10 + [P], I),
+            ("flash_attention_tc_launch", [P] * 5 + [I] * 9 + [P], I),
+            ("flash_attention_bwd_launch", [P] * 10 + [I] * 11 + [P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
             ("decode_attention_tc_smem_bytes", [I], S),
             ("decode_attention_tc_launch", [P] * 8 + [I] * 9 + [P], I),
@@ -133,7 +134,8 @@ def _build() -> KernelLibrary:
 def kernel_library() -> KernelLibrary:
     """Every kernel in ``csrc/`` (retrieval_topk and dsqe_score, each with
     its tiled, select and row variants, flash_attention and decode_attention and their tensor-core
-    variants, moe_gmm and its tensor-core variant, rglru_scan), built if
+    variants, the flash backward, moe_gmm and its tensor-core variant,
+    rglru_scan), built if
     needed and loaded once per process."""
     global _loaded
     if _loaded is None:

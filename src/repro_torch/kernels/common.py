@@ -79,6 +79,20 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(types)}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The rule for a kernel that has no backward yet: on the card, under
+    grad mode, an input that requires grad raises.  The kernel writes a
+    tensor that autograd cannot see through, so a backward pass would drop
+    every gradient below it without a word.  Called on the kernel path only
+    (CUDA tensors); the plain versions on the CPU differentiate through
+    autograd."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md queue "
+            "1, item 11); call it under torch.no_grad() or on inputs that do "
+            "not require grad")
+
+
 def check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
     """Kernel input contract: a contiguous float32 tensor of ``shape``
     (``None`` entries match any size)."""

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_attention_inputs, use_kernel
+from repro_torch.kernels.common import (check_attention_inputs, refuse_grad,
+                                         use_kernel)
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -35,6 +36,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not use_kernel(q, k_cache, v_cache):
         return decode_attention_ref(q, k_cache, v_cache, cache_len, ring=ring,
                                     chunk_attn=chunk_attn)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
     code = check_attention_inputs(q=q, k_cache=k_cache, v_cache=v_cache)
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or \

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_f32, use_kernel
+from repro_torch.kernels.common import check_f32, refuse_grad, use_kernel
 from repro_torch.kernels.dsqe_score import kernel
 from repro_torch.kernels.dsqe_score.ref import broadcast_slo, dsqe_score_ref
 from repro_torch.kernels.retrieval_topk.kernel import route
@@ -33,6 +33,7 @@ def dsqe_score(q, protos, train, path_weights, contains, lat, cost,
     if not use_kernel(*tensors):
         return dsqe_score_ref(q, protos, train, path_weights, contains, lat,
                               cost, prior, valid, slo, knn=knn)
+    refuse_grad("dsqe_score", *tensors)
     check_f32("q", q, (None, None))
     Bq, d = q.shape
     K, N, P = protos.shape[0], train.shape[0], path_weights.shape[1]

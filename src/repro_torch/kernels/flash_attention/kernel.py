@@ -15,13 +15,21 @@ on the H100 (4 hd FLOPs per visible query-key pair, hundreds per byte).
 * ``"ffma"``, fp32: ``flash_attention_kernel`` (``csrc/attention.cu``), the
   first port's design: fp32 tiles in shared memory and a 4 x 4 FFMA score
   tile per thread, one block per (b, h, 64-row query tile).
+
+Training launches each variant's lse twin (a template flag of the same
+kernel, so the serving variant is untouched), which also writes lse (B, H,
+Sq) in fp32, and the backward ``csrc/flash_attention_bwd.cu`` (``launch_bwd``):
+a delta kernel, then a dK/dV kernel over KV tiles and a dQ kernel over query
+tiles, deterministic (no atomics).  Its variants (``route_bwd``): ``"tc"``,
+bf16 with head_dim <= 128, on mma.sync (its accumulators live in
+registers); ``"ffma"``, fp32 and wider bf16 heads, on the CUDA cores.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import KERNEL_DTYPES
+from repro_torch.kernels.common import KERNEL_DTYPES, on_device, raw_stream
 
 VARIANTS = ("tc", "ffma")
 
@@ -34,11 +42,20 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "ffma"
 
 
+def route_bwd(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward's variant for inputs that pass
+    ``check_attention_inputs``."""
+    if dtype == torch.bfloat16 and head_dim <= 128:
+        return "tc"
+    return "ffma"
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
-           *, causal: bool, window: int, chunk_attn: int) -> torch.Tensor:
-    """(B, Sq, H, hd) in q's dtype through ``variant``; the caller has
-    validated the inputs (and ``"tc"`` takes only what ``route`` sends
-    it)."""
+           *, causal: bool, window: int, chunk_attn: int,
+           with_lse: bool = False):
+    """(B, Sq, H, hd) in q's dtype through ``variant``, and with ``with_lse``
+    also lse (B, H, Sq) fp32 (the training twin); the caller has validated
+    the inputs (and ``"tc"`` takes only what ``route`` sends it)."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     if variant not in VARIANTS:
@@ -47,11 +64,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
         raise ValueError(f"flash_attention: the tensor-core variant takes "
                          f"bf16, got {q.dtype}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     lib = kernel_library().lib
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     masks = (int(causal), window, chunk_attn)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with on_device(q.device):
+        stream = raw_stream(q.device)
         if variant == "tc":
             err = lib.flash_attention_tc_launch(*ptrs, B, Sq, Skv, H, Kv, hd,
                                                 *masks, stream)
@@ -62,4 +82,36 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
     if err != 0:
         raise RuntimeError(f"flash_attention {variant} launch failed: "
                            f"error {err}")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               variant: str, *, causal: bool, window: int, chunk_attn: int):
+    """(dq, dk, dv) in the inputs' dtype from ``csrc/flash_attention_bwd.cu``
+    through ``variant``; the caller has validated q, k, v, out and dout (one
+    dtype, contiguous) and lse (B, H, Sq) fp32 contiguous (and ``"tc"``
+    takes only what ``route_bwd`` sends it)."""
+    B, Sq, H, hd = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    if variant not in VARIANTS:
+        raise ValueError(f"flash_attention backward: unknown variant "
+                         f"{variant!r}")
+    if variant == "tc" and route_bwd(q.dtype, hd) != "tc":
+        raise ValueError(f"flash_attention backward: the tensor-core variant "
+                         f"takes bf16 with head_dim <= 128, got {q.dtype}, "
+                         f"{hd}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = kernel_library().lib
+    with on_device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), KERNEL_DTYPES[q.dtype], B, Sq, Skv,
+            H, Kv, hd, int(causal), window, chunk_attn, int(variant == "tc"),
+            raw_stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: error "
+                           f"{err}")
+    return dq, dk, dv

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, use_kernel
+from repro_torch.kernels.common import KERNEL_DTYPES, refuse_grad, use_kernel
 from repro_torch.kernels.moe_gmm import kernel
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -34,6 +34,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     if not use_kernel(x, w):
         return moe_gmm_ref(x, w)
+    refuse_grad("moe_gmm", x, w)
     if x.dtype != w.dtype or x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_gmm takes one dtype of float32 or bfloat16, "
                         f"got {x.dtype} and {w.dtype}")

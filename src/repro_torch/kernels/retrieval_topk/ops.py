@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_f32, use_kernel
+from repro_torch.kernels.common import check_f32, refuse_grad, use_kernel
 from repro_torch.kernels.retrieval_topk import kernel
 from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_ref
 
@@ -29,6 +29,7 @@ def retrieval_topk(q: torch.Tensor, corpus: torch.Tensor, *, k: int):
     k = min(k, corpus.shape[0])
     if not use_kernel(q, corpus):
         return retrieval_topk_ref(q, corpus, k=k)
+    refuse_grad("retrieval_topk", q, corpus)
     check_f32("q", q, (None, None))
     check_f32("corpus", corpus, (None, q.shape[1]))
     if k < 1:

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, use_kernel
+from repro_torch.kernels.common import KERNEL_DTYPES, refuse_grad, use_kernel
 from repro_torch.kernels.rglru_scan import kernel
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -23,6 +23,7 @@ def rglru_scan_op(a: torch.Tensor, x: torch.Tensor,
     """
     if not use_kernel(a, x, h0):
         return rglru_scan_ref(a, x, h0)
+    refuse_grad("rglru_scan", a, x, h0)
     if a.dtype != x.dtype or a.dtype not in KERNEL_DTYPES:
         raise TypeError(f"rglru_scan takes a and x of one dtype of float32 "
                         f"or bfloat16, got {a.dtype} and {x.dtype}")

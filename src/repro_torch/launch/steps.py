@@ -1,23 +1,101 @@
-"""Serving step functions of the model substrate on one device.
+"""Step functions of the model substrate on one device: train, prefill and
+decode.
 
-The JAX package's ``build_prefill_step`` / ``build_decode_step``
-(``src/repro/launch/steps.py:135, 180``) bind a shape's capacity to
-``lm.prefill`` / ``lm.decode_step`` and attach a sharding policy for a
-mesh.  Here a step is a closure over the config and the capacity on one
-device: sharding waits for ROADMAP.md queue 1, item 12, and
-``build_train_step`` for the training slice (item 11).  The signatures
-follow the family as the JAX steps do: an encoder-decoder's prefill takes
-the source frames and returns the encoder output beside the cache, and its
-decode step takes that output back; a VLM's prefill takes the patch
-embeddings.
+The JAX package's ``build_train_step`` / ``build_prefill_step`` /
+``build_decode_step`` (``src/repro/launch/steps.py:69, 135, 180``) bind a
+config, an optimizer and a shape to ``lm.train_loss`` / ``lm.prefill`` /
+``lm.decode_step`` and attach a sharding policy for a mesh.  Here a step is
+a closure over the config (and the optimizer, or the cache capacity) on one
+device; sharding waits for ROADMAP.md queue 1, item 12.  The serving
+signatures follow the family as the JAX steps do: an encoder-decoder's
+prefill takes the source frames and returns the encoder output beside the
+cache, and its decode step takes that output back; a VLM's prefill takes
+the patch embeddings.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
+
+import torch
 
 from repro_torch.configs import resolve_shape
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.optim import Optimizer, pick_optimizer, warmup_cosine
+from repro_torch.optim.optimizers import _global_norm, tree_leaves, tree_map
+
+
+def default_optimizer(cfg: ModelConfig) -> Optimizer:
+    """AdamW (Adafactor above 20B params) on warmup_cosine(3e-4, 2000,
+    100 000), the JAX package's default."""
+    return pick_optimizer(cfg.param_count(), warmup_cosine(3e-4, 2000,
+                                                           100_000))
+
+
+def default_microbatches(cfg: ModelConfig, shape: Optional[ShapeSpec]) -> int:
+    """Gradient-accumulation depth: 4 for a train shape of a model above
+    100B params (its activations do not fit at the global batch), else 1."""
+    if shape is None or shape.kind != "train":
+        return 1
+    return 4 if cfg.param_count() > 100_000_000_000 else 1
+
+
+def _grads(cfg: ModelConfig, params, batch):
+    """(loss, metrics, grads) of ``lm.train_loss``: grads mirror ``params``
+    in the params' dtype (zeros for a leaf the loss does not reach, as JAX
+    gives); loss and metrics detached."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = lm.train_loss(leaves, cfg, batch)
+    flat = tree_leaves(leaves)
+    gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    gs = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(flat, gs)])
+    grads = tree_map(lambda _: next(gs), params)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
+                     shape: Optional[ShapeSpec] = None,
+                     microbatches: Optional[int] = None) -> Callable:
+    """``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    step + 1, metrics)``, as the JAX step: the gradient of ``lm.train_loss``
+    and one optimizer update.  ``batch`` is a dict of (B, ...) tensors; with
+    ``microbatches`` > 1 it is cut along B into that many, whose gradients
+    are summed in fp32 and divided by the count (the JAX ``acc_body``) and
+    whose metrics are averaged.  Metrics: loss, nll, z_loss, aux_loss (fp32
+    0-d tensors on the device) and, beyond the JAX step's, grad_norm, the
+    global norm of the gradient the optimizer receives.  ``step`` is an int.
+    The returned params do not require grad."""
+    optimizer = optimizer or default_optimizer(cfg)
+    if microbatches is None:
+        microbatches = default_microbatches(cfg, shape)
+
+    def train_step(params, opt_state, step, batch):
+        if microbatches > 1:
+            gacc, ms = None, []
+            for i in range(microbatches):
+                mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                   *v.shape[1:])[i] for k, v in batch.items()}
+                loss, metrics, grads = _grads(cfg, params, mb)
+                if gacc is None:
+                    gacc = tree_map(lambda g: g.to(torch.float32), grads)
+                else:
+                    tree_map(lambda a, g: a.add_(g.to(torch.float32)), gacc,
+                             grads)
+                del grads
+                ms.append(dict(metrics, loss=loss))
+            grads = tree_map(lambda g: g / microbatches, gacc)
+            del gacc
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        else:
+            loss, metrics, grads = _grads(cfg, params, batch)
+            metrics = dict(metrics, loss=loss)
+        metrics["grad_norm"] = _global_norm(grads)
+        new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+        return new_params, new_opt, step + 1, metrics
+
+    return train_step
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec | str) -> Callable:

@@ -1,0 +1,141 @@
+"""Training driver on one device, restart-safe.
+
+The JAX package's ``launch/train.py``: any arch, a deterministic token
+stream, periodic async checkpoints, and resumption from the latest one.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --steps 20 --batch 8 --seq 128 --device cpu          # reduced, CPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --full --steps 4 --batch 4 --seq 4096 --microbatches 2   # the card
+
+On the card the prefill attention forward and backward run on the
+hand-written kernels (``kernels/flash_attention``).  Archs whose train path
+reaches a kernel that has no backward yet (``moe_gmm`` in MoE models,
+``rglru_scan`` in the RG-LRU hybrid) are refused there; on the CPU their
+plain versions differentiate through autograd.  Tensor parallelism
+(``tp != 1``) waits for a ``DeviceMesh`` (ROADMAP.md queue 1, item 12).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import configs as cfglib
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.data import TokenPipeline
+from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.steps import build_train_step, default_optimizer
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig, ShapeSpec
+
+
+def kernels_without_backward(cfg: ModelConfig) -> list[str]:
+    """The kernels on ``cfg``'s train path that have no backward yet."""
+    missing = []
+    if cfg.num_experts:
+        missing.append("moe_gmm")
+    if "rglru" in cfg.layer_types:
+        missing.append("rglru_scan")
+    return missing
+
+
+def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
+          seq: int = 128, ckpt_dir: str = "", ckpt_every: int = 10,
+          tp: int = 1, log_every: int = 5, microbatches: int = 1,
+          device="cuda",
+          on_step: Optional[Callable[[int, dict], None]] = None) -> list:
+    """Train ``arch`` for ``steps`` steps from random weights of seed 0 (or
+    from the latest checkpoint under ``ckpt_dir``); the loss of every step
+    run.  ``on_step(i, metrics)``, if given, receives each step's metrics as
+    floats, with ``step_s``, the step's wall time up to its loss on the
+    host."""
+    if tp != 1:
+        raise NotImplementedError("tensor parallelism needs a DeviceMesh "
+                                  "(ROADMAP.md queue 1, item 12)")
+    dev = resolve_device(device)
+    cfg = cfglib.get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    missing = kernels_without_backward(cfg)
+    if dev.type == "cuda" and missing:
+        raise ValueError(f"{arch}: its train path reaches {missing}, which "
+                         "have no backward kernel yet (ROADMAP.md queue 1, "
+                         "item 11)")
+    shape = ShapeSpec("custom", seq, batch, "train")
+    optimizer = default_optimizer(cfg)
+    step_fn = build_train_step(cfg, optimizer=optimizer, shape=shape,
+                               microbatches=microbatches)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    opt_state = optimizer.init(params)
+    step = 0
+
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if ckpt and ckpt.latest_step() is not None:
+        start, (params, opt_state) = ckpt.restore((params, opt_state))
+        step = start
+        print(f"resumed from step {start}")
+
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch)
+    losses = []
+    t0 = time.time()
+    for i in range(start, steps):
+        ts = time.perf_counter()
+        host = {k: torch.from_numpy(v).long().to(dev)
+                for k, v in pipe.batch_at(i).items()}
+        if cfg.frontend == "vision":
+            host["frontend"] = torch.zeros(
+                (batch, cfg.frontend_len, cfg.d_model),
+                dtype=cfg.activation_dtype, device=dev)
+        elif cfg.frontend == "audio":
+            host["frontend"] = torch.zeros((batch, seq, cfg.d_model),
+                                           dtype=cfg.activation_dtype,
+                                           device=dev)
+        params, opt_state, step, metrics = step_fn(params, opt_state, step,
+                                                   host)
+        losses.append(float(metrics["loss"]))
+        if on_step is not None:
+            on_step(i, {**{k: float(v) for k, v in metrics.items()},
+                        "step_s": time.perf_counter() - ts})
+        if (i + 1) % log_every == 0:
+            dt = (time.time() - t0) / max(i + 1 - start, 1)
+            print(f"step {i+1}: loss={losses[-1]:.4f} ({dt*1e3:.0f} ms/step)")
+        if ckpt and (i + 1) % ckpt_every == 0:
+            ckpt.save_async(i + 1, (params, opt_state))
+    if ckpt:
+        if start < steps and steps % ckpt_every:
+            ckpt.save(steps, (params, opt_state))
+        ckpt.wait()  # else the last periodic save holds step `steps`
+    pipe.close()
+    return losses
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    losses = train(args.arch, reduced=args.reduced, steps=args.steps,
+                   batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
+                   tp=args.tp, microbatches=args.microbatches,
+                   device=args.device)
+    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,11 +9,12 @@ numerics.  Randomness comes from an explicit ``torch.Generator``; with
 ``lm.count_params``).
 
 ``flash_attention_xla`` and ``decode_attention_xla`` keep their names and
-forward semantics (``layers.py:242`` and ``:277`` in the JAX package), but
-call the port's attention ops: on the card they launch the hand-written
-kernels of ``csrc/attention.cu``, on the CPU the plain versions.  The
-training-only parts (``chunked_cross_entropy``, the flash backward) wait
-for the training slice (ROADMAP.md queue 1, item 11).
+semantics (``layers.py:242`` and ``:277`` in the JAX package), but call the
+port's attention ops: on the card they launch the hand-written kernels of
+``csrc/``, on the CPU the plain versions.  ``flash_attention_xla`` carries
+gradients: its backward is the flash backward kernel, as the JAX function's
+custom VJP (``layers.py:123-239``).  ``chunked_cross_entropy`` is the JAX
+package's memory-lean LM loss (``layers.py:365``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -127,7 +129,8 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, hd); k, v: (B, Skv, Kv, hd).  Returns (B, Sq, H, hd).
     The JAX function keeps its P.V accumulator in v's dtype; the kernel,
-    like the Pallas kernel, keeps it in fp32.
+    like the Pallas kernel, keeps it in fp32.  Differentiable: the GQA sum
+    of dK and dV over each group happens in the backward kernel.
     """
     del softcap  # reserved (no assigned arch softcaps attention scores)
     return flash_attention(q, k, v, causal=causal, window=window,
@@ -190,6 +193,54 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def _ce_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+              w: torch.Tensor, logit_cap: float, valid_vocab: int):
+    """Sums of nll * w, lse^2 * w and w over one chunk of positions."""
+    logits = softcap((xc @ head).float(), logit_cap)
+    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    if valid_vocab and valid_vocab < logits.shape[-1]:
+        logits = logits.masked_fill(vocab_iota >= valid_vocab, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the gold logit as the JAX package takes it: a masked max over the vocab
+    gold = torch.where(vocab_iota == lc[..., None], logits, -1e30).amax(-1)
+    return ((lse - gold) * w).sum(), (torch.square(lse) * w).sum(), w.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: torch.Tensor | None = None, *,
+                          chunk: int = 512, logit_cap: float = 0.0,
+                          z_loss: float = 1e-4,
+                          valid_vocab: int = 0) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Memory-lean LM loss: the logits of one S-chunk at a time.
+
+    x (B, S, D) final hidden states, head (D, V), labels (B, S) int, mask
+    (B, S) or None.  Returns (mean_nll, mean_z_loss_term), both fp32 0-d.
+    Each chunk runs under ``torch.utils.checkpoint``, as the JAX function
+    ``jax.checkpoint``s its scan body, so the backward recomputes one
+    (B, chunk, V) fp32 logits block at a time instead of keeping all of
+    them.  ``valid_vocab``: columns at or past it (vocab padding) are
+    excluded from the softmax (-1e30).  The weight sum is floored at 1.
+    """
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_cross_entropy: S {S} is not a multiple of "
+                         f"the chunk {chunk}")
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    tot_nll, tot_z, tot_w = zero, zero, zero
+    for c0 in range(0, S, chunk):
+        lc = labels[:, c0:c0 + chunk]
+        w = torch.ones(lc.shape, dtype=torch.float32, device=x.device) \
+            if mask is None else mask[:, c0:c0 + chunk].float()
+        nll, zl, ws = checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head, lc, w,
+                                 logit_cap, valid_vocab, use_reentrant=False)
+        tot_nll, tot_z, tot_w = tot_nll + nll, tot_z + zl, tot_w + ws
+    wsum = torch.clamp_min(tot_w, 1.0)
+    return tot_nll / wsum, z_loss * tot_z / wsum
 
 
 # ---------------------------------------------------------------------------

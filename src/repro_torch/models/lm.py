@@ -11,9 +11,10 @@ plain dict of tensors whose tree is the JAX one (``embed``,
 ``final_norm``, ``head``, ``stack.units[i].b0.attn.wq``, ...).  With
 ``cfg.scan_layers`` the units are stacked along a leading layer axis, as
 the JAX package stacks them for ``lax.scan``; the port runs a Python loop
-over views of that axis.  Caches are updated in place.
-
-Not ported yet: the training loss (ROADMAP.md queue 1, item 11).
+over views of that axis.  Caches are updated in place.  ``train_loss`` is the
+training objective; with ``cfg.scan_layers and cfg.remat`` a train-mode
+stack recomputes each unit in the backward (``torch.utils.checkpoint``), as
+the JAX stack ``jax.checkpoint``s its scanned unit.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import blocks as B
@@ -128,16 +130,37 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
     if want_cache and cache is None:
         cache = init_stack_cache(cfg, x.shape[0], ctx.capacity or x.shape[1],
                                  x.device)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_units):
-        unit_params = _unit(params["units"], i, cfg.scan_layers)
-        unit_cache = _unit(cache["units"], i, cfg.scan_layers) \
-            if want_cache else None
+    remat = cfg.scan_layers and cfg.remat and ctx.mode == "train" and \
+        torch.is_grad_enabled()
+
+    def run_unit(x, unit_params, unit_cache):
+        aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, bt in enumerate(pat):
             c_j = None if unit_cache is None else unit_cache[f"b{j}"]
             x, _, aux = B.apply_block(bt, unit_params[f"b{j}"], x, ctx, cfg,
                                       c_j, encoder_out)
-            aux_total = aux_total + aux
+            aux_u = aux_u + aux
+        return x, aux_u
+
+    # training takes the stacked leaves apart once (``unbind``): a backward
+    # pass then stacks each leaf's gradient once, where one view per unit
+    # would add a zero-filled full-size gradient per unit
+    units = params["units"]
+    split = cfg.scan_layers and ctx.mode == "train"
+    if split:
+        units = tree_map(lambda t: t.unbind(0), units)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_units):
+        unit_params = tree_map(lambda parts: parts[i], units) if split \
+            else _unit(units, i, cfg.scan_layers)
+        unit_cache = _unit(cache["units"], i, cfg.scan_layers) \
+            if want_cache else None
+        if remat:  # the backward recomputes the unit from x
+            x, aux = checkpoint(run_unit, x, unit_params, None,
+                                use_reentrant=False)
+        else:
+            x, aux = run_unit(x, unit_params, unit_cache)
+        aux_total = aux_total + aux
     for i, bt in enumerate(rest):
         c_i = cache["rest"][i] if want_cache else None
         x, _, aux = B.apply_block(bt, params["rest"][i], x, ctx, cfg, c_i,
@@ -261,6 +284,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                                     encoder_out=encoder_out)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, new_cache, aux
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: dict) -> tuple[torch.Tensor, dict]:
+    """The training objective (``lm.py:283`` in the JAX package): batch
+    {"tokens": (B, S), "labels": (B, S), optional "mask" (B, S) and
+    "frontend"}; returns (loss, {"nll", "z_loss", "aux_loss"}), loss = nll +
+    z_loss + aux_loss (the MoE load-balance term), all fp32 0-d."""
+    hidden, _, aux = forward(params, cfg, batch["tokens"], mode="train",
+                             frontend=batch.get("frontend"))
+    nll, zl = L.chunked_cross_entropy(
+        hidden, _lm_head(params, cfg), batch["labels"],
+        mask=batch.get("mask"), logit_cap=cfg.logit_softcap,
+        valid_vocab=cfg.vocab_size)
+    loss = nll + zl + aux
+    return loss, {"nll": nll, "z_loss": zl, "aux_loss": aux}
 
 
 def logits_of(params: Params, cfg: ModelConfig,

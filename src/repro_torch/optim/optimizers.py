@@ -1,13 +1,15 @@
-"""AdamW as a pure transform over a parameter tree (no ``torch.optim``).
+"""Optimizers as pure transforms over a parameter tree (no ``torch.optim``).
 
 ``Optimizer`` carries two pure functions:
   * ``init(params) -> state``
   * ``update(grads, state, params, step) -> (new_params, new_state)``
 
 A tree is a leaf (a tensor), or a dict / list of trees; state mirrors the param
-tree.  This is the JAX package's own AdamW (``optim/optimizers.py``) with
-its defaults — b2 = 0.95 and global-norm clipping at 1.0 — which
-``torch.optim.AdamW`` does not share (its b2 is 0.999 and it never clips).
+tree.  These are the JAX package's own optimizers (``optim/optimizers.py``)
+with its defaults: AdamW with b2 = 0.95 and global-norm clipping at 1.0
+(``torch.optim.AdamW`` has b2 = 0.999 and never clips), Adafactor with
+factored second moments for leaves of two or more dims, and SGD with
+momentum; ``pick_optimizer`` takes Adafactor above 20B parameters.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import torch
 
 Tree = Any
 Schedule = Callable[[int], torch.Tensor]
+# Adafactor updates a stacked leaf of 3+ dims above this many bytes of fp32
+# one leading slice at a time, as the JAX package does (lax.map)
+ADAFACTOR_SLICE_BYTES = 1 << 28
 
 
 @dataclass(frozen=True)
@@ -93,3 +98,115 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     return Optimizer("adamw", init, update)
 
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments, no first moment)
+# ---------------------------------------------------------------------------
+
+def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              weight_decay: float = 0.0) -> Optimizer:
+    def _factored(p) -> bool:
+        return p.dim() >= 2
+
+    def init(params):
+        def st(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if _factored(p):
+                return {"row": torch.zeros(p.shape[:-1], **f32),
+                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+            return {"v": torch.zeros(p.shape, **f32)}
+
+        return tree_map(st, params)
+
+    def update(grads, state, params, step):
+        dev = tree_leaves(params)[0].device
+        t = torch.tensor(step + 1, dtype=torch.float32)
+        beta = (1.0 - t ** (-decay)).to(dev)
+        lr_t = lr(step).to(dev)
+
+        def upd_one(g, s, p):
+            g32 = g.to(torch.float32)
+            g2 = torch.square(g32) + eps
+            if _factored(p):
+                row = beta * s["row"] + (1 - beta) * g2.mean(dim=-1)
+                col = beta * s["col"] + (1 - beta) * g2.mean(dim=-2)
+                row_mean = row.mean(dim=-1, keepdim=True)
+                vhat = (row / torch.clamp_min(row_mean, eps))[..., None] \
+                    * col[..., None, :]
+                new_s = {"row": row, "col": col}
+            else:
+                vhat = beta * s["v"] + (1 - beta) * g2
+                new_s = {"v": vhat}
+            u = g32 / torch.sqrt(torch.clamp_min(vhat, eps))
+            # update clipping (RMS of update <= clip_threshold)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
+            delta = u + weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr_t * delta).to(p.dtype), new_s
+
+        def upd(g, s, p):
+            # Stacked-layer leaves (L, ...) are updated one slice at a time,
+            # as the JAX package's lax.map: the update clipping then acts per
+            # slice, and the fp32 transient stays at one layer's slice.
+            if p.dim() >= 3 and p.numel() * 4 > ADAFACTOR_SLICE_BYTES:
+                parts = [upd_one(g[i], tree_map(lambda x: x[i], s), p[i])
+                         for i in range(p.shape[0])]
+                return (torch.stack([x[0] for x in parts]),
+                        tree_map(lambda *xs: torch.stack(xs),
+                                 *[x[1] for x in parts]))
+            return upd_one(g, s, p)
+
+        flat = _map_with_state(upd, grads, state, params)
+        new_params = tree_map(lambda x: x[0], flat)
+        new_state = tree_map(lambda x: x[1], flat)
+        return new_params, new_state
+
+    return Optimizer("adafactor", init, update)
+
+
+def _map_with_state(fn, grads, state, params):
+    """``fn(g, s, p)`` at each param leaf, where ``s`` is the state subtree
+    (a dict of moment tensors) that mirrors that leaf."""
+    if isinstance(params, dict):
+        return {k: _map_with_state(fn, grads[k], state[k], params[k])
+                for k in params}
+    if isinstance(params, list):
+        return [_map_with_state(fn, g, s, p)
+                for g, s, p in zip(grads, state, params)]
+    return fn(grads, state, params)
+
+
+# ---------------------------------------------------------------------------
+# SGD + momentum
+# ---------------------------------------------------------------------------
+
+def sgd(lr: Schedule, momentum: float = 0.9,
+        grad_clip: float = 0.0) -> Optimizer:
+    def init(params):
+        return {"m": tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)}
+
+    def update(grads, state, params, step):
+        if grad_clip:
+            grads, _ = clip_by_global_norm(grads, grad_clip)
+        lr_t = lr(step).to(tree_leaves(params)[0].device)
+
+        def upd(g, m, p):
+            m = momentum * m + g.to(torch.float32)
+            return (p.to(torch.float32) - lr_t * m).to(p.dtype), m
+
+        flat = tree_map(upd, grads, state["m"], params)
+        return (tree_map(lambda x: x[0], flat),
+                {"m": tree_map(lambda x: x[1], flat)})
+
+    return Optimizer("sgd", init, update)
+
+
+def pick_optimizer(param_count: int, lr_schedule: Schedule) -> Optimizer:
+    """Framework default: Adafactor above 20B params (state memory), AdamW
+    otherwise."""
+    if param_count > 20_000_000_000:
+        return adafactor(lr_schedule)
+    return adamw(lr_schedule)

@@ -957,3 +957,261 @@ def test_moe_gmm_and_rglru_scan_refuse_what_they_cannot_take():
         rglru_scan_op(a.half(), a.half(), torch.zeros((2, 16), device=dev))
     with pytest.raises(ValueError, match="do not fit"):
         rglru_scan_op(a, a, torch.zeros((2, 15), device=dev))
+
+
+# -- training: the flash backward and the lse forward --------------------------
+
+_CAUSAL = dict(causal=True, window=0, chunk_attn=0)
+
+
+def _flash_train_inputs(rng, B, Sq, Skv, H, Kv, hd, dtype, dev):
+    q = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    k = _randn(rng, (B, Skv, Kv, hd), dtype, dev)
+    v = _randn(rng, (B, Skv, Kv, hd), dtype, dev)
+    dout = _randn(rng, (B, Sq, H, hd), dtype, dev)
+    return q, k, v, dout
+
+
+def _assert_bwd(got, ref, mag, dtype, where):
+    """fp32: within 1e-5 of each gradient's largest magnitude.  bf16:
+    element by element |got - ref| <= 2^-7 |ref| + 2^-8 M, M the same
+    products over magnitudes (``flash_attention_bwd_ref(...,
+    magnitudes=True)``): the two roundings of each output to bf16, plus
+    rounding inside the products (chip_smoke.py and PERF.md state the same
+    bound)."""
+    for name, g, r, m in zip(("dq", "dk", "dv"), got, ref, mag):
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all(), f"{where} {name}: not finite"
+        if dtype == torch.float32:
+            err = float((g - r).abs().max())
+            assert err <= 1e-5 * float(r.abs().max()), (where, name, err)
+        else:
+            over = ~((g - r).abs() <= 2.0 ** -7 * r.abs() + 2.0 ** -8 * m)
+            assert not over.any(), \
+                f"{where} {name}: {int(over.sum())} elements over the bf16 limit"
+
+
+def _flash_bwd_case(dtype, B, Sq, Skv, H, Kv, hd, masks, seed):
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+
+    dev = _cuda()
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = _flash_train_inputs(rng, B, Sq, Skv, H, Kv, hd, dtype, dev)
+    variant = kernel.route(dtype, hd)
+    out, lse = kernel.launch(q, k, v, variant, with_lse=True, **masks)
+    ref_out, ref_lse = flash_attention_lse_ref(q, k, v, **masks)
+    torch.cuda.synchronize()
+    # the lse twin writes exactly the serving kernel's output
+    assert torch.equal(out, kernel.launch(q, k, v, variant, **masks))
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+    bwd_variant = kernel.route_bwd(dtype, hd)
+    before = (flash_attention.launches_bwd,
+              getattr(flash_attention, f"launches_bwd_{bwd_variant}"))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = flash_attention(qg, kg, vg, **masks)
+    got = torch.autograd.grad(o, (qg, kg, vg), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bwd,
+            getattr(flash_attention, f"launches_bwd_{bwd_variant}")) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(o.detach(), out)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+    mag = flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks,
+                                  magnitudes=True)
+    where = f"{dtype} {masks} hd {hd} H {H}/{Kv}"
+    _assert_bwd(got, ref, mag, dtype, where + f" {bwd_variant}")
+    if bwd_variant == "tc":  # the FFMA variant takes bf16 too
+        _assert_bwd(kernel.launch_bwd(q, k, v, out, lse, dout, "ffma",
+                                      **masks), ref, mag, dtype,
+                    where + " ffma")
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 7])
+def test_flash_backward_kernel_matches_plain(dtype, hd, G):
+    """Causal, ragged S (not a multiple of the 32- or 64-row tiles), GQA
+    groups of 1, 2 and 7 summed in the dK/dV block."""
+    _flash_bwd_case(dtype, 2, 150, 150, 2 * G, 2, hd, _CAUSAL, seed=hd + G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,masks", [
+    (200, 200, dict(causal=True, window=48, chunk_attn=0)),
+    (200, 200, dict(causal=True, window=0, chunk_attn=64)),
+    (96, 170, dict(causal=False, window=0, chunk_attn=0)),
+    (130, 70, dict(causal=True, window=0, chunk_attn=0)),
+    (40, 300, dict(causal=True, window=0, chunk_attn=0)),
+])
+def test_flash_backward_kernel_masks(dtype, Sq, Skv, masks):
+    """Window, chunk, non-causal and Sq != Skv (both ways) at hd 128, G 2;
+    hd 16 (one accumulator column per thread) non-causal."""
+    _flash_bwd_case(dtype, 2, Sq, Skv, 4, 2, 128, masks, seed=Sq + Skv)
+    _flash_bwd_case(dtype, 1, Sq, Skv, 4, 2, 16, masks, seed=Sq)
+
+
+@pytest.mark.cuda
+def test_flash_backward_rows_that_see_nothing_get_zero_gradients():
+    """chunk 16 with Sq 48 > Skv 24: query rows 32-47 are in a chunk that has
+    no key; their output, dq and every contribution are 0, not NaN."""
+    q, k, v, out, lse, dout = _flash_bwd_case(
+        torch.float32, 1, 48, 24, 2, 1, 32,
+        dict(causal=True, window=0, chunk_attn=16), seed=5)
+    from repro_torch.kernels.flash_attention import kernel
+
+    dq, dk, dv = kernel.launch_bwd(q, k, v, out, lse, dout, "ffma",
+                                   causal=True, window=0, chunk_attn=16)
+    assert (out[:, 32:] == 0).all() and (dq[:, 32:] == 0).all()
+    assert (lse[:, :, 32:] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.float32, "ffma"), (torch.bfloat16, "ffma"), (torch.bfloat16, "tc")])
+def test_flash_backward_is_deterministic(dtype, variant):
+    """Two calls on the same inputs give bit-equal dq, dk and dv."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    q, k, v, dout = _flash_train_inputs(rng, 2, 300, 300, 14, 2, 128, dtype,
+                                        dev)
+    out, lse = kernel.launch(q, k, v, kernel.route(dtype, 128),
+                             with_lse=True, **_CAUSAL)
+    first = kernel.launch_bwd(q, k, v, out, lse, dout, variant, **_CAUSAL)
+    second = kernel.launch_bwd(q, k, v, out, lse, dout, variant, **_CAUSAL)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_backward_routes_follow_dtype_and_width():
+    """bf16 up to hd 128 takes the tensor cores, fp32 and bf16 at hd 192 or
+    256 the FFMA kernels; the tensor-core variant refuses the rest."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    assert kernel.route_bwd(torch.bfloat16, 128) == "tc"
+    assert kernel.route_bwd(torch.bfloat16, 16) == "tc"
+    assert kernel.route_bwd(torch.bfloat16, 192) == "ffma"
+    assert kernel.route_bwd(torch.float32, 64) == "ffma"
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    q, k, v, dout = _flash_train_inputs(rng, 1, 40, 40, 2, 1, 256,
+                                        torch.bfloat16, dev)
+    out, lse = kernel.launch(q, k, v, "tc", with_lse=True, **_CAUSAL)
+    with pytest.raises(ValueError, match="128"):
+        kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **_CAUSAL)
+
+
+@pytest.mark.cuda
+def test_serving_launches_unchanged_without_grad():
+    """No input requiring grad (or grad mode off): the serving kernel, counted
+    in ``launches``; an input requiring grad: the lse twin, counted in
+    ``launches_lse`` only."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    q, k, v, _ = _flash_train_inputs(rng, 1, 64, 64, 4, 2, 64, torch.bfloat16,
+                                     dev)
+    counts = lambda: (flash_attention.launches, flash_attention.launches_tc,
+                      flash_attention.launches_lse,
+                      flash_attention.launches_lse_tc)
+    before = counts()
+    flash_attention(q, k, v)
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        flash_attention(qg, k, v)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2], before[3])
+    flash_attention(qg, k, v)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 1,
+                        before[3] + 1)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_grad_on_the_card():
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+
+    dev = _cuda()
+    x = torch.zeros((2, 8, 16), device=dev, requires_grad=True)
+    w = torch.zeros((2, 16, 32), device=dev)
+    with pytest.raises(RuntimeError, match="item 11"):
+        moe_gmm(x, w)
+    with torch.no_grad():
+        moe_gmm(x, w)
+    a = torch.zeros((2, 5, 16), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="item 11"):
+        rglru_scan_op(a, a, torch.zeros((2, 16), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "recurrentgemma-2b"])
+def test_train_refuses_archs_without_kernel_backward(arch):
+    from repro_torch.launch.train import train
+
+    _cuda()
+    with pytest.raises(ValueError, match="item 11"):
+        train(arch, steps=1, batch=2, seq=16, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_on_the_card_tracks_the_cpu(dtype):
+    """Reduced InternLM2 (stacked units, remat): three ``build_train_step``
+    steps in 2 microbatches on the card (the lse forward and the backward
+    kernel) from the same weights and batches as on the CPU (plain
+    versions).  fp32: losses within rel 1e-5 and params within 1e-4 of each
+    leaf's max (AdamW keeps only the sign of a near-zero grad); bf16: the
+    losses within rel 2e-2 (tests/test_models.py's bf16 bound), and the
+    launches by variant exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    dev = _cuda()
+    cfg = get_config("internlm2-1.8b").reduced().with_overrides(
+        scan_layers=True, remat=True, dtype=dtype)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)))
+                for k in ("tokens", "labels")} for _ in range(3)]
+    opt = adamw(constant_schedule(1e-3))
+    step_fn = build_train_step(cfg, optimizer=opt, microbatches=2)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(where), params)
+        state, losses = opt.init(p), []
+        lse0 = flash_attention.launches_lse
+        bwd0 = (flash_attention.launches_bwd_tc,
+                flash_attention.launches_bwd_ffma)
+        for i, b in enumerate(batches):
+            p, state, _, m = step_fn(p, state, i, {k: v.to(where)
+                                                  for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        if where == "cuda":
+            # steps x microbatches x layers, twice under remat
+            assert flash_attention.launches_lse == lse0 + 3 * 2 * 2 * 2
+            bwd = (flash_attention.launches_bwd_tc - bwd0[0],
+                   flash_attention.launches_bwd_ffma - bwd0[1])
+            assert bwd == ((12, 0) if dtype == "bfloat16" else (0, 12))
+        runs[where] = (losses, p)
+    if dtype == "float32":
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+        for a, b in zip(tree_leaves(runs["cuda"][1]),
+                        tree_leaves(runs["cpu"][1])):
+            assert float((a.cpu() - b).abs().max()) <= \
+                1e-4 * float(b.abs().max())
+    else:
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=2e-2)
