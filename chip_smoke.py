@@ -11,7 +11,8 @@ card.  Phases, one JSON
 line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
-   build time with ptxas' registers and spills for every kernel.
+   build time with ptxas' registers and spills for every kernel, and the
+   kernels whose wgmma instructions ptxas serialized.
 2. ``kernels``: each kernel against its plain version (the attention
    kernels element by element in bf16, and at 1e-5 on the same inputs in
    fp32; see ``attention_kernels``, ``gmm_kernels`` and ``scan_kernels``),
@@ -104,7 +105,8 @@ line each:
    ``launch.train.train`` (``train_phase``): B 4 x S 4096 in 2 microbatches,
    4 AdamW steps; exact per-step launches of the flash forward's lse twin
    (96: 24 layers x 2 microbatches x 2 under remat) and of the flash
-   backward kernel (48), finite losses and grad norms, one profiled step;
+   backward kernel (48), finite losses and grad norms, one profiled step
+   (its backward device time split into the delta, dK/dV and dQ kernels);
    the backward kernel against its plain version at the training and long
    shapes (a bf16 bound, bit-equal repeats, lse within 1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
@@ -172,9 +174,12 @@ KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "retrieval_topk_select_kernel", "dsqe_score_kernel",
                 "dsqe_score_merge_kernel", "dsqe_score_select_kernel",
                 "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel",
-                "flash_bwd_delta_kernel", "flash_bwd_dkdv_tc_kernel",
-                "flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel")
+# the routed ("tc") flash backward: its delta kernel and the wgmma pair
+BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
+               "flash_bwd_dq_wgmma_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -337,6 +342,18 @@ def ptxas_report(log: str) -> list[dict]:
             out.append({"kernel": entry, "registers": int(m.group(1)),
                         "spill_bytes": spill})
             entry = None
+    return out
+
+
+def wgmma_serialized(log: str) -> list[str]:
+    """Kernels in whose build ptxas serialized the wgmma instructions (each
+    then waits for the one before it)."""
+    out = []
+    for ln in log.splitlines():
+        if "serialized" in ln and "wgmma" in ln:
+            name = next((k for k in KERNEL_NAMES if k in ln), ln[-120:])
+            if name not in out:
+                out.append(name)
     return out
 
 
@@ -1384,13 +1401,14 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
     bf16, causal.  The backward element by element within
     |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products over magnitudes,
     ``flash_attention_bwd_ref(..., magnitudes=True)``); two calls bit-equal;
-    lse within LSE_ATOL.  The served route (``route_bwd``: the tensor-core
-    variant) must be checked; times per call and replayed from a CUDA
+    lse within LSE_ATOL.  The served route (``route_bwd``: the wgmma pair,
+    ``"tc"``) must be checked; times per call and replayed from a CUDA
     graph, the FFMA variant's on the same inputs (its explicit route), the
     plain version's and the library's (autograd through SDPA, minus its
     forward).  Bound: q, k, v, out, dout, lse read once, dq, dk, dv written
     once; 10 hd FLOPs per visible pair (the five products; the dQ kernel's
-    recomputed S and dP are not counted).  Returns the training shape's
+    recomputed S and dP are not counted).  The achieved rate is logged on
+    10 hd and on the 14 hd the pair executes.  Returns the training shape's
     row."""
     import torch.nn.functional as F
 
@@ -1456,14 +1474,17 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
         pairs = visible_pairs(S, S, **causal)
         nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * Kv * hd) \
             + 4 * B * H * S + 2 * (B * S * H * hd + 2 * B * S * Kv * hd)
-        b_ms, b_by = bound(bw, bf16, nbytes, 10 * hd * B * H * pairs)
+        flops10 = 10 * hd * B * H * pairs
+        b_ms, b_by = bound(bw, bf16, nbytes, flops10)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms)
+                   bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
         log("kernels", kernel="flash_attention_bwd", shape=where, B=B, S=S,
             H=H, Kv=Kv, hd=hd, dtype="bf16", **causal, variant=variant,
             ffma_ms=ffma_ms, visible_pairs=pairs,
-            bf16_limit_ratio=ratio, lse_max_abs_err=lse_err, graph_ms=dev_ms,
-            library_fwd_ms=lib_fwd, bit_equal_repeat=True, **row)
+            bf16_limit_ratio=ratio, lse_max_abs_err=lse_err,
+            library_fwd_ms=lib_fwd, tflops_10hd=flops10 / dev_ms / 1e9,
+            tflops_14hd=1.4 * flops10 / dev_ms / 1e9,
+            bit_equal_repeat=True, **row)
         rows[where] = row
         del q, k, v, out, lse, dout, qt, kt, vt, dot
         torch.cuda.empty_cache()
@@ -1524,7 +1545,8 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     (remat) lse-twin flash forwards and 24 x 2 backward launches, all on
     the tensor-core variants; no serving flash and no decode launch.  Every
     loss and grad norm finite.  The third step runs under the profiler
-    (device kernels only).  Beside it: the backward kernel's rows
+    (device kernels only; the backward's delta, dK/dV and dQ kernels
+    summed apart).  Beside it: the backward kernel's rows
     (``flash_bwd_kernels``), the fp32 twin (``twin_grads``), and restart:
     the 2-layer cut, B 2 x S 1024, 4 steps uninterrupted against 2 steps
     with a checkpoint at step 2 resumed by a fresh ``train`` call, final
@@ -1604,6 +1626,11 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     events.sort(key=lambda e: -e.self_device_time_total)
     top = [[e.key[:100], e.self_device_time_total / 1e3, e.count]
            for e in events[:8]]
+    # the backward's device time in the profiled step, per kernel
+    bwd_split = {k: [sum(e.self_device_time_total for e in events
+                         if k in e.key) / 1e3,
+                     sum(e.count for e in events if k in e.key)]
+                 for k in BWD_KERNELS}
     prof_step_ms = 1e3 * steps[2]["step_s"]
     timed = [1e3 * s["step_s"] for s in steps if s["step"] in (1, 3)]
     step_ms = statistics.mean(timed)
@@ -1642,7 +1669,8 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         launches_per_step=per_step[0], launches=total,
         profiled_step_ms=prof_step_ms, profiled_device_busy_ms=busy_ms,
         profiled_device_idle_share=1.0 - busy_ms / prof_step_ms,
-        profiled_top_kernels=top, fp32_twin=twin,
+        profiled_top_kernels=top, profiled_backward_ms_calls=bwd_split,
+        fp32_twin=twin,
         restart=dict(layers=TWIN_TRAIN_LAYERS, batch=2, seq=1024, steps=4,
                      checkpoint_step=2, uninterrupted=full, resumed=resumed,
                      final_loss_diff=restart_diff,
@@ -2186,7 +2214,8 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda,
         peaks_used={"hbm_bytes_per_s": bw, "fp32_flops_per_s": fp32,
                     "bf16_tensor_flops_per_s": bf16},
-        kernel_build_s=round(lib.build_s, 3), ptxas=ptxas_report(lib.log))
+        kernel_build_s=round(lib.build_s, 3), ptxas=ptxas_report(lib.log),
+        wgmma_serialized=wgmma_serialized(lib.log))
     dev = torch.device("cuda")
 
     # the served selector: its tables are the main-path shapes
@@ -2459,7 +2488,8 @@ def main() -> int:
         # VJP backward, XLA (no pallas_call) beside the Pallas forward
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu",
-         "replaces": "src/repro/models/layers.py:189"},
+         "replaces": "src/repro/models/layers.py:189",
+         "kernels": list(BWD_KERNELS)},
     ]
     for entry in kernels:
         op = entry["name"]

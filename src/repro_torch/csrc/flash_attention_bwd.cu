@@ -15,7 +15,7 @@
 //
 // with q (B, Sq, H, hd), k and v (B, Skv, Kv, hd), query head h reading KV
 // head h / (H / Kv), the causal / window / chunk masks of the forward, and
-// Sq != Skv.  Every sum is fp32 (the tensor-core variant rounds P and dS to
+// Sq != Skv.  Every sum is fp32 (the tensor-core variants round P and dS to
 // bf16 as product operands); dQ, dK and dV are rounded once to the input
 // type.  A query row that sees no key has P = 0 on every key,
 // so its gradients are 0 (its lse, -1e30, is never used).
@@ -23,23 +23,24 @@
 // Deterministic by construction (restarted training must reproduce a run):
 // no atomics.  FA2's split into two kernels after the delta kernel:
 //
-// * flash_bwd_dkdv_kernel: one block per (b, KV head, BK-key tile).  It
-//   keeps the tile's K and V in shared memory and its dK and dV accumulators
-//   in registers, and walks the G = H / Kv query heads of the group and, for
-//   each, the BQ-row query tiles that can see the tile (tiles masked whole
-//   are skipped).  So the GQA sum over the group happens inside the block,
-//   in a fixed order; JAX sums it through the transpose of jnp.repeat.
-// * flash_bwd_dq_kernel: one block per (b, query head, BQ-row query tile),
-//   over the KV tiles the tile can see.  It recomputes S and dP (the dQ
-//   products are not in the bound of chip_smoke.py, which counts the five
-//   products once: 10 hd FLOPs per visible pair).
+// * a dK/dV kernel: one block per (b, KV head, key tile).  It keeps the
+//   tile's K and V in shared memory and its dK and dV accumulators in
+//   registers, and walks the G = H / Kv query heads of the group and, for
+//   each, the query tiles that can see the tile (tiles masked whole are
+//   skipped).  So the GQA sum over the group happens inside the block, in a
+//   fixed order; JAX sums it through the transpose of jnp.repeat.
+// * a dQ kernel: one block per (b, query head, query tile), over the KV
+//   tiles the tile can see.  It recomputes S and dP (the dQ products are not
+//   in the bound of chip_smoke.py, which counts the five products once: 10
+//   hd FLOPs per visible pair).
 //
 // What bounds it on an H100: 10 hd FLOPs (14 hd with the recomputation) per
 // visible (query, key) pair on 7 B S H hd inputs and outputs: bound by
 // operations.  Two variants of the two kernels, one rule
 // (kernels/flash_attention/kernel.py: route_bwd):
-// * "tc", bf16 with hd <= 128 (every trained model's attention): bf16 tiles
-//   and mma.sync on the tensor cores (989 TFLOP/s peak), below;
+// * "tc", bf16 with hd <= 128 (every trained model's attention):
+//   flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, the products
+//   on wgmma (989 TFLOP/s bf16 peak) from TMA-fed shared memory, below;
 // * "ffma", fp32 and bf16 above hd 128: the products on the CUDA cores in
 //   fp32 (66.9 TFLOP/s peak), the design of the FFMA forward in
 //   attention.cu: fp32 tiles in shared memory with an odd row stride (column
@@ -47,7 +48,7 @@
 //   the BQ x BK scores and of its rows of the accumulators.
 //
 // flash_attention_bwd_launch returns cudaGetLastError() after its launches
-// (0 on success).
+// (0 on success), or hopper.cuh's tensor-map error codes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,6 +63,7 @@ namespace {
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kDeltaRows = 8;  // delta kernel: rows per block, a warp each
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -125,6 +127,41 @@ struct Masks {
       ok = ok && q_lo / chunk <= k_hi / chunk && k_lo / chunk <= q_hi / chunk;
     return ok;
   }
+  // does every query in [q_lo, q_hi] see every key in [k_lo, k_hi] (all of
+  // them in range)
+  __device__ bool whole(int q_lo, int q_hi, int k_lo, int k_hi) const {
+    bool ok = q_hi < Sq && k_hi < Skv;
+    if (causal) ok = ok && k_hi <= q_lo;
+    if (window) ok = ok && q_hi - k_lo < window;
+    if (chunk)
+      ok = ok && q_lo / chunk == q_hi / chunk && k_lo / chunk == k_hi / chunk &&
+           q_lo / chunk == k_lo / chunk;
+    return ok;
+  }
+  // the keys query t sees form one interval [lo, hi] (empty if hi < lo)
+  __device__ void keys_of(int t, int& lo, int& hi) const {
+    lo = 0;
+    hi = causal ? min(t, Skv - 1) : Skv - 1;
+    if (window) lo = max(lo, t - window + 1);
+    if (chunk) {
+      const int c0 = t / chunk * chunk;
+      lo = max(lo, c0);
+      hi = min(hi, c0 + chunk - 1);
+    }
+    if (t >= Sq) hi = lo - 1;
+  }
+  // the queries that see key u form one interval [lo, hi]
+  __device__ void queries_of(int u, int& lo, int& hi) const {
+    lo = causal ? u : 0;
+    hi = Sq - 1;
+    if (window) hi = min(hi, u + window - 1);
+    if (chunk) {
+      const int c0 = u / chunk * chunk;
+      lo = max(lo, c0);
+      hi = min(hi, c0 + chunk - 1);
+    }
+    if (u >= Skv) hi = lo - 1;
+  }
   // may query t see key u (both in range)
   __device__ bool sees(int t, int u) const {
     bool ok = t < Sq && u < Skv;
@@ -152,26 +189,46 @@ size_t bwd_smem_bytes(int hd, int tile, int n_score_tiles) {
 }
 
 // delta[b, h, t] = sum_d dout[b, t, h, d] * out[b, t, h, d] in fp32; one
-// warp per (b, t, h) row.
-template <typename T>
+// warp per (b, t, h) row.  PACK (the "tc" variant): delta is the scratch
+// (B, H, 2, Sqp), Sqp = Sq rounded up to 64 rows, and the kernel writes
+// lse * log2(e) at [b, h, 0, t] and delta * scale (scale = 1 / sqrt(hd)) at
+// [b, h, 1, t], the units the wgmma kernels use, so that they copy 64 rows
+// of both with one bulk copy each (16-byte aligned whatever Sq is); rows
+// Sq .. Sqp - 1 get zeros (a masked P of 0 times them stays 0).
+template <typename T, int PACK>
 __global__ void __launch_bounds__(32 * kDeltaRows)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int Sq, int H,
-                       int hd) {
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, int rows, int Sq, int Sqp,
+                       int H, int hd) {
   const int row = blockIdx.x * kDeltaRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const T* o = out + static_cast<size_t>(row) * hd;
-  const T* d = dout + static_cast<size_t>(row) * hd;
+  if (row >= rows) return;  // rows = B Sqp H; row = (b Sqp + t) H + h
+  const int h = row % H, bt = row / H;
+  const int b = bt / Sqp, t = bt % Sqp;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  if (t >= Sq) {  // PACK only: Sqp > Sq
+    if (lane == 0) {
+      delta[bh * 2 * Sqp + t] = 0.f;
+      delta[(bh * 2 + 1) * Sqp + t] = 0.f;
+    }
+    return;
+  }
+  const size_t at = ((static_cast<size_t>(b) * Sq + t) * H + h) * hd;
+  const T* o = out + at;
+  const T* d = dout + at;
   float acc = 0.f;
   for (int c = lane; c < hd; c += 32) acc = fmaf(to_f(o[c]), to_f(d[c]), acc);
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) {
-    const int h = row % H, bt = row / H;  // row = (b Sq + t) H + h
-    const int b = bt / Sq, t = bt % Sq;
-    delta[(static_cast<size_t>(b) * H + h) * Sq + t] = acc;
+    if constexpr (PACK) {
+      delta[bh * 2 * Sqp + t] = lse[bh * Sq + t] * kLog2e;
+      delta[(bh * 2 + 1) * Sqp + t] = acc / sqrtf(static_cast<float>(hd));
+    } else {
+      delta[bh * Sq + t] = acc;
+    }
   }
 }
 
@@ -418,354 +475,517 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (hd <= 128): mma.sync.m16n8k16, fp32 accumulate
+// "tc": bf16 on wgmma fed by TMA (hd <= 128), fp32 accumulate
 // ---------------------------------------------------------------------------
 //
-// The same two kernels with bf16 tiles in shared memory (rows padded by 16
-// bytes: ldmatrix reads eight rows in eight distinct 4-bank groups, as
-// decode_attention_tc.cu), filled by 16-byte cp.async copies (rows past the
-// sequence are zero fills), and every product on mma.sync fed by ldmatrix.
-// Each warp owns 16 rows of its block's tile: keys in the dK/dV kernel,
-// queries in the dQ kernel.  The score tiles S and dP of a warp stay in
-// registers, P and dS are repacked in place as the A operand of the next
-// product (rounded to bf16: within 2^-9 of each term, inside the bound of
-// chip_smoke.py's check), and the dK, dV or dQ accumulators of the warp's 16
-// rows stay in registers for the whole block: hd / 8 fragments of 4 fp32
-// each, so hd <= 128 (bf16 at larger hd takes the FFMA kernels above).  NT
-// = hd / 8 is a template argument, one instantiation per head dim, so the
-// fragment loops and the tile strides are compile-time constants.
+// The same two kernels in the shape of the tensor-core forward
+// (flash_attention_tc.cu, and FA3's backward): three warpgroups, of which
+// one thread of the third issues TMA loads (setmaxnreg moves registers from
+// it, 24, to the two consumer warpgroups, 240), and every product on wgmma
+// reading its operands straight from 128-byte-swizzled shared memory, or A
+// from registers.  hd is padded to HDP = 64 or 128 by TMA's out-of-bounds
+// zeros, and so are rows past Sq or Skv, which the masks then hide; the
+// stores write only hd columns of in-range rows.
+//
+// * flash_bwd_dkdv_wgmma_kernel: one block per (b, KV head, 128-key tile),
+//   each consumer warpgroup owning 64 keys.  K and V load once; Q and dO
+//   stream in 64-row tiles through a two-stage ring (full and empty
+//   mbarriers), each with its 64 rows of lse * log2(e) and delta * scale
+//   (the packed scratch of the delta kernel, one bulk copy each).  Producer
+//   and consumers walk the same fixed list: the G query heads of the group
+//   and, for each, the query tiles Masks::live admits.  Per tile, in each
+//   consumer warpgroup: S^T = K Q^T and dP^T = V dO^T (M 64 keys, N 64
+//   queries, K HDP, both K-major); P^T = exp2(S^T scale log2(e) - lse2[q])
+//   on visible pairs and exactly 0 elsewhere, dS^T = P^T (dP^T - delta[q])
+//   scale, on the accumulator fragments; both rounded to bf16 and repacked
+//   in registers as A operands (the m64nNk16 accumulator fragment is the
+//   A-register fragment, hopper.cuh); dV += P^T dO and dK += dS^T Q (N HDP),
+//   dO and Q read MN-major from the same swizzled tiles (tnspB = 1).  dK and
+//   dV are 64 x HDP fp32 each in registers: 128 a thread at HDP 128.
+// * flash_bwd_dq_wgmma_kernel: one block per (b, query head, 128-query
+//   tile), 64 queries a consumer warpgroup, the last tile first.  Q and dO
+//   load once; K and V stream in 128-key tiles through the ring (N 128:
+//   S and dP are 64 fp32 a thread each).  Per tile: S = Q K^T and dP = dO
+//   V^T, dS from each row's lse2 and delta (held in registers), dQ += dS K
+//   with K read MN-major.
+//
+// The element-wise step between the products is most of what is not
+// tensor-core time (PERF.md, Findings), so it is kept short: one MUFU.EX2 a
+// pair (ex2.approx, below), delta pre-scaled by the delta kernel, and the
+// mask reduced to each row's (or key's) one interval of visible positions,
+// tested only on tiles the mask cuts (Masks::whole).  The forward's turn-
+// taking of the two consumer warpgroups, a three- or four-stage ring, a
+// 64-key tile in the dQ kernel, and issuing dP^T apart so that exp2 of S^T
+// runs under it were each measured on the H100 and gained nothing (PERF.md,
+// Findings), so the warpgroups run free.
+//
+// The dK/dV blocks are launched with the key tile slowest (grid z), the dQ
+// blocks with the query tile slowest and the last first, so that under a
+// causal mask the blocks with the most tiles start first and the short ones
+// fill the tail.
+
+// 2^x on the special-function unit (MUFU.EX2); results below 2^-126 flush
+// to 0, far under what a bf16 P or dS operand can add to an fp32 sum of
+// finite terms
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcRows = 16 * kTcWarps;  // a block's own rows: 64
-constexpr int kTcOther = 32;            // rows of the tile it walks over
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgThreads = 384;  // two consumer warpgroups and a producer
+constexpr int kWgOwn = 128;      // a block's own rows (keys or queries)
+constexpr int kWgTile = 64;      // dK/dV: query rows of each streamed tile
+constexpr int kDqKeys = 128;     // dQ: keys of each streamed tile
+constexpr int kWgStages = 2;
 
-size_t tc_smem_bytes(int hd) {
-  const size_t ld = hd + 8;
-  return sizeof(bf16) * 2 * (kTcRows + kTcOther) * ld +
-         sizeof(float) * 2 * kTcRows;
-}
+template <int HDP>
+struct WgBwd {
+  static constexpr int NCH = HDP / 64;                // 64-element boxes
+  static constexpr int kOwnBytes = NCH * kWgOwn * 128;    // K, V or Q, dO
+  static constexpr int kTileBytes = NCH * kWgTile * 128;  // one streamed tile
+  static constexpr int kLDBytes = 2 * kWgTile * 4;  // lse2 and delta, a tile
+  static constexpr int kBars = (1 + 2 * kWgStages) * 8;
+  static constexpr int kSmemKV = 2 * kOwnBytes +
+                                 kWgStages * (2 * kTileBytes + kLDBytes) +
+                                 kBars + 1024;
+  static constexpr int kKeyBytes = NCH * kDqKeys * 128;  // dQ: K or V tile
+  static constexpr int kSmemQ =
+      2 * kOwnBytes + kWgStages * 2 * kKeyBytes + kBars + 1024;
+};
 
-// rows [row0, row0 + rows) of hd bf16, row r at base + r * row_stride, into
-// dst[r] (leading dimension ld) by cp.async; rows at or past `valid` are
-// zero-filled.
-__device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* base,
-                                          size_t row_stride, int row0,
-                                          int valid, int rows, int hd) {
-  const int per_row = hd / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    const bool ok = r < valid;
-    hopper::cp_async16(dst + r * ld + c,
-                       base + static_cast<size_t>(ok ? row0 + r : row0) *
-                                  row_stride + c,
-                       ok ? 16 : 0);
-  }
-}
-
-// D (16 x 32) = A B^T over hd: A the warp's 16 rows at A0 (row-major, ld),
-// B 32 rows at B0; four n-tiles of 8 columns.
-template <int NT>
-__device__ __forceinline__ void warp_scores(float (&d)[4][4], const bf16* A0,
-                                            const bf16* B0, int ld, int hd,
-                                            int lane) {
+// the 64 x N accumulator fragment (N / 2 floats a thread) of rows row0 and
+// row0 + 8 to global memory as bf16, hd columns, rows below `rows`
+template <int R>
+__device__ __forceinline__ void store_fragment(bf16* base, size_t row_stride,
+                                               int row0, int rows,
+                                               const float (&acc)[R], int hd,
+                                               int lane) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int j = 0; j < R / 4; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    if (col >= hd) continue;  // hd % 16 == 0: col + 1 < hd as well
 #pragma unroll
-    for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    if (kk < hd / 16) {
-      uint32_t a[4];
-      hopper::ldmatrix_x4(a, A0 + (lane % 16) * ld + (lane / 16) * 8 + kk * 16);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        hopper::ldmatrix_x4(
-            b, B0 + (np * 16 + (lane / 16) * 8 + lane % 8) * ld +
-                   ((lane / 8) % 2) * 8 + kk * 16);
-        hopper::mma_16816(d[2 * np], a, b[0], b[1]);
-        hopper::mma_16816(d[2 * np + 1], a, b[2], b[3]);
-      }
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row < rows)
+        *reinterpret_cast<__nv_bfloat162*>(
+            base + static_cast<size_t>(row) * row_stride + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
     }
   }
 }
 
-// acc (16 x hd) += P (16 x 32, as two k16 A operands) X (32 x hd), X's 32
-// rows at X0 (row-major, ld), read transposed by ldmatrix.
-template <int NT>
-__device__ __forceinline__ void warp_accumulate(float (&acc)[NT][4],
-                                                const uint32_t (&p)[2][4],
-                                                const bf16* X0, int ld, int hd,
-                                                int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      if (np < hd / 16) {
-        uint32_t b[4];
-        hopper::ldmatrix_x4_trans(
-            b, X0 + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * ld +
-                   np * 16 + (lane / 16) * 8);
-        hopper::mma_16816(acc[2 * np], p[kk], b[0], b[1]);
-        hopper::mma_16816(acc[2 * np + 1], p[kk], b[2], b[3]);
-      }
-    }
-}
-
-// score fragments (16 x 32) as two k16 A operands, rounded to bf16
-__device__ __forceinline__ void pack_a(uint32_t (&a)[2][4],
-                                       const float (&d)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      a[kk][2 * n] = hopper::pack_bf16(d[2 * kk + n][0], d[2 * kk + n][1]);
-      a[kk][2 * n + 1] = hopper::pack_bf16(d[2 * kk + n][2], d[2 * kk + n][3]);
-    }
-}
-
-// the warp's 16 x hd accumulator rows to global memory as bf16
-template <int NT>
-__device__ __forceinline__ void store_rows(bf16* base, size_t row_stride,
-                                           int row0, int rows_valid,
-                                           const float (&acc)[NT][4], int hd,
-                                           int lane) {
-  const int g = lane / 4, c4 = lane % 4;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (n < hd / 8) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = g + 8 * h;
-        if (r < rows_valid)
-          *reinterpret_cast<__nv_bfloat162*>(
-              base + static_cast<size_t>(row0 + r) * row_stride + n * 8 +
-              2 * c4) = __floats2bfloat162_rn(acc[n][2 * h],
-                                              acc[n][2 * h + 1]);
-      }
-    }
-  }
-}
-
-// grid (ceil(Skv / 64), Kv, B), 128 threads: warp w owns keys 16 w .. + 15
-// of the block's tile, and walks the group's query heads and their 32-row
-// query tiles.  NT = hd / 8 rounded up to a power of two (<= 16).
-template <int NT>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int Kv, float scale,
-                         Masks mk) {
+// grid (Kv, B, ceil(Skv / 128)), 384 threads: warpgroups 0 and 1 consume
+// (keys k_lo + 64 wg ..), warpgroup 2 produces.  ld: the packed scratch.
+template <int HDP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap dmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const float* __restrict__ ld,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, int Kv, int hd, int Sqp, float scale,
+                            Masks mk) {
+  using Cfg = WgBwd<HDP>;
+  using namespace hopper;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int hd = 8 * NT, ld = hd + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][ld]
-  bf16* Vs = Ks + kTcRows * ld;                  // [64][ld]
-  bf16* Qs = Vs + kTcRows * ld;                  // [32][ld]
-  bf16* dOs = Qs + kTcOther * ld;                // [32][ld]
-  float* lse_s = reinterpret_cast<float*>(dOs + kTcOther * ld);  // log2 units
-  float* delta_s = lse_s + kTcOther;
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = Ks + Cfg::kOwnBytes;
+  uint8_t* tiles = Vs + Cfg::kOwnBytes;  // stage s: Q at 2 s, dO at 2 s + 1
+  float* lds = reinterpret_cast<float*>(tiles + kWgStages * 2 *
+                                        Cfg::kTileBytes);  // stage s: 128
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lds + kWgStages * 2 *
+                                                  kWgTile);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kWgStages;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
   const int G = H / Kv, Sq = mk.Sq, Skv = mk.Skv;
-  const int k_lo = kt * kTcRows, k_hi = min(k_lo + kTcRows, Skv) - 1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c4 = lane % 4;
-  const size_t q_stride = static_cast<size_t>(H) * hd;
-  const size_t kv_stride = static_cast<size_t>(Kv) * hd;
-  const size_t kv_off = static_cast<size_t>(b) * Skv * kv_stride +
-                        static_cast<size_t>(kvh) * hd;
-  copy_rows(Ks, ld, k + kv_off, kv_stride, k_lo, Skv - k_lo, kTcRows, hd);
-  copy_rows(Vs, ld, v + kv_off, kv_stride, k_lo, Skv - k_lo, kTcRows, hd);
-  const float scale_log2 = scale * kLog2e;
+  const int k_lo = kt * kWgOwn, k_hi = min(k_lo + kWgOwn, Skv) - 1;
+  const int n_q = (Sq + kWgTile - 1) / kWgTile;
+  const int wg = threadIdx.x / 128;
+  auto live = [&](int qt) {
+    return mk.live(qt * kWgTile, min((qt + 1) * kWgTile, Sq) - 1, k_lo, k_hi);
+  };
 
-  float acc_k[NT][4], acc_v[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-  const bf16* Kw = Ks + warp * 16 * ld;
-  const bf16* Vw = Vs + warp * 16 * ld;
-  const int key0 = k_lo + warp * 16 + g;  // and key0 + 8
-
-  const int n_q = (Sq + kTcOther - 1) / kTcOther;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const size_t q_off = static_cast<size_t>(b) * Sq * q_stride +
-                         static_cast<size_t>(h) * hd;
-    const float* lse_h = lse + (static_cast<size_t>(b) * H + h) * Sq;
-    const float* delta_h = delta + (static_cast<size_t>(b) * H + h) * Sq;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q_lo = qt * kTcOther, q_hi = min(q_lo + kTcOther, Sq) - 1;
-      if (!mk.live(q_lo, q_hi, k_lo, k_hi)) continue;  // uniform
-      __syncthreads();  // the previous tile's Q and dO are read
-      copy_rows(Qs, ld, q + q_off, q_stride, q_lo, Sq - q_lo, kTcOther, hd);
-      copy_rows(dOs, ld, dout + q_off, q_stride, q_lo, Sq - q_lo, kTcOther,
-                hd);
-      hopper::cp_async_commit();
-      for (int i = threadIdx.x; i < kTcOther; i += blockDim.x) {
-        const bool in = q_lo + i < Sq;
-        lse_s[i] = in ? lse_h[q_lo + i] * kLog2e : 0.f;
-        delta_s[i] = in ? delta_h[q_lo + i] : 0.f;
-      }
-      hopper::cp_async_wait<0>();
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: rows = this warp's keys
-      float st[4][4], dpt[4][4];
-      warp_scores<NT>(st, Kw, Qs, ld, hd, lane);
-      warp_scores<NT>(dpt, Vw, dOs, ld, hd, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * c4 + (e & 1);  // query in the tile
-          const bool ok = mk.sees(q_lo + col, key0 + 8 * (e / 2));
-          const float p =
-              ok ? exp2f(st[n][e] * scale_log2 - lse_s[col]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - delta_s[col]) * scale;
-        }
-      uint32_t pa[2][4], da[2][4];
-      pack_a(pa, st);
-      pack_a(da, dpt);
-      // dV += P^T dO, dK += dS^T Q
-      warp_accumulate<NT>(acc_v, pa, dOs, ld, hd, lane);
-      warp_accumulate<NT>(acc_k, da, Qs, ld, hd, lane);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
     }
+    fence_barrier_init();
   }
-  hopper::cp_async_wait<0>();  // K and V, when no query tile was live
-  const int rows = min(16, Skv - (k_lo + warp * 16));
-  store_rows<NT>(dk + kv_off, kv_stride, k_lo + warp * 16, rows, acc_k, hd,
-                 lane);
-  store_rows<NT>(dv + kv_off, kv_stride, k_lo + warp * 16, rows, acc_v, hd,
-                 lane);
-}
+  __syncthreads();
 
-// grid (ceil(Sq / 64), H, B), 128 threads: warp w owns queries 16 w .. + 15
-// of the block's tile, and walks the 32-key tiles they can see.
-template <int NT>
-__global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dq,
-                       int H, int Kv, float scale, Masks mk) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int hd = 8 * NT, ld = hd + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][ld]
-  bf16* dOs = Qs + kTcRows * ld;                 // [64][ld]
-  bf16* Ks = dOs + kTcRows * ld;                 // [32][ld]
-  bf16* Vs = Ks + kTcOther * ld;                 // [32][ld]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Kv), Sq = mk.Sq, Skv = mk.Skv;
-  const int q_lo = qt * kTcRows, q_hi = min(q_lo + kTcRows, Sq) - 1;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c4 = lane % 4;
-  const size_t q_stride = static_cast<size_t>(H) * hd;
-  const size_t kv_stride = static_cast<size_t>(Kv) * hd;
-  const size_t q_off = static_cast<size_t>(b) * Sq * q_stride +
-                       static_cast<size_t>(h) * hd;
-  const size_t kv_off = static_cast<size_t>(b) * Skv * kv_stride +
-                        static_cast<size_t>(kvh) * hd;
-  copy_rows(Qs, ld, q + q_off, q_stride, q_lo, Sq - q_lo, kTcRows, hd);
-  copy_rows(dOs, ld, dout + q_off, q_stride, q_lo, Sq - q_lo, kTcRows, hd);
-  hopper::cp_async_commit();
-  const float scale_log2 = scale * kLog2e;
-  const int row0 = q_lo + warp * 16 + g;  // and row0 + 8
-  float lse2[2], dlt[2];
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * Cfg::kOwnBytes);
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int t = row0 + 8 * hh;
-    const size_t i = (static_cast<size_t>(b) * H + h) * Sq + t;
-    lse2[hh] = t < Sq ? lse[i] * kLog2e : 0.f;
-    dlt[hh] = t < Sq ? delta[i] : 0.f;
-  }
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const bf16* Qw = Qs + warp * 16 * ld;
-  const bf16* dOw = dOs + warp * 16 * ld;
-
-  const int n_kv = (Skv + kTcOther - 1) / kTcOther;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k_lo = kt * kTcOther, k_hi = min(k_lo + kTcOther, Skv) - 1;
-    if (!mk.live(q_lo, q_hi, k_lo, k_hi)) continue;  // uniform
-    __syncthreads();  // the previous tile's K and V are read
-    copy_rows(Ks, ld, k + kv_off, kv_stride, k_lo, Skv - k_lo, kTcOther, hd);
-    copy_rows(Vs, ld, v + kv_off, kv_stride, k_lo, Skv - k_lo, kTcOther, hd);
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<0>();
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: rows = this warp's queries
-    float s[4][4], dp[4][4];
-    warp_scores<NT>(s, Qw, Ks, ld, hd, lane);
-    warp_scores<NT>(dp, dOw, Vs, ld, hd, lane);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e / 2;
-        const bool ok = mk.sees(row0 + 8 * hh, k_lo + n * 8 + 2 * c4 + (e & 1));
-        const float p = ok ? exp2f(s[n][e] * scale_log2 - lse2[hh]) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dlt[hh]) * scale;
+      for (int c = 0; c < Cfg::NCH; ++c) {
+        tma_load_4d(Ks + c * kWgOwn * 128, &kmap, kv_full, 64 * c, kvh, k_lo,
+                    b);
+        tma_load_4d(Vs + c * kWgOwn * 128, &vmap, kv_full, 64 * c, kvh, k_lo,
+                    b);
       }
-    uint32_t da[2][4];
-    pack_a(da, dp);
-    warp_accumulate<NT>(acc, da, Ks, ld, hd, lane);  // dQ += dS K
+      int i = 0;
+      for (int g = 0; g < G; ++g) {
+        const int h = kvh * G + g;
+        const float* ld_h = ld + (static_cast<size_t>(b) * H + h) * 2 * Sqp;
+        for (int qt = 0; qt < n_q; ++qt) {
+          if (!live(qt)) continue;
+          const int s = i % kWgStages, r = i / kWgStages;
+          uint8_t* qs = tiles + 2 * s * Cfg::kTileBytes;
+          uint8_t* ds = qs + Cfg::kTileBytes;
+          float* ls = lds + 2 * s * kWgTile;
+          if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * Cfg::kTileBytes + Cfg::kLDBytes);
+#pragma unroll
+          for (int c = 0; c < Cfg::NCH; ++c) {
+            tma_load_4d(qs + c * kWgTile * 128, &qmap, &full[s], 64 * c, h,
+                        qt * kWgTile, b);
+            tma_load_4d(ds + c * kWgTile * 128, &dmap, &full[s], 64 * c, h,
+                        qt * kWgTile, b);
+          }
+          bulk_load(ls, ld_h + qt * kWgTile, kWgTile * 4, &full[s]);
+          bulk_load(ls + kWgTile, ld_h + Sqp + qt * kWgTile, kWgTile * 4,
+                    &full[s]);
+          ++i;
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: keys k_lo + 64 wg .. + 63
+    regs_inc<240>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int wk_lo = k_lo + 64 * wg;
+    const int key0 = wk_lo + 16 * warp + lane / 4;  // and key0 + 8
+    int qlo[2], qhi[2];  // the queries that see each of the two keys
+    mk.queries_of(key0, qlo[0], qhi[0]);
+    mk.queries_of(key0 + 8, qlo[1], qhi[1]);
+    const float scale_log2 = scale * kLog2e;
+    const uint8_t* Kw = Ks + wg * 64 * 128;
+    const uint8_t* Vw = Vs + wg * 64 * 128;
+    float dka[HDP / 2], dva[HDP / 2];
+#pragma unroll
+    for (int j = 0; j < HDP / 2; ++j) dka[j] = dva[j] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    int i = 0;
+    for (int g = 0; g < G; ++g) {
+      for (int qt = 0; qt < n_q; ++qt) {
+        if (!live(qt)) continue;
+        const int s = i % kWgStages;
+        const uint32_t ph = (i / kWgStages) & 1;
+        const uint8_t* qs = tiles + 2 * s * Cfg::kTileBytes;
+        const uint8_t* ds = qs + Cfg::kTileBytes;
+        const float* lse2 = lds + 2 * s * kWgTile;
+        const float* dls = lse2 + kWgTile;  // delta * scale
+        const int q_lo = qt * kWgTile;
+        mbar_wait(&full[s], ph);
+
+        // S^T = K Q^T and dP^T = V dO^T: rows = this warpgroup's keys
+        float st[kWgTile / 2], dpt[kWgTile / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < Cfg::NCH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_ss<0>(st, sw128_desc(Kw + c * kWgOwn * 128 + kk * 32, 16, 1024),
+                      sw128_desc(qs + c * kWgTile * 128 + kk * 32, 16, 1024),
+                      (c | kk) != 0);
+            mma_ss<0>(dpt,
+                      sw128_desc(Vw + c * kWgOwn * 128 + kk * 32, 16, 1024),
+                      sw128_desc(ds + c * kWgTile * 128 + kk * 32, 16, 1024),
+                      (c | kk) != 0);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // P^T in place of S^T, exactly 0 off the mask; query column col is
+        // accumulator entry 4 (col / 8) + col % 2 where lane % 4 == col % 8 / 2
+        const bool whole = mk.whole(q_lo, q_lo + kWgTile - 1, wk_lo,
+                                    wk_lo + 63);
+#pragma unroll
+        for (int j = 0; j < kWgTile / 2; j += 2) {
+          const int col = 8 * (j / 4) + 2 * (lane % 4);  // queries col, + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+          float p0 = ex2(fmaf(st[j], scale_log2, -l2.x));
+          float p1 = ex2(fmaf(st[j + 1], scale_log2, -l2.y));
+          if (!whole) {  // uniform over the warpgroup
+            const int hr = (j / 2) % 2, t = q_lo + col;
+            p0 = t >= qlo[hr] && t <= qhi[hr] ? p0 : 0.f;
+            p1 = t + 1 >= qlo[hr] && t + 1 <= qhi[hr] ? p1 : 0.f;
+          }
+          st[j] = p0;
+          st[j + 1] = p1;
+        }
+
+        // dS^T = P^T (dP^T scale - delta scale); P^T and dS^T rounded to bf16
+        // as A operands (query columns 16 kk .. 16 kk + 15 are accumulator
+        // entries 8 kk .. 8 kk + 7)
+        uint32_t pa[kWgTile / 16][4], da[kWgTile / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgTile / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int j = 8 * kk + 2 * r;
+            const float2 dl = *reinterpret_cast<const float2*>(
+                dls + 8 * (j / 4) + 2 * (lane % 4));
+            pa[kk][r] = pack_bf16(st[j], st[j + 1]);
+            da[kk][r] = pack_bf16(st[j] * fmaf(dpt[j], scale, -dl.x),
+                                  st[j + 1] * fmaf(dpt[j + 1], scale, -dl.y));
+          }
+
+        // dV += P^T dO, dK += dS^T Q: B MN-major, 16 query rows a step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgTile / 16; ++kk) {
+          mma_rs<1>(dva, pa[kk],
+                    sw128_desc(ds + kk * 16 * 128, kWgTile * 128, 1024), 1);
+          mma_rs<1>(dka, da[kk],
+                    sw128_desc(qs + kk * 16 * 128, kWgTile * 128, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        ++i;
+      }
+    }
+
+    const size_t kv_stride = static_cast<size_t>(Kv) * hd;
+    const size_t off = static_cast<size_t>(b) * Skv * kv_stride +
+                       static_cast<size_t>(kvh) * hd;
+    store_fragment(dk + off, kv_stride, key0, Skv, dka, hd, lane);
+    store_fragment(dv + off, kv_stride, key0, Skv, dva, hd, lane);
   }
-  hopper::cp_async_wait<0>();  // Q and dO, when no key tile was live
-  store_rows<NT>(dq + q_off, q_stride, q_lo + warp * 16,
-                 min(16, Sq - (q_lo + warp * 16)), acc, hd, lane);
 }
 
-template <int NT>
-int launch_bwd_tc(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
-                  int Kv, int hd, const Masks& mk, cudaStream_t stream) {
+// grid (H, B, ceil(Sq / 128)), 384 threads: warpgroups 0 and 1 consume
+// (queries q_lo + 64 wg ..), warpgroup 2 produces.
+template <int HDP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const float* __restrict__ ld,
+                          bf16* __restrict__ dq, int H, int Kv, int hd,
+                          int Sqp, float scale, Masks mk) {
+  using Cfg = WgBwd<HDP>;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* dOs = Qs + Cfg::kOwnBytes;
+  uint8_t* tiles = dOs + Cfg::kOwnBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(tiles + kWgStages * 2 *
+                                                 Cfg::kKeyBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWgStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest rows first
+  const int kvh = h / (H / Kv), Sq = mk.Sq, Skv = mk.Skv;
+  const int q_lo = qt * kWgOwn, q_hi = min(q_lo + kWgOwn, Sq) - 1;
+  const int n_kv = (Skv + kDqKeys - 1) / kDqKeys;
+  const int wg = threadIdx.x / 128;
+  auto live = [&](int kt) {
+    return mk.live(q_lo, q_hi, kt * kDqKeys,
+                   min((kt + 1) * kDqKeys, Skv) - 1);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * Cfg::kOwnBytes);
+#pragma unroll
+      for (int c = 0; c < Cfg::NCH; ++c) {
+        tma_load_4d(Qs + c * kWgOwn * 128, &qmap, q_full, 64 * c, h, q_lo, b);
+        tma_load_4d(dOs + c * kWgOwn * 128, &dmap, q_full, 64 * c, h, q_lo,
+                    b);
+      }
+      int i = 0;
+      for (int kt = 0; kt < n_kv; ++kt) {
+        if (!live(kt)) continue;
+        const int s = i % kWgStages, r = i / kWgStages;
+        uint8_t* ks = tiles + 2 * s * Cfg::kKeyBytes;
+        uint8_t* vs = ks + Cfg::kKeyBytes;
+        if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * Cfg::kKeyBytes);
+#pragma unroll
+        for (int c = 0; c < Cfg::NCH; ++c) {
+          tma_load_4d(ks + c * kDqKeys * 128, &kmap, &full[s], 64 * c, kvh,
+                      kt * kDqKeys, b);
+          tma_load_4d(vs + c * kDqKeys * 128, &vmap, &full[s], 64 * c, kvh,
+                      kt * kDqKeys, b);
+        }
+        ++i;
+      }
+    }
+  } else {  // consumer warpgroup wg: queries q_lo + 64 wg .. + 63
+    regs_inc<240>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int wq_lo = q_lo + 64 * wg;
+    const int row0 = wq_lo + 16 * warp + lane / 4;  // and row0 + 8
+    int klo[2], khi[2];  // the keys each of the two rows sees
+    mk.keys_of(row0, klo[0], khi[0]);
+    mk.keys_of(row0 + 8, klo[1], khi[1]);
+    const float scale_log2 = scale * kLog2e;
+    const float* ld_h = ld + (static_cast<size_t>(b) * H + h) * 2 * Sqp;
+    float lse2[2], dls[2];  // lse * log2(e) and delta * scale of each row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = row0 + 8 * hr;
+      lse2[hr] = t < Sq ? ld_h[t] : 0.f;
+      dls[hr] = t < Sq ? ld_h[Sqp + t] : 0.f;
+    }
+    const uint8_t* Qw = Qs + wg * 64 * 128;
+    const uint8_t* dOw = dOs + wg * 64 * 128;
+    float dqa[HDP / 2];
+#pragma unroll
+    for (int j = 0; j < HDP / 2; ++j) dqa[j] = 0.f;
+    mbar_wait(q_full, 0);
+
+    int i = 0;
+    for (int kt = 0; kt < n_kv; ++kt) {
+      if (!live(kt)) continue;
+      const int s = i % kWgStages;
+      const uint32_t ph = (i / kWgStages) & 1;
+      const uint8_t* ks = tiles + 2 * s * Cfg::kKeyBytes;
+      const uint8_t* vs = ks + Cfg::kKeyBytes;
+      const int k_lo = kt * kDqKeys;
+      mbar_wait(&full[s], ph);
+
+      // S = Q K^T and dP = dO V^T: rows = this warpgroup's queries
+      float sc[kDqKeys / 2], dp[kDqKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < Cfg::NCH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_ss<0>(sc, sw128_desc(Qw + c * kWgOwn * 128 + kk * 32, 16, 1024),
+                    sw128_desc(ks + c * kDqKeys * 128 + kk * 32, 16, 1024),
+                    (c | kk) != 0);
+          mma_ss<0>(dp, sw128_desc(dOw + c * kWgOwn * 128 + kk * 32, 16, 1024),
+                    sw128_desc(vs + c * kDqKeys * 128 + kk * 32, 16, 1024),
+                    (c | kk) != 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P in place of S, exactly 0 off the mask
+      const bool whole = mk.whole(wq_lo, wq_lo + 63, k_lo,
+                                  k_lo + kDqKeys - 1);
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 2; ++j) {
+        const int hr = (j / 2) % 2;
+        const float x = ex2(fmaf(sc[j], scale_log2, -lse2[hr]));
+        const int key = k_lo + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+        sc[j] = whole || (key >= klo[hr] && key <= khi[hr]) ? x : 0.f;
+      }
+
+      // dS = P (dP scale - delta scale) as bf16 A operands (key columns
+      // 16 kk .. 16 kk + 15 are accumulator entries 8 kk .. 8 kk + 7)
+      uint32_t da[kDqKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 8 * kk + 2 * r, hr = r % 2;
+          da[kk][r] = pack_bf16(sc[j] * fmaf(dp[j], scale, -dls[hr]),
+                                sc[j + 1] * fmaf(dp[j + 1], scale, -dls[hr]));
+        }
+
+      // dQ += dS K: K MN-major, 16 key rows a step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        mma_rs<1>(dqa, da[kk],
+                  sw128_desc(ks + kk * 16 * 128, kDqKeys * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++i;
+    }
+
+    const size_t q_stride = static_cast<size_t>(H) * hd;
+    store_fragment(dq + static_cast<size_t>(b) * Sq * q_stride +
+                       static_cast<size_t>(h) * hd,
+                   q_stride, row0, Sq, dqa, hd, lane);
+  }
+}
+
+template <int HDP>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* ld, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Skv, int H, int Kv, int hd,
+                     int Sqp, const Masks& mk, cudaStream_t stream) {
+  using Cfg = WgBwd<HDP>;
+  using hopper::attention_map;
   static std::atomic<size_t> ready_kv[hopper::kMaxDevices];
   static std::atomic<size_t> ready_q[hopper::kMaxDevices];
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const size_t smem = tc_smem_bytes(hd);
-  auto* fkv = flash_bwd_dkdv_tc_kernel<NT>;
-  cudaError_t err = hopper::allow_smem(fkv, tc_smem_bytes(8 * NT), ready_kv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fkv<<<dim3((Skv + kTcRows - 1) / kTcRows, Kv, B), kTcThreads, smem,
-        stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                  H, Kv, scale, mk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto* fq = flash_bwd_dq_tc_kernel<NT>;
-  err = hopper::allow_smem(fq, tc_smem_bytes(8 * NT), ready_q);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fq<<<dim3((Sq + kTcRows - 1) / kTcRows, H, B), kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), H, Kv, scale, mk);
+  // dK/dV: Q and dO in 64-row tiles, K and V in 128-row ones
+  CUtensorMap qmap, dmap, kmap, vmap;
+  int err = attention_map(&qmap, q, B, Sq, H, hd, kWgTile);
+  if (!err) err = attention_map(&dmap, dout, B, Sq, H, hd, kWgTile);
+  if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, kWgOwn);
+  if (!err) err = attention_map(&vmap, v, B, Skv, Kv, hd, kWgOwn);
+  if (err) return err;
+  auto* fkv = flash_bwd_dkdv_wgmma_kernel<HDP>;
+  cudaError_t serr = hopper::allow_smem(fkv, Cfg::kSmemKV, ready_kv);
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  fkv<<<dim3(Kv, B, (Skv + kWgOwn - 1) / kWgOwn), kWgThreads, Cfg::kSmemKV,
+        stream>>>(qmap, dmap, kmap, vmap, ld, static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv), H, Kv, hd, Sqp, scale, mk);
+  serr = cudaGetLastError();
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  // dQ: Q and dO in 128-row tiles, K and V in 64-row ones
+  err = attention_map(&qmap, q, B, Sq, H, hd, kWgOwn);
+  if (!err) err = attention_map(&dmap, dout, B, Sq, H, hd, kWgOwn);
+  if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, kDqKeys);
+  if (!err) err = attention_map(&vmap, v, B, Skv, Kv, hd, kDqKeys);
+  if (err) return err;
+  auto* fq = flash_bwd_dq_wgmma_kernel<HDP>;
+  serr = hopper::allow_smem(fq, Cfg::kSmemQ, ready_q);
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  fq<<<dim3(H, B, (Sq + kWgOwn - 1) / kWgOwn), kWgThreads, Cfg::kSmemQ,
+       stream>>>(qmap, dmap, kmap, vmap, ld, static_cast<bf16*>(dq), H, Kv,
+                 hd, Sqp, scale, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_delta(const void* out, const void* dout, float* delta, int B,
-                 int Sq, int H, int hd, cudaStream_t stream) {
-  const int rows = B * Sq * H;
-  flash_bwd_delta_kernel<T><<<(rows + kDeltaRows - 1) / kDeltaRows,
-                              32 * kDeltaRows, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows,
-      Sq, H, hd);
+template <typename T, int PACK>
+int launch_delta(const void* out, const void* dout, const float* lse,
+                 float* delta, int B, int Sq, int Sqp, int H, int hd,
+                 cudaStream_t stream) {
+  const int rows = B * Sqp * H;  // Sqp == Sq unless PACK
+  flash_bwd_delta_kernel<T, PACK><<<(rows + kDeltaRows - 1) / kDeltaRows,
+                                    32 * kDeltaRows, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), lse, delta,
+      rows, Sq, Sqp, H, hd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -820,54 +1040,42 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
 #undef REPRO_BWD
 }
 
-int dispatch_bwd_tc(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-                    int H, int Kv, int hd, const Masks& mk,
-                    cudaStream_t stream) {
-#define REPRO_BWD_TC(NT)                                                   \
-  case 8 * NT:                                                             \
-    return launch_bwd_tc<NT>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, \
-                             Skv, H, Kv, hd, mk, stream)
-  switch (hd) {  // one instantiation per head dim: hd == 8 NT exactly
-    REPRO_BWD_TC(2);
-    REPRO_BWD_TC(4);
-    REPRO_BWD_TC(6);
-    REPRO_BWD_TC(8);
-    REPRO_BWD_TC(10);
-    REPRO_BWD_TC(12);
-    REPRO_BWD_TC(14);
-    REPRO_BWD_TC(16);
-  }
-#undef REPRO_BWD_TC
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 }  // namespace repro_torch
 
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v, out, dout, dq, dk, dv; lse
-// and the delta scratch (B, H, Sq) are fp32.  hd a multiple of 16 up to 256.
-// tc: 1 runs dK/dV and dQ on the tensor cores (bf16 and hd <= 128 only),
-// 0 on the FFMA kernels.
+// (B, H, Sq) is fp32.  hd a multiple of 16 up to 256.  variant: 0 "ffma",
+// 1 "tc" (the wgmma pair, bf16 with hd <= 128 only).  delta is fp32
+// scratch: (B, H, Sq) for "ffma", (B, H, 2, Sqp) for "tc", Sqp = Sq rounded
+// up to a multiple of 64, 16-byte aligned.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int dtype, int B, int Sq, int Skv, int H, int Kv, int hd,
-    int causal, int window, int chunk, int tc, void* stream) {
+    int causal, int window, int chunk, int variant, void* stream) {
   using repro_torch::Masks;
   auto s = static_cast<cudaStream_t>(stream);
-  if (tc && (dtype != 1 || hd > 128))
+  if (variant < 0 || variant > 1 || (variant && (dtype != 1 || hd > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Masks mk{Sq, Skv, causal, window, chunk};
-  int err = dtype == 0 ? repro_torch::launch_delta<float>(out, dout, delta, B,
-                                                          Sq, H, hd, s)
-                       : repro_torch::launch_delta<__nv_bfloat16>(
-                             out, dout, delta, B, Sq, H, hd, s);
+  if (variant == 1) {
+    const int Sqp = (Sq + 63) / 64 * 64;
+    int err = repro_torch::launch_delta<__nv_bfloat16, 1>(
+        out, dout, lse, delta, B, Sq, Sqp, H, hd, s);
+    if (err) return err;
+    if (hd <= 64)
+      return repro_torch::launch_bwd_wgmma<64>(q, k, v, dout, delta, dq, dk,
+                                               dv, B, Sq, Skv, H, Kv, hd, Sqp,
+                                               mk, s);
+    return repro_torch::launch_bwd_wgmma<128>(q, k, v, dout, delta, dq, dk, dv,
+                                              B, Sq, Skv, H, Kv, hd, Sqp, mk,
+                                              s);
+  }
+  int err = dtype == 0 ? repro_torch::launch_delta<float, 0>(
+                             out, dout, lse, delta, B, Sq, Sq, H, hd, s)
+                       : repro_torch::launch_delta<__nv_bfloat16, 0>(
+                             out, dout, lse, delta, B, Sq, Sq, H, hd, s);
   if (err) return err;
-  if (tc)
-    return repro_torch::dispatch_bwd_tc(q, k, v, dout, lse, delta, dq, dk, dv,
-                                        B, Sq, Skv, H, Kv, hd, mk, s);
   if (dtype == 0)
     return repro_torch::dispatch_bwd<float>(q, k, v, dout, lse, delta, dq, dk,
                                             dv, B, Sq, Skv, H, Kv, hd, mk, s);

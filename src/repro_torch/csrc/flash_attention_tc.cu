@@ -342,26 +342,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// a (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B), boxes of
-// 64 elements x 1 head x `rows` positions
-int attention_map(CUtensorMap* map, const void* base, int B, int S,
-                  int heads, int hd, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = 2ull * hd;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return hopper::bf16_map(map, base, 4, dims, strides, box);
-}
-
 template <int HDP, int BKEYS, bool LSE>
 int launch_flash_tc(const void* q, const void* k, const void* v, void* out,
                     float* lse, int B, int Sq, int Skv, int H, int Kv, int hd,
                     int causal, int window, int chunk, cudaStream_t stream) {
   using Cfg = TcFlash<HDP, BKEYS>;
   static std::atomic<size_t> ready[hopper::kMaxDevices];
+  using hopper::attention_map;
   CUtensorMap qmap, kmap, vmap;
   int err = attention_map(&qmap, q, B, Sq, H, hd, kBQ);
   if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, BKEYS);

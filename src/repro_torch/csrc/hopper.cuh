@@ -1,10 +1,10 @@
 // Hopper building blocks of the tensor-core kernels (moe_gmm_tc_kernel in
-// moe_gmm.cu, flash_attention_tc_kernel in flash_attention_tc.cu):
-// mbarriers, TMA tile loads, named barriers, wgmma shared-memory
-// descriptors, the wgmma instructions themselves, setmaxnreg, and the
-// host-side encoding of TMA tensor maps; the cp.async, ldmatrix and
-// warp-level mma.sync of the kernels with small tiles (tiled_topk.cuh,
-// decode_attention_tc.cu); plus the shared-memory limit
+// moe_gmm.cu, flash_attention_tc_kernel in flash_attention_tc.cu, the wgmma
+// pair of flash_attention_bwd.cu): mbarriers, TMA tile and bulk loads, named
+// barriers, wgmma shared-memory descriptors, the wgmma instructions
+// themselves, setmaxnreg, and the host-side encoding of TMA tensor maps; the
+// cp.async, ldmatrix and warp-level mma.sync of the kernels with small tiles
+// (tiled_topk.cuh, decode_attention_tc.cu); plus the shared-memory limit
 // helper of every kernel with large tiles.  Everything here is sm_90a PTX
 // written inline; nothing comes from a library of finished kernels.
 //
@@ -105,6 +105,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+// `bytes` contiguous bytes global -> shared, no tensor map: both addresses
+// 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -481,6 +491,20 @@ inline int bf16_map(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// a (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B), boxes of
+// 64 elements x 1 head x `rows` positions (the attention kernels' tiles)
+inline int attention_map(CUtensorMap* map, const void* base, int B, int S,
+                         int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 2ull * hd;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return bf16_map(map, base, 4, dims, strides, box);
 }
 
 // -- cp.async, ldmatrix and mma.sync (tiled_topk.cuh,

@@ -20,9 +20,11 @@ Training launches each variant's lse twin (a template flag of the same
 kernel, so the serving variant is untouched), which also writes lse (B, H,
 Sq) in fp32, and the backward ``csrc/flash_attention_bwd.cu`` (``launch_bwd``):
 a delta kernel, then a dK/dV kernel over KV tiles and a dQ kernel over query
-tiles, deterministic (no atomics).  Its variants (``route_bwd``): ``"tc"``,
-bf16 with head_dim <= 128, on mma.sync (its accumulators live in
-registers); ``"ffma"``, fp32 and wider bf16 heads, on the CUDA cores.
+tiles, deterministic (no atomics).  Its variants (``route_bwd``):
+``"tc"``, bf16 with head_dim <= 128, the pair on wgmma fed by TMA (the
+forward's shape; its delta kernel also packs lse * log2(e) and delta into
+one scratch padded to 64 rows, so that both load by bulk copy); ``"ffma"``,
+fp32 and wider bf16 heads, on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -102,7 +104,9 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"takes bf16 with head_dim <= 128, got {q.dtype}, "
                          f"{hd}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # "tc": lse * log2(e) and delta side by side, rows padded to 64
+    shape = (B, H, 2, -(-Sq // 64) * 64) if variant == "tc" else (B, H, Sq)
+    delta = torch.empty(shape, dtype=torch.float32, device=q.device)
     lib = kernel_library().lib
     with on_device(q.device):
         err = lib.flash_attention_bwd_launch(

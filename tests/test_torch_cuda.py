@@ -1035,8 +1035,8 @@ def _flash_bwd_case(dtype, B, Sq, Skv, H, Kv, hd, masks, seed):
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 2, 7])
 def test_flash_backward_kernel_matches_plain(dtype, hd, G):
-    """Causal, ragged S (not a multiple of the 32- or 64-row tiles), GQA
-    groups of 1, 2 and 7 summed in the dK/dV block."""
+    """Causal, ragged S (not a multiple of any variant's tiles), GQA groups
+    of 1, 2 and 7 summed in the dK/dV block; bf16 at hd 256 takes FFMA."""
     _flash_bwd_case(dtype, 2, 150, 150, 2 * G, 2, hd, _CAUSAL, seed=hd + G)
 
 
@@ -1057,18 +1057,31 @@ def test_flash_backward_kernel_masks(dtype, Sq, Skv, masks):
 
 
 @pytest.mark.cuda
-def test_flash_backward_rows_that_see_nothing_get_zero_gradients():
+def test_flash_backward_long_ragged_sequence():
+    """S 1000: eight 128-key tiles and sixteen 64-query tiles (the wgmma
+    pair's), the last of each partial, causal, G 2, hd 128."""
+    _flash_bwd_case(torch.bfloat16, 1, 1000, 1000, 4, 2, 128, _CAUSAL,
+                    seed=1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "ffma"),
+                                           (torch.bfloat16, "tc")])
+def test_flash_backward_rows_that_see_nothing_get_zero_gradients(dtype,
+                                                                 variant):
     """chunk 16 with Sq 48 > Skv 24: query rows 32-47 are in a chunk that has
     no key; their output, dq and every contribution are 0, not NaN."""
     q, k, v, out, lse, dout = _flash_bwd_case(
-        torch.float32, 1, 48, 24, 2, 1, 32,
+        dtype, 1, 48, 24, 2, 1, 32,
         dict(causal=True, window=0, chunk_attn=16), seed=5)
     from repro_torch.kernels.flash_attention import kernel
 
-    dq, dk, dv = kernel.launch_bwd(q, k, v, out, lse, dout, "ffma",
+    dq, dk, dv = kernel.launch_bwd(q, k, v, out, lse, dout, variant,
                                    causal=True, window=0, chunk_attn=16)
     assert (out[:, 32:] == 0).all() and (dq[:, 32:] == 0).all()
     assert (lse[:, :, 32:] == NEG_INF).all()
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g.float()).all()
 
 
 @pytest.mark.cuda
@@ -1092,7 +1105,7 @@ def test_flash_backward_is_deterministic(dtype, variant):
 
 @pytest.mark.cuda
 def test_flash_backward_routes_follow_dtype_and_width():
-    """bf16 up to hd 128 takes the tensor cores, fp32 and bf16 at hd 192 or
+    """bf16 up to hd 128 takes the wgmma pair, fp32 and bf16 at hd 192 or
     256 the FFMA kernels; the tensor-core variant refuses the rest."""
     from repro_torch.kernels.flash_attention import kernel
 

@@ -5,7 +5,9 @@ Both are plain functions of dtype and shape, so they run on the CPU:
 
 * ``moe_gmm``: bf16 with D and F multiples of 8 (TMA's 16-byte global
   strides) goes to the wgmma kernel, everything else to the FFMA kernel.
-* ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one.
+* ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one;
+  its backward: bf16 up to head_dim 128 to the wgmma pair (``"tc"``), the
+  rest to the FFMA kernels (``"ffma"``); no other name is a variant.
 * ``decode_attention``: bf16 with G = H / Kv <= 16 goes to the mma.sync
   kernel, everything else (fp32) to the FFMA kernel; ``tc_splits`` cuts W
   into whole tiles within one wave of blocks.
@@ -46,6 +48,38 @@ def test_moe_gmm_route(dtype, D, F, want):
 ])
 def test_flash_attention_route(dtype, hd, want):
     assert flash_kernel.route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype", [bf16, f32])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112, 128, 192, 256])
+def test_flash_backward_route(dtype, hd):
+    want = "tc" if dtype == bf16 and hd <= 128 else "ffma"
+    assert flash_kernel.route_bwd(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [(bf16, 192), (bf16, 256), (f32, 128),
+                                      (f32, 64)])
+def test_flash_backward_tensor_core_variant_refuses_before_launch(dtype, hd):
+    """The wgmma pair takes bf16 with head_dim <= 128 only: asked for
+    anything else it raises before anything is built or launched."""
+    q = torch.zeros((1, 8, 2, hd), dtype=dtype)
+    k = torch.zeros((1, 8, 1, hd), dtype=dtype)
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        flash_kernel.launch_bwd(q, k, k, q, lse, q, "tc", causal=True,
+                                window=0, chunk_attn=0)
+
+
+@pytest.mark.parametrize("variant", ["mma", "wgmma", "TC", ""])
+def test_flash_backward_refuses_unknown_variant(variant):
+    """Only ``"tc"`` and ``"ffma"`` are backward variants: any other name
+    raises before anything is built or launched, on inputs ``"tc"`` takes."""
+    q = torch.zeros((1, 8, 2, 128), dtype=bf16)
+    k = torch.zeros((1, 8, 1, 128), dtype=bf16)
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="unknown variant"):
+        flash_kernel.launch_bwd(q, k, k, q, lse, q, variant, causal=True,
+                                window=0, chunk_attn=0)
 
 
 @pytest.mark.parametrize("dtype,G,hd,want", [
