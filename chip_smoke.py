@@ -5,9 +5,9 @@
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
 paths (online path selection, the serving runtime around it, six served
-language models, and training InternLM2-1.8B) through the entry points a
-user calls, and holds every kernel against its plain torch version on the
-card.  Phases, one JSON
+language models, and training InternLM2-1.8B, Llama-4-Scout and
+RecurrentGemma-2B) through the entry points a user calls, and holds every
+kernel against its plain torch version on the card.  Phases, one JSON
 line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit) and the kernel
@@ -111,16 +111,30 @@ line each:
    shapes (a bf16 bound, bit-equal repeats, lse within 1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
    from a checkpoint against an uninterrupted run.
-13. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+13. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
+   trained through ``launch.steps.build_train_step`` with the uncut model's
+   Adafactor and 4 microbatches (``train_moe_phase``): B 4 x S 4096, 3
+   steps; exact per-step moe_gmm forward and backward and flash launches,
+   all tensor-core; moe_gmm's backward against its plain version
+   (``gmm_bwd_kernels``), an fp32 1-layer twin's loss and grads against the
+   plain moe_gmm and attention, and two loss-and-grad passes bit-equal.
+14. ``train_hybrid``: RecurrentGemma-2B uncut trained through
+   ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
+   microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
+   backward and flash launches (the backward on FFMA at hd 256); the scan's
+   backward bit-equal to its plain version (``scan_bwd_kernels``), an fp32
+   3-layer twin, and restart from a checkpoint.
+15. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-14. ``split``: the split-inference draft's ``DraftState.attend`` through the
+16. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
 kernel's launches on the served and trained runs, by variant where it has
 two: retrieval_topk's are summed over phases 3-6, flash_attention's
-training forwards are its ``lse_tc`` variant), and
+training forwards are its ``lse_tc`` variant; the three backwards stand as
+``*_bwd`` entries), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -152,8 +166,15 @@ ROW_MAX_D = 1024  # widths the warp-per-row kernels are timed at (they refuse
 # above about 1600: their corpus tile must fit shared memory)
 
 
+T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``:
+    the per-phase seconds are the differences)."""
+    print(json.dumps({"phase": phase,
+                      "t_s": round(time.perf_counter() - T0, 1), **fields}),
+          flush=True)
 
 
 ATTN_F32_ATOL = 1e-5  # fp32 attention: one softmax summed in another order
@@ -174,6 +195,7 @@ KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "retrieval_topk_select_kernel", "dsqe_score_kernel",
                 "dsqe_score_merge_kernel", "dsqe_score_select_kernel",
                 "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel",
+                "rglru_scan_bwd_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel")
@@ -330,7 +352,10 @@ def ptxas_report(log: str) -> list[dict]:
             args = ["bf16"] if "bfloat16" in mangled else (
                 ["f32"] if name + "If" in mangled else [])
             args += re.findall(r"Li(\d+)E", mangled)  # int template args
-            args += ["lse"] * ("Lb1E" in mangled)  # the training twin
+            if name.startswith("flash"):
+                args += ["lse"] * ("Lb1E" in mangled)  # the training twin
+            else:  # moe_gmm_kernel's operand layouts (A MN-major, B K-major)
+                args += re.findall(r"Lb([01])E", mangled)
             entry = f"{name}<{','.join(args)}>" if args else name
             spill = 0
             continue
@@ -889,6 +914,17 @@ def model_phase(torch, dev) -> dict:
 
 
 @contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.<name>`` is ``value`` while the block runs."""
+    orig = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+@contextlib.contextmanager
 def recorded_dispatch(blocks):
     """Record every MoE layer's dispatch inside the block as (router probs,
     slot table, capacity), on the device (no host sync per layer)."""
@@ -900,11 +936,8 @@ def recorded_dispatch(blocks):
         seen.append((probs, out[2], capacity))
         return out
 
-    blocks.moe_dispatch_indices = recording
-    try:
+    with patched(blocks, "moe_dispatch_indices", recording):
         yield seen
-    finally:
-        blocks.moe_dispatch_indices = plain
 
 
 def moe_twin(torch, cfg, params, prompts, steps, watch) -> dict:
@@ -1337,9 +1370,17 @@ LSE_ATOL = 1e-5  # the lse forward against its plain version
 F32_GRAD_REL = 1e-4  # fp32 twin grads: within 1e-4 of each leaf's max |g|
 F32_LOSS_REL = 1e-5
 RESTART_ATOL = 1e-4  # tests/test_fault_tolerance.py::test_train_restart_determinism
+# Llama-4-Scout trained at full width cut to 2 of 48 layers: 6.47 B params,
+# bf16 weights and grads and the fp32 grad accumulator (52 GB), beside one
+# 1 x 4096 microbatch under per-unit remat
+SCOUT_TRAIN_LAYERS = 2
+SCOUT_TRAIN_B, SCOUT_TRAIN_S = 4, 4096  # in the uncut model's 4 microbatches
+MOE_TWIN_LAYERS = 1  # Scout's fp32 twin at full width (4.27 B params)
+HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_MB = 2, 4096, 2  # past the window
+HYBRID_TWIN_LAYERS = 3  # one (rglru, rglru, attn) pattern: twin and restart
+MOE_HYBRID_STEPS = 3  # optimizer steps of the Scout and RecurrentGemma runs
 
 
-@contextlib.contextmanager
 def cut_layers(n: int):
     """``repro_torch.configs.get_config`` hands out its configs cut to ``n``
     layers while the block runs (``launch.train.train`` takes an arch
@@ -1347,11 +1388,8 @@ def cut_layers(n: int):
     import repro_torch.configs as configs
 
     orig = configs.get_config
-    configs.get_config = lambda name: orig(name).with_overrides(num_layers=n)
-    try:
-        yield
-    finally:
-        configs.get_config = orig
+    return patched(configs, "get_config",
+                   lambda name: orig(name).with_overrides(num_layers=n))
 
 
 @contextlib.contextmanager
@@ -1371,27 +1409,285 @@ def timed_writes():
                                      for f in out.iterdir())))
         return out
 
-    Checkpointer._write = wrapper
-    try:
+    with patched(Checkpointer, "_write", wrapper):
         yield writes
-    finally:
-        Checkpointer._write = orig
 
 
-@contextlib.contextmanager
 def plain_attention():
     """The model's prefill attention through the plain version on the card
     (``flash_attention_ref``, differentiated by autograd) while the block
-    runs: the reference the fp32 twin's kernels are held against."""
+    runs: the reference the fp32 twins' kernels are held against."""
     import repro_torch.models.layers as layers
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    orig = layers.flash_attention
-    layers.flash_attention = flash_attention_ref
-    try:
+    return patched(layers, "flash_attention", flash_attention_ref)
+
+
+@contextlib.contextmanager
+def together(*contexts):
+    """Every context of ``contexts`` entered while the block runs."""
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
         yield
+
+
+def plain_moe_gmm():
+    """The MoE FFN's products through the plain version (``moe_gmm_ref``,
+    differentiated by autograd) while the block runs."""
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+    from repro_torch.models import blocks
+
+    return patched(blocks, "moe_gmm", moe_gmm_ref)
+
+
+def plain_scan():
+    """The RG-LRU recurrence through the plain loop (``rglru_scan_ref``,
+    differentiated by autograd) while the block runs."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import blocks
+
+    return patched(blocks, "rglru_scan_op", rglru_scan_ref)
+
+
+@contextlib.contextmanager
+def recorded_experts(blocks):
+    """Record the experts every router's top-k picks inside the block, call
+    by call (a unit under remat picks twice)."""
+    seen = []
+    plain = blocks._top_k
+
+    def recording(probs, k):
+        vals, idx = plain(probs, k)
+        seen.append(idx)
+        return vals, idx
+
+    with patched(blocks, "_top_k", recording):
+        yield seen
+
+
+@contextlib.contextmanager
+def replayed_experts(blocks, seen):
+    """Every router's top-k takes the experts of ``seen`` call by call, at
+    this run's probabilities; ``flips[0]`` counts the picks this run's own
+    top-k would have changed (a near-tie that rounding tipped)."""
+    plain = blocks._top_k
+    calls, flips = iter(seen), [0]
+
+    def replaying(probs, k):
+        idx = next(calls)
+        flips[0] += int((plain(probs, k)[1] != idx).sum())
+        return probs.gather(-1, idx), idx
+
+    with patched(blocks, "_top_k", replaying):
+        yield flips
+
+
+# every launch counter a train step may move, by op
+TRAIN_COUNTERS = {
+    "flash_attention": ("launches", "launches_tc", "launches_ffma",
+                        "launches_lse", "launches_lse_tc", "launches_lse_ffma",
+                        "launches_bwd", "launches_bwd_tc",
+                        "launches_bwd_ffma"),
+    "moe_gmm": ("launches", "launches_tc", "launches_ffma", "launches_bwd",
+                "launches_bwd_tc", "launches_bwd_ffma"),
+    "rglru_scan_op": ("launches", "launches_bwd"),
+    "decode_attention": ("launches",),
+}
+
+
+def train_ops() -> dict:
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+
+    return {"flash_attention": flash_attention, "moe_gmm": moe_gmm,
+            "rglru_scan_op": rglru_scan_op,
+            "decode_attention": decode_attention}
+
+
+def read_counts(ops) -> dict:
+    """Every train counter as ``"<op>.<counter>"``."""
+    return {f"{op}.{c}": getattr(ops[op], c)
+            for op, cs in TRAIN_COUNTERS.items() for c in cs}
+
+
+def want_counts(moved: dict) -> dict:
+    """Every train counter: ``moved``'s values, 0 for the rest."""
+    want = {f"{op}.{c}": 0 for op, cs in TRAIN_COUNTERS.items() for c in cs}
+    unknown = set(moved) - set(want)
+    if unknown:
+        raise KeyError(f"not train counters: {sorted(unknown)}")
+    want.update(moved)
+    return want
+
+
+class StepWatch:
+    """The ``on_step`` of a driven train run: every train counter is set to
+    0 at ``start()``, and each step's launches (the counters after the step
+    minus before) and metrics are kept; step ``profiled`` runs under the
+    profiler (device kernels only)."""
+
+    def __init__(self, torch, profiled: int):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch, self.profiled, self.ops = torch, profiled, train_ops()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.steps, self.per_step = [], []
+
+    def start(self) -> None:
+        for op, cs in TRAIN_COUNTERS.items():
+            for c in cs:
+                setattr(self.ops[op], c, 0)
+        self.last = read_counts(self.ops)
+
+    def __call__(self, i: int, metrics: dict) -> None:
+        self.torch.cuda.synchronize()
+        now = read_counts(self.ops)
+        self.per_step.append({k: now[k] - self.last[k] for k in now})
+        self.last = now
+        self.steps.append(dict(step=i, **metrics))
+        if i == self.profiled - 1:
+            self.prof.start()
+        elif i == self.profiled:
+            self.prof.stop()
+
+    def check(self, what: str, want: dict) -> dict:
+        """Every step launched exactly ``want`` and has a finite loss and
+        grad norm; the launches summed over the run."""
+        moved = lambda counts: {k: v for k, v in counts.items() if v}
+        for i, got in enumerate(self.per_step):
+            if got != want:
+                raise AssertionError(f"{what} step {i} launched "
+                                     f"{moved(got)}, want {moved(want)}")
+        for s in self.steps:
+            loss, norm = s["loss"], s["grad_norm"]
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                raise AssertionError(f"{what} step {s['step']}: loss {loss}, "
+                                     f"grad norm {norm}")
+        return {k: sum(p[k] for p in self.per_step) for k in want}
+
+    def profiled_fields(self, role) -> dict:
+        """The profiled step's wall and device busy time, its eight largest
+        kernels, and [ms, calls] of the kernels ``role(name)`` names."""
+        from torch.autograd import DeviceType
+
+        events = [e for e in self.prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        events.sort(key=lambda e: -e.self_device_time_total)
+        split = {}
+        for e in events:
+            r = role(e.key)
+            if r is not None:
+                ms_calls = split.setdefault(r, [0.0, 0])
+                ms_calls[0] += e.self_device_time_total / 1e3
+                ms_calls[1] += e.count
+        step_ms = 1e3 * self.steps[self.profiled]["step_s"]
+        out = dict(profiled_step_ms=step_ms, profiled_device_busy_ms=busy_ms,
+                   profiled_device_idle_share=1.0 - busy_ms / step_ms,
+                   profiled_top_kernels=[
+                       [e.key[:100], e.self_device_time_total / 1e3, e.count]
+                       for e in events[:8]],
+                   profiled_ms_calls=split)
+        del self.prof
+        return out
+
+    def step_fields(self, timed: tuple) -> dict:
+        """Step wall ms (the mean of the ``timed`` steps, and every step's),
+        losses and grad norms."""
+        ms = [1e3 * s["step_s"] for s in self.steps]
+        return dict(step_ms=statistics.mean(ms[i] for i in timed),
+                    timed_steps=list(timed), step_ms_by_step=ms,
+                    losses=[s["loss"] for s in self.steps],
+                    grad_norms=[s["grad_norm"] for s in self.steps])
+
+
+def loss_and_grads(torch, cfg, params, batch):
+    """``lm.train_loss`` and the gradient of every leaf, as
+    ``build_train_step`` takes them."""
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = lm.train_loss(leaves, cfg, batch)
+    return (float(loss.detach()),
+            torch.autograd.grad(loss, tree_leaves(leaves)))
+
+
+def fp32_twin(torch, dev, cfg, seed, want, plain) -> dict:
+    """An fp32 twin at full width: ``lm.train_loss`` and every grad leaf of
+    ``cfg`` at B 1 x S 1024, seeded weights and tokens, through the kernels
+    (their launches exactly ``want``) against the same with the plain
+    versions that ``plain()`` patches in, on the card: loss within
+    F32_LOSS_REL, each leaf within F32_GRAD_REL of its max |g|.  The plain
+    run takes the kernel run's experts (``replayed_experts``: in an MoE
+    model a router near-tie may tip between the two runs), and the picks
+    that its own router would have changed are logged."""
+    from repro_torch.models import blocks
+
+    params, tokens, _ = init_model(torch, dev, cfg, 1, 1025, seed=seed)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    ops = train_ops()
+    before = read_counts(ops)
+    with recorded_experts(blocks) as seen:
+        loss, grads = loss_and_grads(torch, cfg, params, batch)
+    torch.cuda.synchronize()
+    after = read_counts(ops)
+    launches = {k: after[k] - before[k] for k in after}
+    if launches != want_counts(want):
+        raise AssertionError(f"{cfg.name} fp32 twin launched "
+                             f"{({k: v for k, v in launches.items() if v})}, "
+                             f"want {want}")
+    with plain(), replayed_experts(blocks, seen) as flips:
+        ref_loss, ref_grads = loss_and_grads(torch, cfg, params, batch)
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    worst = max(float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                for g, r in zip(grads, ref_grads))
+    if not (loss_rel <= F32_LOSS_REL and worst <= F32_GRAD_REL):
+        raise AssertionError(f"{cfg.name} fp32 twin: loss rel {loss_rel}, "
+                             f"worst grad leaf {worst}")
+    del params, grads, ref_grads
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, batch=1, seq=1024, loss=loss,
+                plain_loss=ref_loss, loss_rel=loss_rel,
+                worst_grad_leaf_rel=worst, launches=want,
+                replayed_expert_flips=flips[0])
+
+
+def restart_check(torch, arch: str, layers: int) -> dict:
+    """Restart: ``arch`` at full width cut to ``layers`` layers, B 2 x S
+    1024, 4 steps uninterrupted against 2 steps with a checkpoint at step 2
+    resumed by a fresh ``launch.train.train`` call: final losses within
+    RESTART_ATOL (bit equality logged), the checkpoints in a directory
+    under ``build/`` that is removed."""
+    import shutil
+
+    from repro_torch.launch.train import train
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(reduced=False, batch=2, seq=1024, log_every=100,
+              device="cuda", ckpt_every=2)
+    try:
+        with cut_layers(layers), timed_writes() as writes:
+            full = train(arch, steps=4, **kw)
+            train(arch, steps=2, ckpt_dir=str(ckpt_dir), **kw)
+            resumed = train(arch, steps=4, ckpt_dir=str(ckpt_dir), **kw)
     finally:
-        layers.flash_attention = orig
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    diff = abs(full[-1] - resumed[-1])
+    if not (len(resumed) == 2 and diff <= RESTART_ATOL):
+        raise AssertionError(f"{arch} restart: resumed losses {resumed}, "
+                             f"uninterrupted {full}")
+    torch.cuda.empty_cache()
+    return dict(layers=layers, batch=2, seq=1024, steps=4, checkpoint_step=2,
+                uninterrupted=full, resumed=resumed, final_loss_diff=diff,
+                bit_equal=full[-1] == resumed[-1], checkpoint_writes=writes,
+                bytes_written=sum(w["bytes"] for w in writes))
 
 
 def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
@@ -1491,170 +1787,57 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
     return rows["train"]
 
 
-def twin_grads(torch, dev) -> dict:
-    """The fp32 twin: InternLM2 at full width cut to 2 layers, fp32, B 1 x S
-    1024, seeded weights and tokens.  ``lm.train_loss`` and every grad leaf
-    with the kernels (the lse forward twice per layer under remat, the
-    backward once) against the same with the plain attention on the card:
-    loss within F32_LOSS_REL, each leaf within F32_GRAD_REL of its max |g|."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models import lm
-    from repro_torch.optim.optimizers import tree_leaves, tree_map
-
-    cfg = get_config("internlm2-1.8b").with_overrides(
-        num_layers=TWIN_TRAIN_LAYERS, dtype="float32")
-    params, tokens, _ = init_model(torch, dev, cfg, 1, 1025, seed=11)
-    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-
-    def loss_and_grads():
-        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss, _ = lm.train_loss(leaves, cfg, batch)
-        return (float(loss.detach()),
-                torch.autograd.grad(loss, tree_leaves(leaves)))
-
-    lse0 = flash_attention.launches_lse_ffma
-    bwd0 = flash_attention.launches_bwd_ffma
-    loss, grads = loss_and_grads()
-    launches = {"lse_ffma": flash_attention.launches_lse_ffma - lse0,
-                "bwd_ffma": flash_attention.launches_bwd_ffma - bwd0}
-    want = {"lse_ffma": 2 * TWIN_TRAIN_LAYERS, "bwd_ffma": TWIN_TRAIN_LAYERS}
-    if launches != want:
-        raise AssertionError(f"fp32 twin launched {launches}, want {want}")
-    with plain_attention():
-        ref_loss, ref_grads = loss_and_grads()
-    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-    worst = max(float((g - r).abs().max() / r.abs().max())
-                for g, r in zip(grads, ref_grads))
-    if not (loss_rel <= F32_LOSS_REL and worst <= F32_GRAD_REL):
-        raise AssertionError(f"fp32 twin: loss rel {loss_rel}, worst grad "
-                             f"leaf {worst}")
-    del params, grads, ref_grads
-    torch.cuda.empty_cache()
-    return dict(layers=TWIN_TRAIN_LAYERS, batch=1, seq=1024, loss=loss,
-                plain_loss=ref_loss, loss_rel=loss_rel,
-                worst_grad_leaf_rel=worst, launches=launches)
-
-
 def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     """InternLM2-1.8B trained at full width in bf16 through
     ``launch.train.train`` (``build_train_step`` -> ``lm.train_loss``):
     B 4 x S 4096 in 2 microbatches, 4 AdamW steps on warmup_cosine(3e-4,
     2000, 100 000), seed 0.  The counters are set to 0 just before the run
-    and read just after: per optimizer step 24 layers x 2 microbatches x 2
-    (remat) lse-twin flash forwards and 24 x 2 backward launches, all on
-    the tensor-core variants; no serving flash and no decode launch.  Every
-    loss and grad norm finite.  The third step runs under the profiler
-    (device kernels only; the backward's delta, dK/dV and dQ kernels
-    summed apart).  Beside it: the backward kernel's rows
-    (``flash_bwd_kernels``), the fp32 twin (``twin_grads``), and restart:
-    the 2-layer cut, B 2 x S 1024, 4 steps uninterrupted against 2 steps
-    with a checkpoint at step 2 resumed by a fresh ``train`` call, final
-    losses within RESTART_ATOL (bit equality logged), the checkpoints in a
-    directory under ``build/`` that the phase removes."""
-    import shutil
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    and read after each step: per optimizer step 24 layers x 2 microbatches
+    x 2 (remat) lse-twin flash forwards and 24 x 2 backward launches, all on
+    the tensor-core variants, and no other launch.  Every loss and grad norm
+    finite.  The third step runs under the profiler (device kernels only;
+    the backward's delta, dK/dV and dQ kernels summed apart).  Beside it:
+    the backward kernel's rows (``flash_bwd_kernels``), the fp32 twin (2
+    layers against the plain attention), and restart (``restart_check``, 2
+    layers)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch.train import train
 
     summary["flash_attention_bwd"] = flash_bwd_kernels(torch, dev, gen, bw,
                                                        bf16)
-    twin = twin_grads(torch, dev)
-
     cfg = get_config("internlm2-1.8b")
-    L = cfg.num_layers
-    flash_counters = ("launches", "launches_tc", "launches_ffma",
-                      "launches_lse", "launches_lse_tc", "launches_lse_ffma",
-                      "launches_bwd", "launches_bwd_tc", "launches_bwd_ffma")
+    L, n = cfg.num_layers, TWIN_TRAIN_LAYERS
+    twin = fp32_twin(
+        torch, dev, cfg.with_overrides(num_layers=n, dtype="float32"), 11,
+        {"flash_attention.launches_lse": 2 * n,
+         "flash_attention.launches_lse_ffma": 2 * n,
+         "flash_attention.launches_bwd": n,
+         "flash_attention.launches_bwd_ffma": n}, plain_attention)
 
-    def counts():
-        out = {c: getattr(flash_attention, c) for c in flash_counters}
-        out["decode_attention"] = decode_attention.launches
-        return out
-
-    steps, per_step, prof = [], [], profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    last = [None]
-
-    def on_step(i, metrics):
-        torch.cuda.synchronize()
-        now = counts()
-        per_step.append({k: now[k] - last[0][k] for k in now})
-        last[0] = now
-        steps.append(dict(step=i, **metrics))
-        if i == 1:
-            prof.start()
-        elif i == 2:
-            prof.stop()
-
+    watch = StepWatch(torch, profiled=2)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for c in flash_counters:
-        setattr(flash_attention, c, 0)
-    decode_attention.launches = 0
-    last[0] = counts()
+    watch.start()
     t0 = time.perf_counter()
-    losses = train("internlm2-1.8b", reduced=False, steps=TRAIN_STEPS,
-                   batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB,
-                   log_every=TRAIN_STEPS, device="cuda", on_step=on_step)
+    train("internlm2-1.8b", reduced=False, steps=TRAIN_STEPS, batch=TRAIN_B,
+          seq=TRAIN_S, microbatches=TRAIN_MB, log_every=TRAIN_STEPS,
+          device="cuda", on_step=watch)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    total = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"launches": 0, "launches_tc": 0, "launches_ffma": 0,
-            "launches_lse": 2 * TRAIN_MB * L,
-            "launches_lse_tc": 2 * TRAIN_MB * L,
-            "launches_lse_ffma": 0, "launches_bwd": TRAIN_MB * L,
-            "launches_bwd_tc": TRAIN_MB * L, "launches_bwd_ffma": 0,
-            "decode_attention": 0}
-    for i, got in enumerate(per_step):
-        if got != want:
-            raise AssertionError(f"train step {i} launched {got}, want {want}")
-    for s in steps:
-        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])):
-            raise AssertionError(f"train step {s['step']}: loss {s['loss']}, "
-                                 f"grad norm {s['grad_norm']}")
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    events.sort(key=lambda e: -e.self_device_time_total)
-    top = [[e.key[:100], e.self_device_time_total / 1e3, e.count]
-           for e in events[:8]]
-    # the backward's device time in the profiled step, per kernel
-    bwd_split = {k: [sum(e.self_device_time_total for e in events
-                         if k in e.key) / 1e3,
-                     sum(e.count for e in events if k in e.key)]
-                 for k in BWD_KERNELS}
-    prof_step_ms = 1e3 * steps[2]["step_s"]
-    timed = [1e3 * s["step_s"] for s in steps if s["step"] in (1, 3)]
-    step_ms = statistics.mean(timed)
-    del prof, events
+    lse, bwd = 2 * TRAIN_MB * L, TRAIN_MB * L
+    want = want_counts({
+        "flash_attention.launches_lse": lse,
+        "flash_attention.launches_lse_tc": lse,
+        "flash_attention.launches_bwd": bwd,
+        "flash_attention.launches_bwd_tc": bwd})
+    total = watch.check("train", want)
+    prof = watch.profiled_fields(
+        lambda key: next((k for k in BWD_KERNELS if k in key), None))
+    steps = watch.step_fields(timed=(1, 3))
     torch.cuda.empty_cache()
-
-    # restart: the 2-layer cut at full width, uninterrupted and resumed
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    kw = dict(reduced=False, batch=2, seq=1024, log_every=100,
-              device="cuda", ckpt_every=2)
-    try:
-        with cut_layers(TWIN_TRAIN_LAYERS), timed_writes() as writes:
-            full = train("internlm2-1.8b", steps=4, **kw)
-            train("internlm2-1.8b", steps=2, ckpt_dir=str(ckpt_dir), **kw)
-            resumed = train("internlm2-1.8b", steps=4, ckpt_dir=str(ckpt_dir),
-                            **kw)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    restart_diff = abs(full[-1] - resumed[-1])
-    if not (len(resumed) == 2 and restart_diff <= RESTART_ATOL):
-        raise AssertionError(f"restart: resumed losses {resumed}, "
-                             f"uninterrupted {full}")
-    torch.cuda.empty_cache()
+    restart = restart_check(torch, "internlm2-1.8b", TWIN_TRAIN_LAYERS)
 
     tokens = TRAIN_B * TRAIN_S
     log("train_model", arch=cfg.name, dtype=cfg.dtype, layers=L,
@@ -1662,27 +1845,408 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=cfg.param_count(),
         batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB, steps=TRAIN_STEPS,
         optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
-        run_s=run_s, step_ms=step_ms, step_ms_by_step=[
-            1e3 * s["step_s"] for s in steps],
-        tokens_per_s=tokens / (step_ms / 1e3), peak_memory_gb=peak_gb,
-        losses=losses, grad_norms=[s["grad_norm"] for s in steps],
-        launches_per_step=per_step[0], launches=total,
-        profiled_step_ms=prof_step_ms, profiled_device_busy_ms=busy_ms,
-        profiled_device_idle_share=1.0 - busy_ms / prof_step_ms,
-        profiled_top_kernels=top, profiled_backward_ms_calls=bwd_split,
-        fp32_twin=twin,
-        restart=dict(layers=TWIN_TRAIN_LAYERS, batch=2, seq=1024, steps=4,
-                     checkpoint_step=2, uninterrupted=full, resumed=resumed,
-                     final_loss_diff=restart_diff,
-                     bit_equal=full[-1] == resumed[-1],
-                     checkpoint_writes=writes,
-                     bytes_written=sum(w["bytes"] for w in writes)))
-    return ({"flash_attention": total["launches_lse"],
-             "flash_attention_bwd": total["launches_bwd"]},
-            {"flash_attention": {"lse_tc": total["launches_lse_tc"],
-                                 "lse_ffma": total["launches_lse_ffma"]},
-             "flash_attention_bwd": {"tc": total["launches_bwd_tc"],
-                                     "ffma": total["launches_bwd_ffma"]}})
+        run_s=run_s, **steps,
+        tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        peak_memory_gb=peak_gb,
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v}, **prof,
+        fp32_twin=twin, restart=restart)
+    return ({"flash_attention": total["flash_attention.launches_lse"],
+             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+            {"flash_attention": {
+                "lse_tc": total["flash_attention.launches_lse_tc"],
+                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
+             "flash_attention_bwd": {
+                 "tc": total["flash_attention.launches_bwd_tc"],
+                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+
+
+def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
+    """moe_gmm's backward (dx = dy . w^T, dw = x^T . dy) against its plain
+    version in bf16: Scout's train shapes (E 16, C 320 rows per expert at a
+    1 x 4096 microbatch and capacity factor 1.25; gate/up D 5120 -> F 8192
+    and down F -> D), a decode-sized C = 8, and a ragged shape (C, D and F
+    no multiples of 64).  bf16 element by element within 2^-7 |ref| + 1e-5
+    M (M: the same products over magnitudes; both round an fp32 sum of the
+    same exact products), the inputs widened to fp32 within F32_REL of each
+    gradient's max, two calls bit-equal, and every shape on the tensor-core
+    route (its counter must move through the autograd Function).  Times per
+    call and from a CUDA graph, the FFMA variant's on the same inputs (its
+    explicit route), the plain version's and, as library yardstick, two
+    ``torch.bmm`` calls (dx and dw).  Bound: x, w and dy read once, dx and
+    dw written once; 4 C D F FLOPs an expert.  Returns the train gate/up
+    row."""
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    D, Fd, dt = 5120, 8192, torch.bfloat16
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    rows = {}
+    for shape, E, C, K, N in (("train gate/up", 16, 320, D, Fd),
+                              ("train down", 16, 320, Fd, D),
+                              ("decode gate/up", 16, 8, D, Fd),
+                              ("ragged", 7, 77, 1000, 296)):
+        where = f"moe_gmm backward/{shape}"
+        x = randn(E, C, K).to(dt)
+        w = randn(E, K, N).mul_(1.0 / math.sqrt(K)).to(dt)
+        dy = randn(E, C, N).to(dt)
+        variant = gmm_kernel.route_bwd(dt, K, N)
+        if variant != "tc":
+            raise AssertionError(f"{where}: routed to {variant}")
+        xg, wg = (t.detach().requires_grad_(True) for t in (x, w))
+        before = moe_gmm.launches_bwd_tc
+        got = torch.autograd.grad(moe_gmm(xg, wg), (xg, wg), dy)
+        if moe_gmm.launches_bwd_tc != before + 1:
+            raise AssertionError(f"{where}: the tc count did not move")
+        again = gmm_kernel.launch_bwd(x, w, dy, variant)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{where}: two calls differ")
+        del again, xg, wg
+        ref = moe_gmm_bwd_ref(x, w, dy)
+        mag = moe_gmm_bwd_ref(x.abs().float(), w.abs().float(),
+                              dy.abs().float())
+        err, ratio = 0.0, 0.0
+        for name, g, r, m in zip(("dx", "dw"), got, ref, mag):
+            diff = (g.float() - r.float()).abs()
+            worst = float((diff / (2.0 ** -7 * r.float().abs()
+                                   + 1e-5 * m)).max())
+            if not worst <= 1.0:  # NaN fails too
+                raise AssertionError(f"{where} {name}: exceeds its bf16 limit "
+                                     f"by {worst}x")
+            err, ratio = max(err, float(diff.max())), max(ratio, worst)
+        del got, ref, mag
+        f32 = [t.float() for t in (x, w, dy)]
+        rel32 = max(float((g - r).abs().max() / r.abs().max())
+                    for g, r in zip(gmm_kernel.launch_bwd(*f32, "ffma"),
+                                    moe_gmm_bwd_ref(*f32)))
+        if not rel32 <= F32_REL:
+            raise AssertionError(f"{where}: fp32 kernel differs from the "
+                                 f"plain version by rel {rel32}")
+        del f32
+        bwd = lambda v_=variant: gmm_kernel.launch_bwd(x, w, dy, v_)
+        loops = (3, 3) if C > 8 else ()  # a train call takes ms
+        ms, dev_ms = time_ms(torch, bwd, *loops), graph_ms(torch, bwd, *loops)
+        ffma_ms = time_ms(torch, lambda: bwd("ffma"), *loops)
+        plain = time_ms(torch, lambda: moe_gmm_bwd_ref(x, w, dy), *loops)
+        wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: (torch.bmm(dy, wt),
+                                         torch.bmm(xt, dy)), *loops)
+        b_ms, b_by = bound(bw, bf16,
+                           2 * (2 * E * C * K + 2 * E * K * N + E * C * N),
+                           4 * E * C * K * N)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
+        log("kernels", kernel="moe_gmm_bwd", shape=shape, E=E, C=C, D=K, F=N,
+            dtype="bf16", variant=variant, bf16_limit_ratio=ratio,
+            fp32_rel_err=rel32, ffma_ms=ffma_ms,
+            tflops=4 * E * C * K * N / dev_ms / 1e9, bit_equal_repeat=True,
+            **row)
+        rows[shape] = row
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return rows["train gate/up"]
+
+
+def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
+    """rglru_scan's backward against its plain reverse loop at
+    RecurrentGemma-2B's train microbatch (B 1, S 4096, R 2560; fp32 decays
+    and inputs, as the model feeds them), the same in bf16, and a ragged
+    shape, with a non-zero h0: da, dx and dh0 bit-equal to the plain
+    version through the autograd Function (its counter must move), and two
+    calls bit-equal.  No PyTorch call computes it.  Bound: a, dh and h read
+    once, da and dx written once (20 bytes an element in fp32), h0 read and
+    dh0 written.  Returns the train row."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    rows = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape, B, S, R, dt in (("train", 1, 4096, 2560, f32),
+                               ("train bf16", 1, 4096, 2560, bf16),
+                               ("ragged", 3, 1001, 1000, f32)):
+        where = f"rglru_scan backward/{shape}"
+        a = torch.rand((B, S, R), generator=gen, device=dev).mul_(0.299).add_(
+            0.7).to(dt)
+        x = torch.randn((B, S, R), generator=gen, device=dev).to(dt)
+        h0 = torch.randn((B, R), generator=gen, device=dev)
+        dh = torch.randn((B, S, R), generator=gen, device=dev)
+        leaves = [t.detach().requires_grad_(True) for t in (a, x, h0)]
+        before = rglru_scan_op.launches_bwd
+        h = rglru_scan_op(*leaves)
+        got = torch.autograd.grad(h, leaves, dh)
+        if rglru_scan_op.launches_bwd != before + 1:
+            raise AssertionError(f"{where}: the count did not move")
+        h = h.detach()
+        code = KERNEL_DTYPES[dt]
+        bwd = lambda: scan_kernel.launch_bwd(a, h0, h, dh, code)
+        again = bwd()
+        ref = rglru_scan_bwd_ref(a, h0, h, dh)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, again)):
+            raise AssertionError(f"{where}: two calls differ")
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{where}: differs from the plain version "
+                                 f"by {err}")
+        del got, again, ref, leaves
+        ms, dev_ms = time_ms(torch, bwd), graph_ms(torch, bwd)
+        plain = time_ms(torch, lambda: rglru_scan_bwd_ref(a, h0, h, dh), 2, 1)
+        size = a.element_size()
+        b_ms, b_by = bound(bw, fp32, B * S * R * (3 * size + 8) + 8 * B * R,
+                           3 * B * S * R)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, graph_ms=dev_ms)
+        log("kernels", kernel="rglru_scan_bwd", shape=shape, B=B, S=S, R=R,
+            dtype=str(dt).removeprefix("torch."), bit_equal_plain=True,
+            bit_equal_repeat=True, **row)
+        rows[shape] = row
+        del a, x, h0, dh, h
+        torch.cuda.empty_cache()
+    return rows["train"]
+
+
+def gmm_role(key: str):
+    """A moe_gmm tensor-core kernel's part of a train step, from its operand
+    layouts (tnspA, tnspB): the forward (0, 1), dx (0, 0), dw (1, 1)."""
+    m = re.search(r"moe_gmm_tc_kernel<(?:\d+,\s*){3}(\d),\s*(\d)>", key)
+    return {("0", "1"): "moe_gmm forward", ("0", "0"): "moe_gmm dx",
+            ("1", "1"): "moe_gmm dw"}.get(m.groups()) if m else None
+
+
+def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
+    """Llama-4-Scout (16 experts top-1 + a shared expert, chunked attention
+    8192) trained at its published widths cut to SCOUT_TRAIN_LAYERS of 48
+    layers, bf16, seeded random weights, through
+    ``launch.steps.build_train_step`` -> ``lm.train_loss`` with the uncut
+    model's optimizer and accumulation depth (``default_optimizer`` and
+    ``default_microbatches`` of the published config: Adafactor on its
+    107.8 B parameters, 4 microbatches; ``launch.train.train`` would pick
+    AdamW and 1 from the cut config).  B 4 x S 4096 (1 x 4096 a microbatch
+    at capacity factor 1.25: C = 320 rows per expert), MOE_HYBRID_STEPS
+    steps on the token pipeline's batches, the last one profiled.  The
+    counters are set to 0 just before the run and read after each step: per
+    step 3 L M x 2 (remat) moe_gmm forwards and 3 L M backward calls, L M x
+    2 lse-twin flash forwards and L M flash backwards, all on the
+    tensor-core variants, and no other launch.  Every loss and grad norm
+    finite.  Before it: the backward kernel's rows (``gmm_bwd_kernels``),
+    the fp32 twin (MOE_TWIN_LAYERS layer against the plain moe_gmm and
+    attention), and two loss-and-grad passes over one microbatch, which
+    must be bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import (build_train_step,
+                                          default_microbatches,
+                                          default_optimizer)
+    from repro_torch.models.config import ShapeSpec
+
+    summary["moe_gmm_bwd"] = gmm_bwd_kernels(torch, dev, gen, bw, bf16)
+    published = get_config("llama4-scout-17b-a16e")
+    n = MOE_TWIN_LAYERS
+    twin = fp32_twin(
+        torch, dev, published.with_overrides(num_layers=n, dtype="float32"),
+        12, {"moe_gmm.launches": 3 * n * 2, "moe_gmm.launches_ffma": 3 * n * 2,
+             "moe_gmm.launches_bwd": 3 * n,
+             "moe_gmm.launches_bwd_ffma": 3 * n,
+             "flash_attention.launches_lse": 2 * n,
+             "flash_attention.launches_lse_ffma": 2 * n,
+             "flash_attention.launches_bwd": n,
+             "flash_attention.launches_bwd_ffma": n},
+        lambda: together(plain_moe_gmm(), plain_attention()))
+
+    cfg = published.with_overrides(num_layers=SCOUT_TRAIN_LAYERS)
+    L = cfg.num_layers
+    shape = ShapeSpec("custom", SCOUT_TRAIN_S, SCOUT_TRAIN_B, "train")
+    M = default_microbatches(published, shape)
+    opt = default_optimizer(published)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _, init_s = init_model(torch, dev, cfg, 1, 1, seed=4)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=SCOUT_TRAIN_S,
+                         global_batch=SCOUT_TRAIN_B)
+    batches = [{k: torch.from_numpy(v).long().to(dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(MOE_HYBRID_STEPS)]
+    pipe.close()
+
+    # two loss-and-grad passes over the first microbatch: bit-equal
+    mb = {k: v[:SCOUT_TRAIN_B // M] for k, v in batches[0].items()}
+    first = loss_and_grads(torch, cfg, params, mb)
+    second = loss_and_grads(torch, cfg, params, mb)
+    differ = [i for i, (a, b) in enumerate(zip(first[1], second[1]))
+              if not torch.equal(a, b)]
+    if first[0] != second[0] or differ:
+        raise AssertionError(f"train_moe: two loss-and-grad passes differ "
+                             f"(losses {first[0]}, {second[0]}; grad leaves "
+                             f"{differ})")
+    del first, second
+    torch.cuda.empty_cache()
+
+    step_fn = build_train_step(cfg, optimizer=opt, microbatches=M)
+    opt_state = opt.init(params)
+    watch = StepWatch(torch, profiled=MOE_HYBRID_STEPS - 1)
+    torch.cuda.synchronize()
+    watch.start()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        ts = time.perf_counter()
+        params, opt_state, _, metrics = step_fn(params, opt_state, i, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        watch(i, dict(metrics, step_s=time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = 3 * L * M * 2, 3 * L * M
+    want = want_counts({
+        "moe_gmm.launches": fwd, "moe_gmm.launches_tc": fwd,
+        "moe_gmm.launches_bwd": bwd, "moe_gmm.launches_bwd_tc": bwd,
+        "flash_attention.launches_lse": 2 * L * M,
+        "flash_attention.launches_lse_tc": 2 * L * M,
+        "flash_attention.launches_bwd": L * M,
+        "flash_attention.launches_bwd_tc": L * M})
+    total = watch.check("train_moe", want)
+    prof = watch.profiled_fields(
+        lambda key: gmm_role(key) or next(
+            (k for k in BWD_KERNELS if k in key), None))
+    steps = watch.step_fields(timed=(1,))
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+
+    tokens = SCOUT_TRAIN_B * SCOUT_TRAIN_S
+    log("train_moe", arch=cfg.name, dtype=cfg.dtype, layers=L,
+        layers_published=published.num_layers, d_model=cfg.d_model,
+        experts=cfg.num_experts, top_k=cfg.experts_per_token,
+        moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+        params=cfg.param_count(), params_published=published.param_count(),
+        batch=SCOUT_TRAIN_B, seq=SCOUT_TRAIN_S, microbatches=M,
+        steps=MOE_HYBRID_STEPS, optimizer=(
+            f"{opt.name} (the published config's), warmup_cosine(3e-4, 2000, "
+            "100000)"), init_s=init_s, run_s=run_s, **steps,
+        tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        peak_memory_gb=peak_gb,
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v}, **prof,
+        bit_equal_loss_and_grads=True, fp32_twin=twin)
+    return ({"moe_gmm": total["moe_gmm.launches"],
+             "moe_gmm_bwd": total["moe_gmm.launches_bwd"],
+             "flash_attention": total["flash_attention.launches_lse"],
+             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+            {"moe_gmm": {"tc": total["moe_gmm.launches_tc"],
+                         "ffma": total["moe_gmm.launches_ffma"]},
+             "moe_gmm_bwd": {"tc": total["moe_gmm.launches_bwd_tc"],
+                             "ffma": total["moe_gmm.launches_bwd_ffma"]},
+             "flash_attention": {
+                 "lse_tc": total["flash_attention.launches_lse_tc"],
+                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
+             "flash_attention_bwd": {
+                 "tc": total["flash_attention.launches_bwd_tc"],
+                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+
+
+def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
+    """RecurrentGemma-2B ((RG-LRU, RG-LRU, local attention) x 8 + 2 RG-LRU;
+    MQA, hd 256, window 2048) trained uncut in bf16 through
+    ``launch.train.train``: B 2 x S 4096 (past the window) in 2
+    microbatches, MOE_HYBRID_STEPS AdamW steps, the last one profiled.  The
+    counters are set to 0 just before the run and read after each step: per
+    step (16 x 2 + 2) M rglru_scan forwards (the 2 trailing blocks sit
+    outside the remat units) and 18 M backwards, 8 M x 2 lse-twin flash
+    forwards on the tensor cores and 8 M flash backwards on the FFMA
+    variant (hd 256), and no other launch.  Every loss and grad
+    norm finite; the profiled step's FFMA backward time is its share of the
+    step.  Beside it: the backward kernel's rows (``scan_bwd_kernels``), the
+    fp32 twin (HYBRID_TWIN_LAYERS layers against the plain scan and
+    attention) and restart (``restart_check``, HYBRID_TWIN_LAYERS
+    layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    summary["rglru_scan_bwd"] = scan_bwd_kernels(torch, dev, gen, bw, fp32)
+    cfg = get_config("recurrentgemma-2b")
+    twin_cfg = cfg.with_overrides(num_layers=HYBRID_TWIN_LAYERS,
+                                  dtype="float32")
+    r, a = (twin_cfg.layer_types.count(t) for t in ("rglru", "attn"))
+    twin = fp32_twin(
+        torch, dev, twin_cfg, 13,
+        {"rglru_scan_op.launches": 2 * r, "rglru_scan_op.launches_bwd": r,
+         "flash_attention.launches_lse": 2 * a,
+         "flash_attention.launches_lse_ffma": 2 * a,
+         "flash_attention.launches_bwd": a,
+         "flash_attention.launches_bwd_ffma": a},
+        lambda: together(plain_scan(), plain_attention()))
+
+    n_rec, n_attn = (cfg.layer_types.count(t) for t in ("rglru", "attn"))
+    # the 8 whole (rglru, rglru, attn) units run under remat (their forward
+    # twice a microbatch); the 2 trailing rglru blocks outside them, once
+    pat = cfg.block_pattern
+    unit_rec = cfg.num_layers // len(pat) * pat.count("rglru")
+    M = HYBRID_TRAIN_MB
+    watch = StepWatch(torch, profiled=MOE_HYBRID_STEPS - 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    watch.start()
+    t0 = time.perf_counter()
+    train("recurrentgemma-2b", reduced=False, steps=MOE_HYBRID_STEPS,
+          batch=HYBRID_TRAIN_B, seq=HYBRID_TRAIN_S, microbatches=M,
+          log_every=MOE_HYBRID_STEPS, device="cuda", on_step=watch)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = want_counts({
+        "rglru_scan_op.launches": (2 * unit_rec + n_rec - unit_rec) * M,
+        "rglru_scan_op.launches_bwd": n_rec * M,
+        "flash_attention.launches_lse": 2 * n_attn * M,
+        "flash_attention.launches_lse_tc": 2 * n_attn * M,
+        "flash_attention.launches_bwd": n_attn * M,
+        "flash_attention.launches_bwd_ffma": n_attn * M})
+    total = watch.check("train_hybrid", want)
+    ffma_bwd = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel")
+    prof = watch.profiled_fields(
+        lambda key: next((k for k in ffma_bwd + ("rglru_scan_bwd_kernel",
+                                                 "rglru_scan_kernel")
+                          if k in key), None))
+    flash_bwd_ms = sum(prof["profiled_ms_calls"].get(k, [0.0])[0]
+                       for k in ffma_bwd)
+    steps = watch.step_fields(timed=(1,))
+    torch.cuda.empty_cache()
+    restart = restart_check(torch, "recurrentgemma-2b", HYBRID_TWIN_LAYERS)
+
+    tokens = HYBRID_TRAIN_B * HYBRID_TRAIN_S
+    log("train_hybrid", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+        rglru_layers=n_rec, attention_layers=n_attn, d_model=cfg.d_model,
+        head_dim=cfg.head_dim, window=cfg.window_size,
+        rnn_state_dim=cfg.rnn_state_dim, params=cfg.param_count(),
+        batch=HYBRID_TRAIN_B, seq=HYBRID_TRAIN_S, microbatches=M,
+        steps=MOE_HYBRID_STEPS,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
+        run_s=run_s, **steps, tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        peak_memory_gb=peak_gb,
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v}, **prof,
+        ffma_flash_backward_ms=flash_bwd_ms,
+        ffma_flash_backward_share_of_busy=(
+            flash_bwd_ms / prof["profiled_device_busy_ms"]
+            if prof["profiled_device_busy_ms"] else None),
+        ffma_flash_backward_share_of_step=(
+            flash_bwd_ms / prof["profiled_step_ms"]),
+        fp32_twin=twin, restart=restart)
+    return ({"rglru_scan": total["rglru_scan_op.launches"],
+             "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
+             "flash_attention": total["flash_attention.launches_lse"],
+             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+            {"flash_attention": {
+                "lse_tc": total["flash_attention.launches_lse_tc"],
+                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
+             "flash_attention_bwd": {
+                 "tc": total["flash_attention.launches_bwd_tc"],
+                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
 
 
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
@@ -2446,13 +3010,17 @@ def main() -> int:
     launches["retrieval_topk"] += runtime_launches
     variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 7-13. the served models, then training: a kernel on several paths
+    # -- 7-15. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
-    # (the training forwards as "lse_tc" / "lse_ffma"); the largest model
-    # last, once every earlier phase's tensors are freed
+    # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
+    # largest model last, once every earlier phase's tensors are freed
     train = lambda torch, dev: train_phase(torch, dev, gen, bw, bf16, summary)
+    train_moe = lambda torch, dev: train_moe_phase(torch, dev, gen, bw, bf16,
+                                                   summary)
+    train_hybrid = lambda torch, dev: train_hybrid_phase(torch, dev, gen, bw,
+                                                         fp32, summary)
     for phase in (model_phase, moe_phase, hybrid_phase, xlstm_phase,
-                  encdec_phase, train, vlm_phase):
+                  encdec_phase, train, train_moe, train_hybrid, vlm_phase):
         counts, by_variant = phase(torch, dev)
         for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
@@ -2461,7 +3029,7 @@ def main() -> int:
             for v, n in by.items():
                 acc[v] = acc.get(v, 0) + n
 
-    # -- 14. split -------------------------------------------------------
+    # -- 16. split -------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 
@@ -2490,6 +3058,17 @@ def main() -> int:
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/models/layers.py:189",
          "kernels": list(BWD_KERNELS)},
+        # the backwards of #5 and #6: XLA's autodiff of the MoE einsums and
+        # of the associative scan in the reference (no pallas_call)
+        {"name": "moe_gmm_bwd", "route": "cuda",
+         "source": csrc + "moe_gmm.cu",
+         "replaces": "src/repro/models/blocks.py:331",
+         "kernels": ["moe_gmm_tc_kernel (dx: tnspB 0)",
+                     "moe_gmm_tc_kernel (dw: tnspA 1)"]},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": csrc + "rglru_scan.cu",
+         "replaces": "src/repro/models/blocks.py:431",
+         "kernels": ["rglru_scan_bwd_kernel"]},
     ]
     for entry in kernels:
         op = entry["name"]

@@ -17,7 +17,8 @@
 //     in attention): SBO = 1024 bytes from one 8-row atom to the next; LBO
 //     is unused; the k-th 16-element step starts 32 k bytes into the row.
 //   * MN-major operand (the output axis contiguous: w in moe_gmm, V in
-//     attention; wgmma's tnspB = 1): SBO = 1024 bytes from one 8-row group
+//     attention, wgmma's tnspB = 1; as A, x read as x^T in moe_gmm's
+//     backward, tnspA = 1): SBO = 1024 bytes from one 8-row group
 //     of the reduction axis to the next, LBO = the stride from one 64-wide
 //     box of the output axis to the next; the k-th 16-row step starts
 //     k x 2048 bytes in.
@@ -163,8 +164,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // D (64 x N, fp32) {=, +=} A (64 x 16) . B (16 x N), bf16 operands.  mma_ss
 // reads A and B through descriptors; mma_rs takes A from registers.  N
 // follows from the accumulator's size (N / 2 floats a thread); scale_d = 0
-// overwrites D; TB = 1 marks B as MN-major.
-template <int TB>
+// overwrites D; TB = 1 marks B as MN-major, and TA = 1 (mma_ss only) A: its
+// descriptor then names the MN-major layout above, the k-th 16-row step
+// k x 2048 bytes in.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                        int scale_d) {
   asm volatile(
@@ -174,7 +177,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
       "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
       "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
       "%30, %31 "
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -182,7 +185,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -207,7 +210,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b,
                                        int scale_d) {
   asm volatile(
@@ -220,7 +223,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b,
       "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -234,7 +237,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -268,7 +271,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
         "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[96], uint64_t a, uint64_t b,
                                        int scale_d) {
   asm volatile(
@@ -284,7 +287,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[96], uint64_t a, uint64_t b,
       "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
       "%90, %91, %92, %93, %94, %95 "
-      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -305,7 +308,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[96], uint64_t a, uint64_t b,
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -349,7 +352,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[96], const uint32_t (&a)[4],
         "n"(TB));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t a, uint64_t b,
                                        int scale_d) {
   asm volatile(
@@ -368,7 +371,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t a, uint64_t b,
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -395,7 +398,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t a, uint64_t b,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>
@@ -459,15 +462,36 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h ? reinterpret_cast<EncodeTiled>(
-                   dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+
+inline void* libcuda() {
+  static void* const h = [] {
+    void* l = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    return l ? l : dlopen("libcuda.so.1", RTLD_NOW);
   }();
+  return h;
+}
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn =
+      libcuda() ? reinterpret_cast<EncodeTiled>(
+                      dlsym(libcuda(), "cuTensorMapEncodeTiled"))
+                : nullptr;
   return fn;
+}
+
+// The encoder is a libcuda call and needs a current context.  A thread that
+// has made no runtime call yet (autograd's device thread, whose first work
+// may be a backward kernel's launcher) has none, and the encoder refuses it
+// with CUDA_ERROR_INVALID_CONTEXT: cudaFree(nullptr) binds the runtime's
+// primary context to the thread and does nothing else.
+inline void bind_context() {
+  static const CtxGetCurrent get =
+      libcuda() ? reinterpret_cast<CtxGetCurrent>(
+                      dlsym(libcuda(), "cuCtxGetCurrent"))
+                : nullptr;
+  CUcontext ctx = nullptr;
+  if (!get || get(&ctx) != CUDA_SUCCESS || !ctx) cudaFree(nullptr);
 }
 
 // Error codes of the tensor-core launchers beyond cudaError_t: the CUresult
@@ -483,6 +507,7 @@ inline int bf16_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return kNoEncoder;
+  bind_context();
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         const_cast<void*>(base), dims, strides, box, unit,

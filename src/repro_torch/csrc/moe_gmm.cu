@@ -1,55 +1,78 @@
-// Hopper kernels of the MoE FFN: the grouped expert matmul.
+// Hopper kernels of the MoE FFN: the grouped expert matmul and its backward.
 //
 // moe_gmm replaces the Pallas TPU kernel moe_gmm_kernel
 // (src/repro/kernels/moe_gmm/kernel.py:39): out[e] = x[e] @ w[e] for every
 // expert e of the dispatched (E, C, D) block, with an fp32 accumulator and the
 // output in x's dtype.  The TPU grid (E, C/bm, F/bn, D/bk) carried the
 // accumulator in VMEM scratch along its sequential D axis; here one block owns
-// one output tile of one expert and loops over D inside.
+// one output tile of one expert and loops over the reduction inside.
+//
+// The backward (the JAX package differentiates its three MoE einsums with
+// XLA, src/repro/models/blocks.py:331-337; no Pallas kernel) is two more
+// grouped products of the same kernels, for dy (E, C, F):
+//   dx[e] = dy[e] @ w[e]^T   (E, C, D), a sum over F;
+//   dw[e] = x[e]^T @ dy[e]   (E, D, F), a sum over the C rows.
+// Each output element is one thread's or one warpgroup's fp32 sum in a fixed
+// order, written once: no atomics, so equal inputs give bit-equal outputs.
+// Every kernel computes out[e] (M x N) = A[e] (M x K) . B[e] (K x N), each
+// operand read in place in one of two layouts, a template switch:
+//   A K-major (stored (M, K)): x in the forward, dy in dx;
+//   A MN-major (stored (K, M)): x, read as x^T, in dw;
+//   B MN-major (stored (K, N)): w in the forward, dy in dw;
+//   B K-major (stored (N, K)): w, read as w^T, in dx.
 //
 // What bounds it on an H100: at prefill (C = 640 rows per expert for
 // Llama-4-Scout at 8 x 1024 tokens) the product does 2 C D F FLOPs on
 // (C D + D F) inputs, ~1000 FLOP per byte in bf16, far above the tensor
 // cores' ~295 FLOP/byte ridge: bound by operations, 989 TFLOP/s.  At decode
 // (C = 8) it does 8 FLOP per weight byte: bound by the bytes of w, read once.
+// The backward at Scout's train microbatch (C = 320) does 2 x 2 C D F FLOPs
+// on x, w, dy, dx and dw: bound by operations (dw alone writes E D F bf16,
+// 1.34 GB, 0.40 ms of the 0.87 ms bound).
 //
 // Two variants, chosen by one rule on dtype and shape (kernels/moe_gmm/
-// kernel.py: route):
+// kernel.py: route, route_bwd):
 //
 // * moe_gmm_tc_kernel, bf16 with D and F multiples of 8: wgmma on the tensor
 //   cores fed by TMA.  TMA needs every global stride to be a multiple of 16
 //   bytes, which for bf16 rows of D or F elements means D % 8 == F % 8 == 0;
-//   every served shape meets it.  x is read through a 3-D tensor map
-//   (D, C, E) and w through (F, D, E), both with 128-byte swizzle (boxes 64
-//   elements wide).  Because x's map is 3-D, the rows of a 64- or 128-row box
-//   past C are out of bounds and read as zeros, never as the next expert's
-//   rows: decode (C = 8) and ragged C run without padding, and so do ragged D
-//   (zeros on both sides of the sum) and F (columns never stored).  A ring
-//   of shared-memory stages, each one x tile (BM x 64) and one w tile
-//   (64 x BN), with full and empty mbarriers; one producer thread issues the
-//   TMA loads, and NC consumer warpgroups (64 rows each) issue
-//   wgmma.mma_async m64nBNk16 from shared memory (w is MN-major: tnspB = 1),
-//   keeping one wgmma group in flight while the next stage is waited for.
-//   Prefill (C > 64): BM 128 (two consumer warpgroups), BN 256, 4 stages of
-//   48 KB; setmaxnreg gives the consumers 232 registers (the 64 x 256 fp32
-//   accumulator is 128 a thread) and the producer warpgroup 40.  Decode
-//   (C <= 64): BM 64, of which rows >= C are TMA zeros (the padded tensor-
-//   core work, ~0.09 ms at the Scout shape, stays under the 0.40 ms byte
-//   bound), BN 128, and 8 stages: 128 KB of w in flight per SM, so the
-//   kernel is a stream of the expert weights.  The epilogue rounds the fp32
-//   accumulator to bf16 in registers and stores rows < C, columns < F.
+//   every served and trained shape meets it.  Each operand is read through a
+//   3-D tensor map (row, column, expert) with 128-byte swizzle (boxes 64
+//   elements wide).  Because the maps are 3-D, rows of a box past the
+//   expert's last row are out of bounds and read as zeros, never as the next
+//   expert's rows: decode (C = 8) and ragged C run without padding, ragged K
+//   adds zeros on both sides of the sum (in dw, K = C: rows past C add
+//   nothing), and ragged M and N are never stored.  A ring of shared-memory
+//   stages, each one A tile (BM x 64 of K) and one B tile (64 of K x BN),
+//   with full and empty mbarriers; one producer thread issues the TMA loads,
+//   and NC consumer warpgroups (64 rows each) issue wgmma.mma_async
+//   m64nBNk16 from shared memory (tnspA / tnspB name each operand's
+//   layout), keeping one wgmma group in flight while the next stage is
+//   waited for.  A K-major tile is one box of BM (B: BN) rows of 64 K; an
+//   MN-major tile is BM / 64 (B: BN / 64) boxes of 64 K-rows.  Large M (the
+//   forward and dx at C > 64, dw at every D): BM 128 (two consumer
+//   warpgroups), BN 256, 4 stages of 48 KB; setmaxnreg gives the consumers
+//   232 registers (the 64 x 256 fp32 accumulator is 128 a thread) and the
+//   producer warpgroup 40.  M <= 64 (decode): BM 64, of which rows >= M are
+//   TMA zeros (the padded tensor-core work, ~0.09 ms at the Scout shape,
+//   stays under the 0.40 ms byte bound), BN 128, and 8 stages: 128 KB of B
+//   in flight per SM, so the kernel is a stream of the expert weights.  The
+//   epilogue rounds the fp32 accumulator to bf16 in registers and stores
+//   rows < M, columns < N.
 //
-// * moe_gmm_kernel, fp32 (the tests' and the Scout fp32 twin's dtype) and the
-//   bf16 shapes TMA cannot take: the first port's FFMA design, unchanged.
-//   One block owns one (BM-row, 128-column) output tile on a grid of
-//   (F tile, C tile, expert) and loops over D in steps of 32: each step
-//   stages an x tile (BM x 32) and a w tile (32 x 128) in shared memory as
-//   fp32, and every thread keeps 8 rows x 4 columns of the accumulator in
-//   registers (66.9 TFLOP/s peak on the CUDA cores).  BM follows C (8, 16,
-//   32 or 64 rows; one warp per 8 rows); ragged edges are masked by bounds.
+// * moe_gmm_kernel, fp32 (the tests' and the fp32 twins' dtype) and the
+//   bf16 shapes TMA cannot take: the first port's FFMA design.  One block
+//   owns one (BM-row, 128-column) output tile on a grid of (N tile, M tile,
+//   expert) and loops over K in steps of 32: each step stages an A tile
+//   (BM x 32) and a B tile (32 x 128) in shared memory as fp32, loading each
+//   along its contiguous axis, and every thread keeps 8 rows x 4 columns of
+//   the accumulator in registers (66.9 TFLOP/s peak on the CUDA cores).  BM
+//   follows M (8, 16, 32 or 64 rows; one warp per 8 rows); ragged edges are
+//   masked by bounds, and K = 0 (dw of C = 0 rows) writes zeros.
 //
-// Both launchers return cudaGetLastError() after the launch (0 on success);
-// moe_gmm_tc_launch may also return hopper.cuh's tensor-map error codes.
+// Every launcher returns cudaGetLastError() after its launches (0 on
+// success); the tensor-core ones may also return hopper.cuh's tensor-map
+// error codes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,21 +103,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// grid (ceil(F / 128), ceil(C / BM), E), BM / 8 warps.  Warp wr owns rows
-// c0 + 8 wr .. c0 + 8 wr + 7, lane l columns n0 + 4 l .. n0 + 4 l + 3.
-template <typename T, int BM>
+// grid (ceil(N / 128), ceil(M / BM), E), BM / 8 warps.  Warp wr owns rows
+// m0 + 8 wr .. m0 + 8 wr + 7, lane l columns n0 + 4 l .. n0 + 4 l + 3.
+// A_MN: A is stored (K, M) (else (M, K)); B_K: B is stored (N, K) (else
+// (K, N)).
+template <typename T, int BM, bool A_MN, bool B_K>
 __global__ void __launch_bounds__(BM / kRows * kWarp)
-moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int C, int D, int F) {
+moe_gmm_kernel(const T* __restrict__ a, const T* __restrict__ b,
+               T* __restrict__ out, int M, int K, int N) {
   constexpr int kThreads = BM / kRows * kWarp;
-  __shared__ float xs[BM][kBK + 1];  // row-major, padded: no bank conflicts
-  __shared__ __align__(16) float ws[kBK][kBN];
+  __shared__ float as[BM][kBK + 1];  // row-major, padded: no bank conflicts
+  // padded by 4 floats: 16-byte rows for the float4 reads, and a store
+  // along K (B_K) spreads over 8 banks
+  __shared__ __align__(16) float bs[kBK][kBN + 4];
 
-  const int n0 = blockIdx.x * kBN, c0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
   const size_t e = blockIdx.z;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const T* xe = x + e * C * D;
-  const T* we = w + e * D * F;
+  const T* ae = a + e * M * K;
+  const T* be = b + e * K * N;
 
   float acc[kRows][4];
 #pragma unroll
@@ -102,79 +129,95 @@ moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < D; k0 += kBK) {
+  for (int k0 = 0; k0 < K; k0 += kBK) {
     __syncthreads();  // the previous step's tiles are no longer read
 #pragma unroll
     for (int it = 0; it < BM * kBK / kThreads; ++it) {
       const int i = threadIdx.x + it * kThreads;
-      const int r = i / kBK, kk = i % kBK;
-      const int c = c0 + r, k = k0 + kk;
-      xs[r][kk] = (c < C && k < D)
-                      ? to_f(xe[static_cast<size_t>(c) * D + k]) : 0.f;
+      // neighbouring threads on neighbouring addresses of A's stored rows
+      const int r = A_MN ? i % BM : i / kBK, kk = A_MN ? i / BM : i % kBK;
+      const int m = m0 + r, k = k0 + kk;
+      as[r][kk] = (m < M && k < K)
+                      ? to_f(ae[A_MN ? static_cast<size_t>(k) * M + m
+                                     : static_cast<size_t>(m) * K + k])
+                      : 0.f;
     }
 #pragma unroll 16
     for (int it = 0; it < kBK * kBN / kThreads; ++it) {
       const int i = threadIdx.x + it * kThreads;
-      const int kk = i / kBN, n = i % kBN;
+      const int kk = B_K ? i % kBK : i / kBN, n = B_K ? i / kBK : i % kBN;
       const int k = k0 + kk, col = n0 + n;
-      ws[kk][n] = (k < D && col < F)
-                      ? to_f(we[static_cast<size_t>(k) * F + col]) : 0.f;
+      bs[kk][n] = (k < K && col < N)
+                      ? to_f(be[B_K ? static_cast<size_t>(col) * K + k
+                                    : static_cast<size_t>(k) * N + col])
+                      : 0.f;
     }
     __syncthreads();
 
 #pragma unroll 8
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][lane * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][lane * 4]);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const float a = xs[warp * kRows + i][kk];  // one address: broadcast
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+        const float av = as[warp * kRows + i][kk];  // one address: broadcast
+        acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+        acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+        acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+        acc[i][3] = fmaf(av, bv.w, acc[i][3]);
       }
     }
   }
 
-  T* oe = out + e * C * F;
+  T* oe = out + e * M * N;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int c = c0 + warp * kRows + i;
-    if (c >= C) break;
+    const int m = m0 + warp * kRows + i;
+    if (m >= M) break;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + lane * 4 + j;
-      if (col < F) oe[static_cast<size_t>(c) * F + col] = from_f<T>(acc[i][j]);
+      if (col < N) oe[static_cast<size_t>(m) * N + col] = from_f<T>(acc[i][j]);
     }
   }
 }
 
-template <typename T, int BM>
-int launch_gmm(const void* x, const void* w, void* out, int E, int C, int D,
-               int F, cudaStream_t stream) {
-  const dim3 grid((F + kBN - 1) / kBN, (C + BM - 1) / BM, E);
-  moe_gmm_kernel<T, BM><<<grid, BM / kRows * kWarp, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      C, D, F);
+template <typename T, int BM, bool A_MN, bool B_K>
+int launch_gmm(const void* a, const void* b, void* out, int E, int M, int K,
+               int N, cudaStream_t stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, E);
+  moe_gmm_kernel<T, BM, A_MN, B_K><<<grid, BM / kRows * kWarp, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
+      M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the row tile follows C: the smallest of 8, 16, 32, 64 that covers it
-template <typename T>
-int dispatch_gmm(const void* x, const void* w, void* out, int E, int C, int D,
-                 int F, cudaStream_t stream) {
-  if (C <= 8) return launch_gmm<T, 8>(x, w, out, E, C, D, F, stream);
-  if (C <= 16) return launch_gmm<T, 16>(x, w, out, E, C, D, F, stream);
-  if (C <= 32) return launch_gmm<T, 32>(x, w, out, E, C, D, F, stream);
-  return launch_gmm<T, 64>(x, w, out, E, C, D, F, stream);
+// the row tile follows M: the smallest of 8, 16, 32, 64 that covers it
+template <typename T, bool A_MN, bool B_K>
+int dispatch_gmm(const void* a, const void* b, void* out, int E, int M, int K,
+                 int N, cudaStream_t stream) {
+  if (E == 0 || M == 0 || N == 0) return 0;  // nothing to write
+  if (M <= 8) return launch_gmm<T, 8, A_MN, B_K>(a, b, out, E, M, K, N, stream);
+  if (M <= 16)
+    return launch_gmm<T, 16, A_MN, B_K>(a, b, out, E, M, K, N, stream);
+  if (M <= 32)
+    return launch_gmm<T, 32, A_MN, B_K>(a, b, out, E, M, K, N, stream);
+  return launch_gmm<T, 64, A_MN, B_K>(a, b, out, E, M, K, N, stream);
 }
 
+// dx = dy . w^T, then dw = x^T . dy, in order on the stream
+template <typename T>
+int gmm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+            int E, int C, int D, int F, cudaStream_t stream) {
+  const int err = dispatch_gmm<T, false, true>(dy, w, dx, E, C, F, D, stream);
+  if (err) return err;
+  return dispatch_gmm<T, true, false>(x, dy, dw, E, D, C, F, stream);
+}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores: wgmma fed by a TMA ring
 // ---------------------------------------------------------------------------
 
-constexpr int kTcBK = 64;             // D per stage: one 128-byte swizzled row
+constexpr int kTcBK = 64;             // K per stage: one 128-byte swizzled row
 constexpr int kBoxBytes = 64 * 128;   // one 64 x 64 bf16 box
 
 template <int NC, int BN, int STAGES>
@@ -186,14 +229,15 @@ struct TcGmm {
   static constexpr int kSmem = STAGES * kStage + 2 * STAGES * 8 + 1024;
 };
 
-// grid (ceil(C / BM), ceil(F / BN), E): the row tiles of one column panel of
-// one expert run side by side, so the panel of w is read from device memory
-// about once.  Warpgroups 0 .. NC-1 consume, warpgroup NC produces.
-template <int NC, int BN, int STAGES>
+// grid (ceil(M / BM), ceil(N / BN), E): the row tiles of one column panel of
+// one expert run side by side, so the panel of B is read from device memory
+// about once.  Warpgroups 0 .. NC-1 consume, warpgroup NC produces.  TA = 1:
+// A is MN-major (stored (K, M)); TB = 1: B is MN-major (stored (K, N)).
+template <int NC, int BN, int STAGES, int TA, int TB>
 __global__ void __launch_bounds__(TcGmm<NC, BN, STAGES>::kThreads, 1)
-moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap wmap,
-                  __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N) {
   using Cfg = TcGmm<NC, BN, STAGES>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
@@ -204,7 +248,7 @@ moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   const int m0 = blockIdx.x * Cfg::BM, n0 = blockIdx.y * BN;
   const int e = blockIdx.z;
   const int wg = threadIdx.x / 128;
-  const int n_k = (D + kTcBK - 1) / kTcBK;
+  const int n_k = (K + kTcBK - 1) / kTcBK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -221,14 +265,26 @@ moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int i = 0; i < n_k; ++i) {
         const int s = i % STAGES, r = i / STAGES;
         if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
-        uint8_t* xs = smem + s * Cfg::kStage;
-        uint8_t* ws = xs + Cfg::kXBytes;
+        uint8_t* as = smem + s * Cfg::kStage;
+        uint8_t* bs = as + Cfg::kXBytes;
+        const int k0 = i * kTcBK;
         mbar_expect_tx(&full[s], Cfg::kStage);
-        tma_load_3d(xs, &xmap, &full[s], i * kTcBK, m0, e);
+        if constexpr (TA == 0) {
+          tma_load_3d(as, &amap, &full[s], k0, m0, e);
+        } else {
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_3d(ws + j * kBoxBytes, &wmap, &full[s], n0 + 64 * j,
-                      i * kTcBK, e);
+          for (int j = 0; j < NC; ++j)
+            tma_load_3d(as + j * kBoxBytes, &amap, &full[s], m0 + 64 * j, k0,
+                        e);
+        }
+        if constexpr (TB == 0) {
+          tma_load_3d(bs, &bmap, &full[s], k0, n0, e);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_3d(bs + j * kBoxBytes, &bmap, &full[s], n0 + 64 * j, k0,
+                        e);
+        }
       }
     }
   } else {  // consumer warpgroup wg: rows m0 + 64 wg .. m0 + 64 wg + 63
@@ -240,13 +296,18 @@ moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int i = 0; i < n_k; ++i) {
       const int s = i % STAGES;
       mbar_wait(&full[s], (i / STAGES) & 1);
-      const uint8_t* xs = smem + s * Cfg::kStage + wg * 64 * 128;
-      const uint8_t* ws = smem + s * Cfg::kStage + Cfg::kXBytes;
+      // K-major: rows 64 wg.. of one box; MN-major: box wg (the same offset)
+      const uint8_t* as = smem + s * Cfg::kStage + wg * 64 * 128;
+      const uint8_t* bs = smem + s * Cfg::kStage + Cfg::kXBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTcBK / 16; ++kk)
-        mma_ss<1>(acc, sw128_desc(xs + kk * 32, 16, 1024),
-                  sw128_desc(ws + kk * 16 * 128, kBoxBytes, 1024), 1);
+      for (int kk = 0; kk < kTcBK / 16; ++kk) {
+        const uint64_t ad = TA ? sw128_desc(as + kk * 16 * 128, kBoxBytes, 1024)
+                               : sw128_desc(as + kk * 32, 16, 1024);
+        const uint64_t bd = TB ? sw128_desc(bs + kk * 16 * 128, kBoxBytes, 1024)
+                               : sw128_desc(bs + kk * 32, 16, 1024);
+        mma_ss<TB, TA>(acc, ad, bd, 1);
+      }
       wgmma_commit();
       // the previous stage's products are done: hand its buffers back
       wgmma_wait<1>();
@@ -255,51 +316,66 @@ moe_gmm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     wgmma_wait<0>();
     fence_regs(acc);
 
-    __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * F;
+    __nv_bfloat16* oe = out + static_cast<size_t>(e) * M * N;
     const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
-      if (col >= F) continue;  // F % 8 == 0: col + 1 < F as well
+      if (col >= N) continue;  // N % 8 == 0: col + 1 < N as well
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
-        if (row < C)
+        if (row < M)
           *reinterpret_cast<__nv_bfloat162*>(
-              oe + static_cast<size_t>(row) * F + col) =
+              oe + static_cast<size_t>(row) * N + col) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
-template <int NC, int BN, int STAGES>
-int launch_gmm_tc(const void* x, const void* w, void* out, int E, int C,
-                  int D, int F, cudaStream_t stream) {
+// the 3-D tensor map of an (E, rows, cols) bf16 tensor: boxes of 64 columns
+// x box_rows rows of one expert
+inline int gmm_map(CUtensorMap* map, const void* base, int E, int rows,
+                   int cols, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {2ull * cols, 2ull * rows * cols};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return hopper::bf16_map(map, base, 3, dims, strides, box);
+}
+
+// out (E, M, N) = A . B with A stored (E, M, K) (TA = 0) or (E, K, M), B
+// stored (E, K, N) (TB = 1) or (E, N, K)
+template <int NC, int BN, int STAGES, int TA, int TB>
+int launch_gmm_tc(const void* a, const void* b, void* out, int E, int M,
+                  int K, int N, cudaStream_t stream) {
   using Cfg = TcGmm<NC, BN, STAGES>;
   static std::atomic<size_t> ready[hopper::kMaxDevices];
-  CUtensorMap xmap, wmap;
-  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(D),
-                               static_cast<cuuint64_t>(C),
-                               static_cast<cuuint64_t>(E)};
-  const cuuint64_t xstrides[2] = {2ull * D, 2ull * C * D};
-  const cuuint32_t xbox[3] = {64, Cfg::BM, 1};
-  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(F),
-                               static_cast<cuuint64_t>(D),
-                               static_cast<cuuint64_t>(E)};
-  const cuuint64_t wstrides[2] = {2ull * F, 2ull * D * F};
-  const cuuint32_t wbox[3] = {64, kTcBK, 1};
-  int err = hopper::bf16_map(&xmap, x, 3, xdims, xstrides, xbox);
+  CUtensorMap amap, bmap;
+  int err = TA ? gmm_map(&amap, a, E, K, M, 64)
+               : gmm_map(&amap, a, E, M, K, Cfg::BM);
   if (err) return err;
-  err = hopper::bf16_map(&wmap, w, 3, wdims, wstrides, wbox);
+  err = TB ? gmm_map(&bmap, b, E, K, N, 64) : gmm_map(&bmap, b, E, N, K, BN);
   if (err) return err;
-  auto* fn = moe_gmm_tc_kernel<NC, BN, STAGES>;
+  auto* fn = moe_gmm_tc_kernel<NC, BN, STAGES, TA, TB>;
   const cudaError_t serr = hopper::allow_smem(fn, Cfg::kSmem, ready);
   if (serr != cudaSuccess) return static_cast<int>(serr);
-  const dim3 grid((C + Cfg::BM - 1) / Cfg::BM, (F + BN - 1) / BN, E);
+  const dim3 grid((M + Cfg::BM - 1) / Cfg::BM, (N + BN - 1) / BN, E);
   fn<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(
-      xmap, wmap, static_cast<__nv_bfloat16*>(out), C, D, F);
+      amap, bmap, static_cast<__nv_bfloat16*>(out), M, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// decode-sized M: one 64-row warpgroup, a deep ring streaming B; larger M:
+// two warpgroups on 128 x 256 tiles
+template <int TA, int TB>
+int dispatch_gmm_tc(const void* a, const void* b, void* out, int E, int M,
+                    int K, int N, cudaStream_t stream) {
+  if (M <= 64)
+    return launch_gmm_tc<1, 128, 8, TA, TB>(a, b, out, E, M, K, N, stream);
+  return launch_gmm_tc<2, 256, 4, TA, TB>(a, b, out, E, M, K, N, stream);
 }
 
 }  // namespace
@@ -311,17 +387,39 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out,
                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro_torch::dispatch_gmm<float>(x, w, out, E, C, D, F, s);
-  return repro_torch::dispatch_gmm<__nv_bfloat16>(x, w, out, E, C, D, F, s);
+    return repro_torch::dispatch_gmm<float, false, false>(x, w, out, E, C, D,
+                                                          F, s);
+  return repro_torch::dispatch_gmm<__nv_bfloat16, false, false>(x, w, out, E,
+                                                                C, D, F, s);
 }
 
 // bf16 x, w and out; D and F multiples of 8 (the caller's route)
 extern "C" int moe_gmm_tc_launch(const void* x, const void* w, void* out,
                                  int E, int C, int D, int F, void* stream) {
+  return repro_torch::dispatch_gmm_tc<0, 1>(x, w, out, E, C, D, F,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// The backward on the CUDA cores: dx (E, C, D) and dw (E, D, F) from x
+// (E, C, D), w (E, D, F) and dy (E, C, F), all of one dtype (0 = float32,
+// 1 = bfloat16).
+extern "C" int moe_gmm_bwd_launch(const void* x, const void* w, const void* dy,
+                                  void* dx, void* dw, int dtype, int E, int C,
+                                  int D, int F, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  // decode-sized C: one 64-row warpgroup, a deep ring streaming w;
-  // prefill: two warpgroups on 128 x 256 tiles
-  if (C <= 64)
-    return repro_torch::launch_gmm_tc<1, 128, 8>(x, w, out, E, C, D, F, s);
-  return repro_torch::launch_gmm_tc<2, 256, 4>(x, w, out, E, C, D, F, s);
+  if (dtype == 0)
+    return repro_torch::gmm_bwd<float>(x, w, dy, dx, dw, E, C, D, F, s);
+  return repro_torch::gmm_bwd<__nv_bfloat16>(x, w, dy, dx, dw, E, C, D, F, s);
+}
+
+// The backward on the tensor cores: bf16, D and F multiples of 8, C >= 1
+// (the caller's route).  dx = dy . w^T reads w K-major (tnspB = 0); dw =
+// x^T . dy reads x MN-major (tnspA = 1) with K = C.
+extern "C" int moe_gmm_bwd_tc_launch(const void* x, const void* w,
+                                     const void* dy, void* dx, void* dw, int E,
+                                     int C, int D, int F, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int err = repro_torch::dispatch_gmm_tc<0, 0>(dy, w, dx, E, C, F, D, s);
+  if (err) return err;
+  return repro_torch::dispatch_gmm_tc<1, 1>(x, dy, dw, E, D, C, F, s);
 }

@@ -80,16 +80,17 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The rule for a kernel that has no backward yet: on the card, under
-    grad mode, an input that requires grad raises.  The kernel writes a
-    tensor that autograd cannot see through, so a backward pass would drop
-    every gradient below it without a word.  Called on the kernel path only
-    (CUDA tensors); the plain versions on the CPU differentiate through
-    autograd."""
+    """The rule for a kernel that has no backward (``decode_attention``,
+    ``retrieval_topk`` and ``dsqe_score``: no train path reaches them): on
+    the card, under grad mode, an input that requires grad raises.  The
+    kernel writes a tensor that autograd cannot see through, so a backward
+    pass would drop every gradient below it without a word.  Called on the
+    kernel path only (CUDA tensors); the plain versions on the CPU
+    differentiate through autograd."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP.md queue "
-            "1, item 11); call it under torch.no_grad() or on inputs that do "
+            f"{name}: the CUDA kernel has no backward (no train path "
+            "reaches it); call it under torch.no_grad() or on inputs that do "
             "not require grad")
 
 

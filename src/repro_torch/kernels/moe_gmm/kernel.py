@@ -12,13 +12,19 @@ decode) and how each variant is built.
   3-D tensor map, so rows of a tile past C are zeros, not the next expert's.
 * ``"ffma"``, everything else (fp32, and bf16 shapes TMA cannot take):
   ``moe_gmm_kernel``, the first port's fp32 FFMA design from shared memory.
+
+The backward (``launch_bwd``) launches the same two kernels on the other
+operand layouts, dx = dy . w^T and then dw = x^T . dy, by one rule
+(``route_bwd``, the forward's): ``"tc"`` reads w K-major for dx and x
+MN-major for dw (wgmma's tnspB = 0 and tnspA = 1), ``"ffma"`` loads each
+operand along its contiguous axis.  Both are deterministic (no atomics).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import KERNEL_DTYPES
+from repro_torch.kernels.common import KERNEL_DTYPES, on_device, raw_stream
 
 VARIANTS = ("tc", "ffma")
 
@@ -56,3 +62,43 @@ def launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"moe_gmm {variant} launch failed: error {err}")
     return out
+
+
+def route_bwd(dtype: torch.dtype, D: int, F: int) -> str:
+    """The backward's variant for x (E, C, D), w (E, D, F) of ``dtype``:
+    the forward's rule (both products read the same tensors through TMA)."""
+    return route(dtype, D, F)
+
+
+def launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+               variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx (E, C, D), dw (E, D, F)) in x's dtype through ``variant``; the
+    caller has validated the inputs (one dtype, contiguous, C >= 1)."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    if variant not in VARIANTS:
+        raise ValueError(f"moe_gmm backward: unknown variant {variant!r}")
+    if variant == "tc" and route_bwd(x.dtype, D, F) != "tc":
+        raise ValueError(f"moe_gmm backward: the tensor-core variant takes "
+                         f"bf16 with D, F multiples of 8, got {x.dtype}, D "
+                         f"{D}, F {F}")
+    if variant == "tc" and any(t.data_ptr() % 16 for t in (x, w, dy)):
+        raise ValueError("moe_gmm backward: the tensor-core variant reads x, "
+                         "w and dy through TMA, which needs 16-byte aligned "
+                         "bases")
+    dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
+    dw = torch.empty((E, D, F), dtype=x.dtype, device=x.device)
+    lib = kernel_library().lib
+    ptrs = (x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dw.data_ptr())
+    with on_device(x.device):
+        stream = raw_stream(x.device)
+        if variant == "tc":
+            err = lib.moe_gmm_bwd_tc_launch(*ptrs, E, C, D, F, stream)
+        else:
+            err = lib.moe_gmm_bwd_launch(*ptrs, KERNEL_DTYPES[x.dtype], E, C,
+                                         D, F, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm backward {variant} launch failed: error "
+                           f"{err}")
+    return dx, dw

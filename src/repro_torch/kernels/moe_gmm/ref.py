@@ -13,3 +13,14 @@ import torch
 def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D), w (E, D, F) -> (E, C, F) in x's dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def moe_gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor,
+                    dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``moe_gmm_ref`` for the upstream gradient dy (E, C,
+    F): dx[e] = dy[e] @ w[e]^T (E, C, D) and dw[e] = x[e]^T @ dy[e] (E, D,
+    F), summed in fp32 and cast to x's and w's dtypes."""
+    dy32 = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dy32, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dy32).to(w.dtype)
+    return dx, dw

@@ -22,3 +22,23 @@ def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor,
         h = a32[:, t] * h + x32[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
+                       dh: torch.Tensor):
+    """The backward of ``rglru_scan_ref`` from the states it returned, h (B,
+    S, R) fp32, and their upstream gradient dh: a reverse loop in fp32,
+    g_t = dh_t + a_{t+1} g_{t+1} (g_S = 0), rounding the product and then
+    the sum as the kernel does.  Returns (da, dx, dh0): da_t = g_t h_{t-1}
+    (h_{-1} = h0) and dx_t = g_t in a's dtype, dh0 = a_0 g_0 in fp32."""
+    a32, dh32, h0_32 = a.float(), dh.float(), h0.float()
+    g = torch.zeros_like(h0_32)
+    a_next = torch.zeros_like(h0_32)
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    dx = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dh32[:, t] + a_next * g
+        dx[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else h0_32)
+        a_next = a32[:, t]
+    return da, dx, a_next * g

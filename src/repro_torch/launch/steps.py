@@ -84,7 +84,9 @@ def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                              grads)
                 del grads
                 ms.append(dict(metrics, loss=loss))
-            grads = tree_map(lambda g: g / microbatches, gacc)
+            # in place: a second fp32 copy of every gradient would be the
+            # step's peak (26 GB of fp32 for Scout cut to 2 layers)
+            grads = tree_map(lambda g: g.div_(microbatches), gacc)
             del gacc
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

@@ -8,12 +8,12 @@ stream, periodic async checkpoints, and resumption from the latest one.
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --full --steps 4 --batch 4 --seq 4096 --microbatches 2   # the card
 
-On the card the prefill attention forward and backward run on the
-hand-written kernels (``kernels/flash_attention``).  Archs whose train path
-reaches a kernel that has no backward yet (``moe_gmm`` in MoE models,
-``rglru_scan`` in the RG-LRU hybrid) are refused there; on the CPU their
-plain versions differentiate through autograd.  Tensor parallelism
-(``tp != 1``) waits for a ``DeviceMesh`` (ROADMAP.md queue 1, item 12).
+On the card every kernel of the train path runs forward and backward as a
+hand-written kernel: the prefill attention (``kernels/flash_attention``),
+the MoE grouped matmul (``kernels/moe_gmm``) and the RG-LRU scan
+(``kernels/rglru_scan``); on the CPU their plain versions.  Tensor
+parallelism (``tp != 1``) waits for a ``DeviceMesh`` (ROADMAP.md queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -29,17 +29,7 @@ from repro_torch.data import TokenPipeline
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.steps import build_train_step, default_optimizer
 from repro_torch.models import lm
-from repro_torch.models.config import ModelConfig, ShapeSpec
-
-
-def kernels_without_backward(cfg: ModelConfig) -> list[str]:
-    """The kernels on ``cfg``'s train path that have no backward yet."""
-    missing = []
-    if cfg.num_experts:
-        missing.append("moe_gmm")
-    if "rglru" in cfg.layer_types:
-        missing.append("rglru_scan")
-    return missing
+from repro_torch.models.config import ShapeSpec
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
@@ -59,11 +49,6 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
     cfg = cfglib.get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    missing = kernels_without_backward(cfg)
-    if dev.type == "cuda" and missing:
-        raise ValueError(f"{arch}: its train path reaches {missing}, which "
-                         "have no backward kernel yet (ROADMAP.md queue 1, "
-                         "item 11)")
     shape = ShapeSpec("custom", seq, batch, "train")
     optimizer = default_optimizer(cfg)
     step_fn = build_train_step(cfg, optimizer=optimizer, shape=shape,

@@ -316,21 +316,53 @@ def _gather_sum_k(src_pad: torch.Tensor,
     return out
 
 
+class _MoePermute(torch.autograd.Function):
+    """Dispatch by gather; its backward is a gather over the inverse map
+    (the reference's custom VJP, no scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, gather_idx, slot_table):
+        ctx.save_for_backward(slot_table)
+        return _batched_take(_pad_row(x), gather_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_table, = ctx.saved_tensors
+        # the sentinel slot E*C reads the zero pad row
+        return _gather_sum_k(_pad_row(g), slot_table), None, None
+
+
+class _MoeUnpermute(torch.autograd.Function):
+    """Combine by gather; its backward is a gather too."""
+
+    @staticmethod
+    def forward(ctx, hw, gather_idx, slot_table):
+        ctx.save_for_backward(gather_idx)
+        return _gather_sum_k(_pad_row(hw), slot_table)
+
+    @staticmethod
+    def backward(ctx, g):
+        gather_idx, = ctx.saved_tensors
+        # the sentinel token T reads the zero pad row
+        return _batched_take(_pad_row(g), gather_idx), None, None
+
+
 def moe_permute(x: torch.Tensor, gather_idx: torch.Tensor,
                 slot_table: torch.Tensor) -> torch.Tensor:
     """Dispatch tokens to expert slots: x (G, T, D), gather_idx (G, E*C) ->
-    (G, E*C, D).  Forward only: the JAX package's custom-VJP backward (a
-    gather over ``slot_table``) waits for the training slice."""
-    del slot_table
-    return _batched_take(_pad_row(x), gather_idx)
+    (G, E*C, D).  The backward is the JAX package's custom VJP
+    (``src/repro/models/blocks.py:292-328``): dx gathers the slots of each
+    token over ``slot_table`` and sums them, so the gradient is a gather, not
+    autograd's scatter-add of the forward's indexing."""
+    return _MoePermute.apply(x, gather_idx, slot_table)
 
 
 def moe_unpermute(hw: torch.Tensor, gather_idx: torch.Tensor,
                   slot_table: torch.Tensor) -> torch.Tensor:
     """Combine expert-slot outputs back per token: hw (G, E*C, D) ->
-    (G, T, D).  Forward only, as ``moe_permute``."""
-    del gather_idx
-    return _gather_sum_k(_pad_row(hw), slot_table)
+    (G, T, D).  The backward is the JAX package's custom VJP: dhw gathers
+    each slot's token over ``gather_idx``."""
+    return _MoeUnpermute.apply(hw, gather_idx, slot_table)
 
 
 def moe_expert_ffn(x_disp: torch.Tensor, params: Params,

@@ -1,8 +1,12 @@
-"""Optimizers as pure transforms over a parameter tree (no ``torch.optim``).
+"""Optimizers as transforms over a parameter tree (no ``torch.optim``).
 
-``Optimizer`` carries two pure functions:
+``Optimizer`` carries two functions:
   * ``init(params) -> state``
   * ``update(grads, state, params, step) -> (new_params, new_state)``
+
+AdamW updates the moments of ``state`` in place and returns that state (the
+JAX version returns new moments; a second copy of them would set a train
+step's peak memory); params and grads are never written.
 
 A tree is a leaf (a tensor), or a dict / list of trees; state mirrors the param
 tree.  These are the JAX package's own optimizers (``optim/optimizers.py``)
@@ -56,11 +60,20 @@ def _global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
+def _clip_scale(grads: Tree, max_norm: float):
+    """(the factor that brings the global norm to at most ``max_norm``, the
+    global norm)."""
     norm = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), norm
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0), norm
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.to(torch.float32) * scale).to(g.dtype)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
+    scale, norm = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), norm
 
 
 def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -71,7 +84,7 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, grad_clip)
+        scale, _ = _clip_scale(grads, grad_clip)
         # bias corrections in float32, as the JAX version computes them
         t = torch.tensor(step + 1, dtype=torch.float32)
         bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
@@ -81,20 +94,21 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc1, bc2, lr_t = bc1.to(dev), bc2.to(dev), lr_t.to(dev)
 
         def upd(g, m, v, p):
-            g32 = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * torch.square(g32)
+            # the clipped gradient one leaf at a time, and the moments in
+            # place (the same operations in the same order): a clipped copy
+            # of every gradient or a second copy of the fp32 moments would
+            # set the train step's peak memory
+            g32 = _clipped(g, scale).to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
             mhat = m / bc1
             vhat = v / bc2
             delta = mhat / (torch.sqrt(vhat) + eps) \
                 + weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr_t * delta).to(p.dtype), m, v
+            return (p.to(torch.float32) - lr_t * delta).to(p.dtype)
 
-        flat = tree_map(upd, grads, state["m"], state["v"], params)
-        new_params = tree_map(lambda x: x[0], flat)
-        new_m = tree_map(lambda x: x[1], flat)
-        new_v = tree_map(lambda x: x[2], flat)
-        return new_params, {"m": new_m, "v": new_v}
+        new_params = tree_map(upd, grads, state["m"], state["v"], params)
+        return new_params, state
 
     return Optimizer("adamw", init, update)
 
@@ -127,24 +141,34 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
         lr_t = lr(step).to(dev)
 
         def upd_one(g, s, p):
+            # Each full-size fp32 temporary is freed or overwritten in place
+            # as soon as it is used (the same operations in the same order):
+            # for a large leaf (an (E, D, F) expert slice) the temporaries,
+            # not the state, set the step's peak memory.
             g32 = g.to(torch.float32)
-            g2 = torch.square(g32) + eps
+            g2 = torch.square(g32).add_(eps)
             if _factored(p):
                 row = beta * s["row"] + (1 - beta) * g2.mean(dim=-1)
                 col = beta * s["col"] + (1 - beta) * g2.mean(dim=-2)
+                del g2
                 row_mean = row.mean(dim=-1, keepdim=True)
-                vhat = (row / torch.clamp_min(row_mean, eps))[..., None] \
+                den = (row / torch.clamp_min(row_mean, eps))[..., None] \
                     * col[..., None, :]
+                den.clamp_min_(eps).sqrt_()
                 new_s = {"row": row, "col": col}
             else:
                 vhat = beta * s["v"] + (1 - beta) * g2
+                del g2
+                den = torch.sqrt(torch.clamp_min(vhat, eps))
                 new_s = {"v": vhat}
-            u = g32 / torch.sqrt(torch.clamp_min(vhat, eps))
+            u = g32 / den
+            del den
             # update clipping (RMS of update <= clip_threshold)
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
-            delta = u + weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr_t * delta).to(p.dtype), new_s
+            u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
+            p32 = p.to(torch.float32, copy=True)  # p itself when fp32
+            delta = u.add_(weight_decay * p32)
+            return p32.sub_(lr_t * delta).to(p.dtype), new_s
 
         def upd(g, s, p):
             # Stacked-layer leaves (L, ...) are updated one slice at a time,

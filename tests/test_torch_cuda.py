@@ -959,6 +959,172 @@ def test_moe_gmm_and_rglru_scan_refuse_what_they_cannot_take():
         rglru_scan_op(a, a, torch.zeros((2, 15), device=dev))
 
 
+# -- training: the moe_gmm and rglru_scan backwards --------------------------
+# moe_gmm's backward against moe_gmm_bwd_ref: fp32 max |g - ref| <= 1e-5 of
+# max |ref| per gradient; bf16 element by element within 2^-7 |ref| + 1e-5 M,
+# M the same products over magnitudes (moe_gmm_bwd_ref of |x|, |w|, |dy|):
+# the forward's bound, since both sides round an fp32 sum of the same exact
+# products.  rglru_scan's backward: bit-equal to rglru_scan_bwd_ref (the same
+# fp32 operations in the same order).  Both: two calls bit-equal.
+
+
+def _gmm_bwd_case(rng, E, C, D, F, dtype, dev):
+    x, w = _gmm_case(rng, E, C, D, F, dtype, dev)
+    return x, w, _randn(rng, (E, C, F), dtype, dev)
+
+
+def _assert_gmm_bwd(got, x, w, dy, where):
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    ref = moe_gmm_bwd_ref(x, w, dy)
+    if x.dtype == torch.bfloat16:
+        mag = moe_gmm_bwd_ref(x.abs().float(), w.abs().float(),
+                              dy.abs().float())
+    for name, g, r, i in zip(("dx", "dw"), got, ref, range(2)):
+        assert g.dtype == x.dtype and g.shape == r.shape, (where, name)
+        diff = (g.float() - r.float()).abs()
+        if x.dtype == torch.float32:
+            assert float(diff.max()) <= 1e-5 * float(r.abs().max()), \
+                (where, name)
+        else:
+            lim = 2.0 ** -7 * r.float().abs() + 1e-5 * mag[i]
+            assert bool((diff <= lim).all()), (where, name,
+                                               float((diff / lim).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [
+    (4, 64, 256, 512),     # whole tiles
+    (16, 8, 520, 136),     # decode-sized C; D, F multiples of 8, not of 64
+    (1, 1, 64, 64),        # a single row
+    (3, 77, 72, 136),      # ragged C; dw's K = C not a multiple of 64
+    (16, 129, 256, 264),   # one row past the 128-row tile, F ragged on 256
+    (2, 320, 1024, 2048),  # Scout's train rows per expert, narrowed
+    (5, 13, 100, 130),     # D, F TMA cannot stride: FFMA in bf16 too
+])
+def test_moe_gmm_backward_kernel_matches_plain(E, C, D, F, dtype):
+    """Through the autograd Function: dx and dw against their plain version,
+    the routed variant counted, two backward calls bit-equal."""
+    from repro_torch.kernels.moe_gmm import kernel
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    dev = _cuda()
+    x, w, dy = _gmm_bwd_case(np.random.default_rng(E + C + D + F), E, C, D, F,
+                             dtype, dev)
+    variant = kernel.route_bwd(dtype, D, F)
+    assert variant == ("tc" if dtype == torch.bfloat16 and D % 8 == 0
+                       and F % 8 == 0 else "ffma")
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    counter = f"launches_bwd_{variant}"
+    before = moe_gmm.launches_bwd, getattr(moe_gmm, counter)
+    got = torch.autograd.grad(moe_gmm(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert (moe_gmm.launches_bwd, getattr(moe_gmm, counter)) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_gmm_bwd(got, x, w, dy, (E, C, D, F))
+    again = kernel.launch_bwd(x, w, dy, variant)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,D,F", [(16, 8, 520, 136), (3, 77, 72, 136),
+                                     (2, 320, 1024, 2048)])
+def test_moe_gmm_backward_variants_agree_in_bf16(E, C, D, F):
+    """The FFMA variant on the tensor-core route's bf16 inputs (its explicit
+    route) within the same bf16 bound."""
+    from repro_torch.kernels.moe_gmm import kernel
+
+    dev = _cuda()
+    x, w, dy = _gmm_bwd_case(np.random.default_rng(C), E, C, D, F,
+                             torch.bfloat16, dev)
+    _assert_gmm_bwd(kernel.launch_bwd(x, w, dy, "ffma"), x, w, dy, "ffma")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernel.launch_bwd(x.float(), w.float(), dy.float(), "tc")
+
+
+@pytest.mark.cuda
+def test_moe_gmm_backward_of_no_rows_is_zero():
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    dev = _cuda()
+    x = torch.zeros((4, 0, 64), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.randn((4, 64, 32), device=dev).bfloat16().requires_grad_(True)
+    before = moe_gmm.launches_bwd
+    out = moe_gmm(x, w)
+    dx, dw = torch.autograd.grad(out, (x, w), torch.zeros_like(out))
+    assert dx.shape == (4, 0, 64) and dw.shape == (4, 64, 32)
+    assert not dw.any() and moe_gmm.launches_bwd == before
+
+
+@pytest.mark.cuda
+def test_tensor_core_backward_is_the_first_work_of_autograds_thread():
+    """In a fresh process, the first work autograd's device thread does is
+    the tensor-core backward's launcher, whose TMA encoder needs a current
+    context there (``hopper.cuh: bind_context``)."""
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.moe_gmm.ops import moe_gmm\n"
+        "x = torch.randn((2, 64, 128), device='cuda').bfloat16()\n"
+        "w = torch.randn((2, 128, 64), device='cuda').bfloat16()\n"
+        "x.requires_grad_(True)\n"
+        "out = moe_gmm(x, w)\n"
+        "dx, = torch.autograd.grad(out, x, torch.ones_like(out))\n"
+        "torch.cuda.synchronize()\n"
+        "assert moe_gmm.launches_bwd_tc == 1, moe_gmm.launches_bwd_tc\n"
+        "ref = torch.ones_like(out).float() @ w.float().transpose(1, 2)\n"
+        "assert float((dx.float() - ref).abs().max()) <= "
+        "2.0 ** -7 * float(ref.abs().max())\n")
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    done = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R", [
+    (2, 256, 128), (1, 512, 100), (3, 100, 256),
+    (2, 17, 33),       # S not a multiple of the 16-step unroll, R ragged
+    (1, 1, 8),         # one step: dh0 = a_0 dh_0
+    (1, 4096, 2560),   # RecurrentGemma-2B's train microbatch
+])
+def test_rglru_scan_backward_kernel_matches_plain(B, S, R, dtype):
+    """Through the autograd Function with a non-zero h0: da, dx (a's dtype)
+    and dh0 bit-equal to the plain reverse loop, counted; two calls
+    bit-equal."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    from repro_torch.kernels.rglru_scan import kernel
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(S + R + 1)
+    a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, R)),
+                        dtype=torch.float32, device=dev).to(dtype)
+    x = _randn(rng, (B, S, R), dtype, dev)
+    h0 = _randn(rng, (B, R), torch.float32, dev)
+    dh = _randn(rng, (B, S, R), torch.float32, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+    before = rglru_scan_op.launches_bwd
+    h = rglru_scan_op(*leaves)
+    got = torch.autograd.grad(h, leaves, dh)
+    torch.cuda.synchronize()
+    assert rglru_scan_op.launches_bwd == before + 1
+    ref = rglru_scan_bwd_ref(a, h0, h.detach(), dh)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    again = kernel.launch_bwd(a, h0, h.detach(), dh, KERNEL_DTYPES[dtype])
+    assert all(torch.equal(g, r) for g, r in zip(got, again))
+
+
 # -- training: the flash backward and the lse forward --------------------------
 
 _CAUSAL = dict(causal=True, window=0, chunk_attn=0)
@@ -1149,29 +1315,89 @@ def test_serving_launches_unchanged_without_grad():
 
 @pytest.mark.cuda
 def test_kernels_without_backward_refuse_grad_on_the_card():
-    from repro_torch.kernels.moe_gmm.ops import moe_gmm
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    """The three kernels no train path reaches raise under grad on the
+    card (``kernels/common.py: refuse_grad``), and pass without it."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.dsqe_score.ops import dsqe_score
+    from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
 
     dev = _cuda()
-    x = torch.zeros((2, 8, 16), device=dev, requires_grad=True)
-    w = torch.zeros((2, 16, 32), device=dev)
-    with pytest.raises(RuntimeError, match="item 11"):
-        moe_gmm(x, w)
+    q = torch.zeros((2, 1, 2, 16), device=dev, requires_grad=True)
+    kv = torch.zeros((2, 8, 2, 16), device=dev)
+    with pytest.raises(RuntimeError, match="no train path reaches it"):
+        decode_attention(q, kv, kv, 3)
     with torch.no_grad():
-        moe_gmm(x, w)
-    a = torch.zeros((2, 5, 16), device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 11"):
-        rglru_scan_op(a, a, torch.zeros((2, 16), device=dev))
+        decode_attention(q, kv, kv, 3)
+    u = torch.zeros((4, 16), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no train path reaches it"):
+        retrieval_topk(u, u.detach(), k=2)
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    with pytest.raises(RuntimeError, match="no train path reaches it"):
+        dsqe_score(u, u.detach(), u.detach(), z(4, 3), z(4, 3), z(3), z(3),
+                   z(3), z(3), z(4, 2), knn=2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "recurrentgemma-2b"])
-def test_train_refuses_archs_without_kernel_backward(arch):
-    from repro_torch.launch.train import train
+def test_moe_and_hybrid_archs_train_on_the_card(arch, dtype):
+    """Reduced Scout (moe_gmm and the gather backwards of the dispatch) and
+    RecurrentGemma (rglru_scan), stacked units under remat: the gradient of
+    ``lm.train_loss`` on the card through the backward kernels reaches every
+    leaf and every unit of a stacked leaf (all finite, none all zero), with
+    exact backward launches by variant; fp32 loss and grads against the same
+    on the CPU (plain versions): loss rel 1e-5, each leaf within 1e-4 of its
+    max |g|; then two ``build_train_step`` steps in 2 microbatches run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.launch.steps import _grads, build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-    _cuda()
-    with pytest.raises(ValueError, match="item 11"):
-        train(arch, steps=1, batch=2, seq=16, device="cuda")
+    dev = _cuda()
+    cfg = get_config(arch).reduced().with_overrides(
+        scan_layers=True, remat=True, dtype=dtype)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)))
+             for k in ("tokens", "labels")}
+    on_card = tree_map(lambda t: t.to(dev), params)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    counts = lambda: (moe_gmm.launches_bwd_tc, moe_gmm.launches_bwd_ffma,
+                      rglru_scan_op.launches_bwd)
+    before = counts()
+    loss, _, grads = _grads(cfg, on_card, card_batch)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    if cfg.num_experts:  # three products a layer
+        n = 3 * cfg.num_layers
+        want = (n, 0, 0) if dtype == "bfloat16" else (0, n, 0)
+    else:
+        want = (0, 0, cfg.layer_types.count("rglru"))
+    assert moved == want
+    for path_leaf in tree_leaves(grads["stack"]["units"]):
+        for unit in path_leaf:  # every unit of a stacked leaf
+            assert bool(torch.isfinite(unit).all()) and bool(unit.any())
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and bool(g.any())
+    if dtype == "float32":
+        ref_loss, _, ref_grads = _grads(cfg, params, batch)
+        assert abs(float(loss) - float(ref_loss)) <= \
+            1e-5 * abs(float(ref_loss))
+        for g, r in zip(tree_leaves(grads), tree_leaves(ref_grads)):
+            assert float((g.cpu() - r).abs().max()) <= \
+                1e-4 * float(r.abs().max())
+    opt = adamw(constant_schedule(1e-3))
+    step_fn = build_train_step(cfg, optimizer=opt, microbatches=2)
+    p, state = on_card, opt.init(on_card)
+    for i in range(2):
+        p, state, _, m = step_fn(p, state, i, card_batch)
+        assert np.isfinite(float(m["loss"])) and \
+            np.isfinite(float(m["grad_norm"]))
 
 
 @pytest.mark.cuda

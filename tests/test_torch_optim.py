@@ -156,3 +156,50 @@ def test_grad_compression_round_trip_of_bf16_leaves():
     q = comp["g"]["q"]
     assert q.dtype == torch.int8 and q.shape == (2, 256)
     assert float((out.float() + err["g"] - g.float()).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adafactor_leaves_its_inputs_unchanged(monkeypatch, dtype):
+    """The update overwrites its fp32 temporaries in place, never the params,
+    grads or state it is given (an fp32 param is its own fp32 view), in the
+    whole-leaf and the slice-by-slice path."""
+    monkeypatch.setattr(optimizers, "ADAFACTOR_SLICE_BYTES", 64)
+    rng = np.random.default_rng(5)
+    params = {"w": torch.from_numpy(rng.standard_normal((3, 8, 16))
+                                    .astype(np.float32)).to(dtype),
+              "b": torch.from_numpy(rng.standard_normal(16)
+                                    .astype(np.float32)).to(dtype)}
+    grads = {k: torch.randn(v.shape, generator=torch.Generator().manual_seed(
+        1)).to(dtype) for k, v in params.items()}
+    opt = optim.adafactor(optim.constant_schedule(0.05), weight_decay=0.1)
+    state = opt.update(grads, opt.init(params), params, 0)[1]
+    before = [t.clone() for t in tree_leaves([params, grads, state])]
+    new, _ = opt.update(grads, state, params, 1)
+    after = tree_leaves([params, grads, state])
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert not any(torch.equal(n, p)
+                   for n, p in zip(tree_leaves(new), tree_leaves(params)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_updates_its_moments_in_place_and_nothing_else(dtype):
+    """AdamW writes the moments it is given (and returns them) and neither
+    the params nor the grads; the clip scales each gradient as
+    ``clip_by_global_norm`` does (a norm above 1 is clipped here)."""
+    rng = np.random.default_rng(6)
+    params = {"w": torch.from_numpy(rng.standard_normal((8, 16))
+                                    .astype(np.float32)).to(dtype)}
+    grads = {"w": torch.from_numpy(3 * rng.standard_normal((8, 16))
+                                   .astype(np.float32)).to(dtype)}
+    opt = optim.adamw(optim.constant_schedule(0.05))
+    state = opt.init(params)
+    kept = [t.clone() for t in tree_leaves([params, grads])]
+    new, new_state = opt.update(grads, state, params, 0)
+    assert all(torch.equal(a, b)
+               for a, b in zip(kept, tree_leaves([params, grads])))
+    assert new_state["m"]["w"] is state["m"]["w"]
+    assert new_state["v"]["w"] is state["v"]["w"]
+    clipped, _ = optim.clip_by_global_norm(grads, 1.0)
+    g32 = clipped["w"].float()
+    assert torch.equal(state["m"]["w"], (1 - 0.9) * g32)
+    assert not torch.equal(new["w"], params["w"])

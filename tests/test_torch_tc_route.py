@@ -4,7 +4,8 @@ and the attention work count that ``chip_smoke.py`` turns into a bound.
 Both are plain functions of dtype and shape, so they run on the CPU:
 
 * ``moe_gmm``: bf16 with D and F multiples of 8 (TMA's 16-byte global
-  strides) goes to the wgmma kernel, everything else to the FFMA kernel.
+  strides) goes to the wgmma kernel, everything else to the FFMA kernel;
+  its backward by the same rule.
 * ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one;
   its backward: bf16 up to head_dim 128 to the wgmma pair (``"tc"``), the
   rest to the FFMA kernels (``"ffma"``); no other name is a variant.
@@ -38,7 +39,27 @@ bf16, f32 = torch.bfloat16, torch.float32
     (f32, 64, 64, "ffma"),
 ])
 def test_moe_gmm_route(dtype, D, F, want):
+    """The backward (dx, dw) reads the same tensors through TMA, so it
+    takes the forward's rule."""
     assert gmm_kernel.route(dtype, D, F) == want
+    assert gmm_kernel.route_bwd(dtype, D, F) == want
+
+
+@pytest.mark.parametrize("dtype,D,F,variant,match", [
+    (bf16, 100, 96, "tc", "multiples of 8"),
+    (f32, 64, 64, "tc", "multiples of 8"),
+    (bf16, 64, 64, "wgmma", "unknown variant"),
+    (bf16, 64, 64, "", "unknown variant"),
+])
+def test_moe_gmm_backward_refuses_before_launch(dtype, D, F, variant,
+                                                match):
+    """The backward's launcher refuses a variant its route would not send
+    these inputs to, before anything is built or launched."""
+    x = torch.zeros((2, 8, D), dtype=dtype)
+    w = torch.zeros((2, D, F), dtype=dtype)
+    dy = torch.zeros((2, 8, F), dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        gmm_kernel.launch_bwd(x, w, dy, variant)
 
 
 @pytest.mark.parametrize("dtype,hd,want", [

@@ -9,8 +9,11 @@ carried across by ``params_from_numpy``) go through both packages:
   and the plain forward's lse against ``_flash_mha_fwd_impl``'s: rel 1e-5
   in fp32 (the same arithmetic, summed in another order);
 * ``chunked_cross_entropy`` values and grads: rel 1e-5;
-* ``lm.train_loss`` and every grad leaf of reduced InternLM2: loss rel
-  1e-5, each leaf within 1e-4 of its largest |g| (24 fp32 ops deep);
+* ``lm.train_loss`` and every grad leaf of each of the ten archs,
+  reduced (the MoE archs through ``moe_gmm``'s autograd Function and the
+  gather backwards of the dispatch, the RG-LRU hybrid through
+  ``rglru_scan``'s): loss rel 1e-5, each leaf within 1e-4 of its largest
+  |g| (24 fp32 ops deep);
 * one ``build_train_step`` step (1 and 2 microbatches) against JAX's
   ``value_and_grad`` + ``adamw.update``: metrics rel 1e-5, params and
   moments within 1e-4 of each leaf's max.
@@ -35,7 +38,7 @@ from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
 from repro.optim import adamw as jax_adamw
 from repro.optim import constant_schedule as jax_constant
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref
 from repro_torch.launch.steps import build_train_step
@@ -161,14 +164,18 @@ B, S = 4, 16
 
 
 @functools.cache
-def _jax_side():
+def _jax_side(arch: str = ARCH):
     """JAX weights, a batch, and JAX's loss, metrics and grads (computed
-    once per module)."""
-    jcfg = jax_get_config(ARCH).reduced()
+    once per module and arch; InternLM2's also per microbatch)."""
+    jcfg = jax_get_config(arch).reduced()
     jparams = jax_lm.init_params(jax.random.key(0), jcfg)
     rng = np.random.default_rng(7)
     toks = rng.integers(0, jcfg.vocab_size, (B, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if jcfg.frontend:  # stub audio frames or patch embeddings
+        n = S if jcfg.frontend == "audio" else jcfg.frontend_len
+        batch["frontend"] = rng.standard_normal(
+            (B, n, jcfg.d_model)).astype(np.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     # jitted: a first eager run of each shape takes several times longer
     grad_fn = jax.jit(jax.value_and_grad(jax_lm.train_loss, has_aux=True),
@@ -176,39 +183,52 @@ def _jax_side():
     (loss, metrics), grads = grad_fn(jparams, jcfg, jb)
     # the step's two microbatches, as JAX's acc_body takes them
     mb = [grad_fn(jparams, jcfg, {k: v[i * 2:(i + 1) * 2]
-                                  for k, v in jb.items()}) for i in range(2)]
+                                  for k, v in jb.items()})
+          for i in range(2)] if arch == ARCH else None
     np_params = jax.tree.map(np.asarray, jparams)
     return dict(jcfg=jcfg, jparams=jparams, np_params=np_params, batch=batch,
                 loss=float(loss), metrics=jax.tree.map(float, metrics),
                 grads=jax.tree.map(np.asarray, grads), mb=mb)
 
 
-def _port(**overrides):
-    j = _jax_side()
-    cfg = get_config(ARCH).reduced().with_overrides(**overrides)
+def _port(arch: str = ARCH, **overrides):
+    j = _jax_side(arch)
+    cfg = get_config(arch).reduced().with_overrides(**overrides)
     params = lm.params_from_numpy(j["np_params"], cfg, device="cpu")
-    batch = {k: torch.from_numpy(v).long() for k, v in j["batch"].items()}
+    batch = {k: torch.from_numpy(v).long() if k != "frontend"
+             else torch.from_numpy(v) for k, v in j["batch"].items()}
     return cfg, params, batch
 
 
 def _unstacked(tree, cfg):
     """A port tree (params or grads) in the per-unit layout of the JAX
-    reduced config."""
-    if cfg.scan_layers:
-        units = tree["stack"]["units"]
+    reduced config: every stacked ``units`` (the decoder's, an encoder's)
+    as a list of units."""
+    if not cfg.scan_layers:
+        return tree
+    if isinstance(tree, list):
+        return [_unstacked(t, cfg) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _unstacked(v, cfg) for k, v in tree.items() if k != "units"}
+    if "units" in tree:
+        units = tree["units"]
         n = len(tree_leaves(units)[0])
-        tree = dict(tree, stack=dict(tree["stack"], units=[
-            tree_map(lambda t: t[i], units) for i in range(n)]))
-    return tree
+        out["units"] = [tree_map(lambda t: t[i], units) for i in range(n)]
+    return {k: out[k] for k in tree}
 
 
 @pytest.mark.parametrize("overrides", [
     {}, {"scan_layers": True, "remat": True}])
-def test_train_loss_and_grads_match_jax(overrides):
-    """Both unit layouts: per-unit, and stacked with per-unit remat
-    (``torch.utils.checkpoint``)."""
-    j = _jax_side()
-    cfg, params, batch = _port(**overrides)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_train_loss_and_grads_match_jax(arch, overrides):
+    """Every arch, reduced, in both unit layouts: per-unit, and stacked
+    with per-unit remat (``torch.utils.checkpoint``).  The MoE archs run
+    ``moe_gmm``'s autograd Function and the gather backwards of
+    ``moe_permute`` / ``moe_unpermute``, the RG-LRU hybrid ``rglru_scan``'s
+    (their plain versions on the CPU)."""
+    j = _jax_side(arch)
+    cfg, params, batch = _port(arch, **overrides)
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, metrics = lm.train_loss(leaves, cfg, batch)
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
@@ -323,36 +343,32 @@ def test_train_restart_is_bit_equal(tmp_path):
 
 
 def test_train_refuses_what_waits_for_later_items():
-    from repro_torch.launch.train import kernels_without_backward, train
+    """Tensor parallelism waits for a DeviceMesh (item 12); every arch's
+    train path has its backward kernels, so nothing else is refused."""
+    from repro_torch.launch import train as train_mod
 
     with pytest.raises(NotImplementedError, match="item 12"):
-        train(ARCH, steps=1, tp=2, device="cpu")
-    assert kernels_without_backward(get_config("llama4-scout-17b-a16e")) == \
-        ["moe_gmm"]
-    assert kernels_without_backward(get_config("recurrentgemma-2b")) == \
-        ["rglru_scan"]
-    assert kernels_without_backward(get_config(ARCH)) == []
+        train_mod.train(ARCH, steps=1, tp=2, device="cpu")
+    assert not hasattr(train_mod, "kernels_without_backward")
 
 
 def test_kernels_without_backward_refuse_grad_on_the_card(monkeypatch):
-    """The rule of ``kernels/common.py: refuse_grad``: on the kernel path
-    (``use_kernel`` stubbed True, as for CUDA tensors), an input that
-    requires grad under grad mode raises, naming ROADMAP item 11; without
-    grad mode, or without such an input, the rule lets the call pass."""
+    """The rule of ``kernels/common.py: refuse_grad`` for the three kernels
+    no train path reaches: on the kernel path (``use_kernel`` stubbed True,
+    as for CUDA tensors), an input that requires grad under grad mode
+    raises; without grad mode, or without such an input, the rule lets the
+    call pass."""
     import importlib
 
-    dec, dsqe, gmm, topk, scan = (
+    dec, dsqe, topk = (
         importlib.import_module(f"repro_torch.kernels.{op}.ops")
-        for op in ("decode_attention", "dsqe_score", "moe_gmm",
-                   "retrieval_topk", "rglru_scan"))
+        for op in ("decode_attention", "dsqe_score", "retrieval_topk"))
 
-    for mod in (dec, dsqe, gmm, topk, scan):
+    for mod in (dec, dsqe, topk):
         monkeypatch.setattr(mod, "use_kernel", lambda *ts: True)
     x = torch.zeros((2, 4, 16), requires_grad=True)
     w = torch.zeros((2, 16, 8))
     calls = [
-        lambda x: gmm.moe_gmm(x, w),
-        lambda x: scan.rglru_scan_op(x, x, torch.zeros((2, 16))),
         lambda x: dec.decode_attention(x[:, :1, None], x[:, :, None],
                                        x[:, :, None], 3),
         lambda x: topk.retrieval_topk(x[0], x[1], k=2),
@@ -362,7 +378,7 @@ def test_kernels_without_backward_refuse_grad_on_the_card(monkeypatch):
                                   torch.zeros(3), torch.zeros((4, 2)), knn=2),
     ]
     for call in calls:
-        with pytest.raises(RuntimeError, match="item 11"):
+        with pytest.raises(RuntimeError, match="no train path reaches it"):
             call(x)
     from repro_torch.kernels.common import refuse_grad
 
