@@ -108,7 +108,9 @@ line each:
    backward kernel (48), finite losses and grad norms, one profiled step
    (its backward device time split into the delta, dK/dV and dQ kernels);
    the backward kernel against its plain version at the training and long
-   shapes (a bf16 bound, bit-equal repeats, lse within 1e-5); an fp32
+   shapes and at RecurrentGemma-2B's (MQA G 10, hd 256, window 2048: the
+   wide tensor-core pair) (a bf16 bound, bit-equal repeats, lse within
+   1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
    from a checkpoint against an uninterrupted run.
 13. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
@@ -121,9 +123,11 @@ line each:
 14. ``train_hybrid``: RecurrentGemma-2B uncut trained through
    ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
    microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
-   backward and flash launches (the backward on FFMA at hd 256); the scan's
-   backward bit-equal to its plain version (``scan_bwd_kernels``), an fp32
-   3-layer twin, and restart from a checkpoint.
+   backward and flash launches (the backward on the wide tensor-core pair
+   at hd 256, none on FFMA), the profiled step's backward split by kernel;
+   the scan's backward bit-equal to its plain version
+   (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
+   checkpoint.
 15. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
@@ -134,7 +138,8 @@ Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
 kernel's launches on the served and trained runs, by variant where it has
 two: retrieval_topk's are summed over phases 3-6, flash_attention's
 training forwards are its ``lse_tc`` variant; the three backwards stand as
-``*_bwd`` entries), and
+``*_bwd`` entries, the flash backward at hd 256 apart as
+``flash_attention_bwd_wide``), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -194,14 +199,19 @@ KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
                 "retrieval_topk_merge_kernel", "retrieval_topk_scores_kernel",
                 "retrieval_topk_select_kernel", "dsqe_score_kernel",
                 "dsqe_score_merge_kernel", "dsqe_score_select_kernel",
-                "moe_gmm_kernel", "moe_gmm_tc_kernel", "rglru_scan_kernel",
-                "rglru_scan_bwd_kernel",
+                "moe_gmm_kernel", "moe_gmm_tc_kernel", "moe_gmm_bwd_tc_kernel",
+                "rglru_scan_kernel", "rglru_scan_bwd_kernel",
                 "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
-                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel")
-# the routed ("tc") flash backward: its delta kernel and the wgmma pair
+                "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_wide_kernel",
+                "flash_bwd_dq_wgmma_wide_kernel", "flash_bwd_sum_kernel",
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# the routed ("tc") flash backward: its delta kernel and the wgmma pair (hd
+# <= 128), and at hd above 128 the wide pair with its split-sum kernel
 BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
                "flash_bwd_dq_wgmma_kernel")
+BWD_WIDE_KERNELS = ("flash_bwd_delta_kernel",
+                    "flash_bwd_dkdv_wgmma_wide_kernel",
+                    "flash_bwd_dq_wgmma_wide_kernel", "flash_bwd_sum_kernel")
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -1690,38 +1700,103 @@ def restart_check(torch, arch: str, layers: int) -> dict:
                 bytes_written=sum(w["bytes"] for w in writes))
 
 
-def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
+def sdpa_backward_ms(torch, q, k, v, dout, masks) -> tuple:
+    """The flash backward's library yardstick: autograd through
+    ``scaled_dot_product_attention`` minus its forward, on (B, H, S, hd)
+    views of the same inputs.  A causal mask goes in as ``is_causal`` with
+    GQA, on PyTorch's own choice of backend ("default"); a window as a
+    boolean ``attn_mask``, where every backend that takes it is timed (flash,
+    memory-efficient and cuDNN, each with GQA and with K and V repeated to H
+    heads, whose backward then sums the group's gradients; then math) and
+    the fastest is named.  Returns (backward ms, forward ms, backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = dout.transpose(1, 2)
+    if not (masks["window"] or masks["chunk_attn"]):
+        cands = [("default", None, False, dict(is_causal=masks["causal"]))]
+    else:
+        mask = dict(attn_mask=visible(q.shape[1], k.shape[1], device=q.device,
+                                      **masks))
+        cands = [(b.name, b, rep, mask)
+                 for b in (SDPBackend.FLASH_ATTENTION,
+                           SDPBackend.EFFICIENT_ATTENTION,
+                           SDPBackend.CUDNN_ATTENTION)
+                 for rep in (False, True)]
+        cands.append(("MATH", SDPBackend.MATH, False, mask))
+    best = None
+    for name, backend, rep, kw in cands:
+        def fwd(rep=rep, kw=kw):
+            if rep:
+                return F.scaled_dot_product_attention(
+                    qt, kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1),
+                    **kw)
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **kw)
+
+        def fwd_bwd(fwd=fwd):
+            torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+        with (sdpa_kernel([backend]) if backend is not None
+              else contextlib.nullcontext()):
+            try:  # a backend that cannot take these inputs raises here
+                fwd_bwd()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with torch.no_grad():
+                f_ms = time_ms(torch, fwd, 3, 5)
+            b_ms = time_ms(torch, fwd_bwd, 3, 5) - f_ms
+        if best is None or b_ms < best[0]:
+            best = (b_ms, f_ms, name + (", K/V repeated" if rep else ""))
+    if best is None:
+        raise AssertionError(f"no SDPA backend takes {masks}")
+    return best
+
+
+def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     """The flash backward kernel (and the lse forward) against their plain
-    versions at the training shape (B 4, S 4096, H 16, Kv 8, hd 128: one
-    InternLM2 layer's microbatch pair) and the long shape (B 1, S 8192),
-    bf16, causal.  The backward element by element within
-    |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products over magnitudes,
-    ``flash_attention_bwd_ref(..., magnitudes=True)``); two calls bit-equal;
-    lse within LSE_ATOL.  The served route (``route_bwd``: the wgmma pair,
+    versions in bf16 at the training shape (B 4, S 4096, H 16, Kv 8, hd 128,
+    causal: one InternLM2 layer's microbatch pair), the long shape (B 1, S
+    8192) and RecurrentGemma-2B's train microbatch (B 1, S 4096, H 10, Kv 1,
+    hd 256, causal with a 2048 window: the wide pair, its KV group's heads
+    split over dK/dV blocks by ``bwd_head_splits``).  The backward element by
+    element within |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products
+    over magnitudes, ``flash_attention_bwd_ref(..., magnitudes=True)``); two
+    calls bit-equal; lse within LSE_ATOL.  The served route (``route_bwd``:
     ``"tc"``) must be checked; times per call and replayed from a CUDA
     graph, the FFMA variant's on the same inputs (its explicit route), the
-    plain version's and the library's (autograd through SDPA, minus its
-    forward).  Bound: q, k, v, out, dout, lse read once, dq, dk, dv written
-    once; 10 hd FLOPs per visible pair (the five products; the dQ kernel's
-    recomputed S and dP are not counted).  The achieved rate is logged on
-    10 hd and on the 14 hd the pair executes.  Returns the training shape's
-    row."""
-    import torch.nn.functional as F
-
+    plain version's and the library's (``sdpa_backward_ms``); where the
+    wide pair splits a KV group's heads, its graph time at other head
+    splits too (the plan patched to each).  Bound: q, k,
+    v, out, dout, lse read once, dq, dk, dv written once; 10 hd FLOPs per
+    visible pair (the five products; the dQ kernel's recomputed S and dP are
+    not counted).  The achieved rate is logged on 10 hd and on the 14 hd the
+    kernels execute.  Returns the training shape's row and RecurrentGemma's.
+    """
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref, visible_pairs)
 
-    H, Kv, hd, dt = 16, 8, 128, torch.bfloat16
-    causal = dict(causal=True, window=0, chunk_attn=0)
+    dt = torch.bfloat16
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
     rows = {}
-    for where, B, S in (("train", TRAIN_B, TRAIN_S),
-                        ("long", 1, TRAIN_LONG_S)):
+    for where, B, S, H, Kv, hd, window in (
+            ("train", TRAIN_B, TRAIN_S, 16, 8, 128, 0),
+            ("long", 1, TRAIN_LONG_S, 16, 8, 128, 0),
+            ("recurrentgemma", HYBRID_TRAIN_B // HYBRID_TRAIN_MB,
+             HYBRID_TRAIN_S, 10, 1, 256, 2048)):
+        masks = dict(causal=True, window=window, chunk_attn=0)
         q, dout = randn(B, S, H, hd), randn(B, S, H, hd)
         k, v = randn(B, S, Kv, hd), randn(B, S, Kv, hd)
-        out, lse = flash_kernel.launch(q, k, v, "tc", with_lse=True, **causal)
-        _, ref_lse = flash_attention_lse_ref(q, k, v, **causal)
+        out, lse = flash_kernel.launch(q, k, v, "tc", with_lse=True, **masks)
+        _, ref_lse = flash_attention_lse_ref(q, k, v, **masks)
         torch.cuda.synchronize()
         lse_err = float((lse - ref_lse).abs().max())
         if not lse_err <= LSE_ATOL:
@@ -1729,15 +1804,18 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
                                  f"version by {lse_err}")
         del ref_lse
         variant = flash_kernel.route_bwd(dt, hd)
+        if variant != "tc":
+            raise AssertionError(f"flash backward/{where}: routed to {variant}")
+        splits = flash_kernel.bwd_head_splits(B, S, Kv, H, hd, sm_count(dev))
         bwd = lambda v_=variant: flash_kernel.launch_bwd(
-            q, k, v, out, lse, dout, v_, **causal)
+            q, k, v, out, lse, dout, v_, **masks)
         got, again = bwd(), bwd()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash backward/{where}: two calls differ")
         del again
-        ref = flash_attention_bwd_ref(q, k, v, out, lse, dout, **causal)
-        mag = flash_attention_bwd_ref(q, k, v, out, lse, dout, **causal,
+        ref = flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+        mag = flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks,
                                       magnitudes=True)
         err, ratio = 0.0, 0.0
         for name, g, r, m in zip(("dq", "dk", "dv"), got, ref, mag):
@@ -1753,21 +1831,17 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
         dev_ms = graph_ms(torch, bwd, 3, 3)
         ffma_ms = time_ms(torch, lambda: bwd("ffma"), 3, 3)
         plain = time_ms(torch, lambda: flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, **causal), 2, 1)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        dot = dout.transpose(1, 2)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True,
-                                                      enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
-
-        with torch.no_grad():
-            lib_fwd = time_ms(torch, sdpa, 3, 5)
-        lib_ms = time_ms(torch, sdpa_fwd_bwd, 3, 5) - lib_fwd
-        pairs = visible_pairs(S, S, **causal)
+            q, k, v, out, lse, dout, **masks), 2, 1)
+        lib_ms, lib_fwd, backend = sdpa_backward_ms(torch, q, k, v, dout,
+                                                    masks)
+        splits_ms = {}
+        if splits > 1:
+            G = H // Kv
+            for n in (d for d in range(1, G + 1) if G % d == 0):
+                with patched(flash_kernel, "bwd_head_splits",
+                             lambda *_, n=n: n):
+                    splits_ms[n] = graph_ms(torch, bwd, 3, 3)
+        pairs = visible_pairs(S, S, **masks)
         nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * Kv * hd) \
             + 4 * B * H * S + 2 * (B * S * H * hd + 2 * B * S * Kv * hd)
         flops10 = 10 * hd * B * H * pairs
@@ -1775,16 +1849,18 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
         log("kernels", kernel="flash_attention_bwd", shape=where, B=B, S=S,
-            H=H, Kv=Kv, hd=hd, dtype="bf16", **causal, variant=variant,
+            H=H, Kv=Kv, hd=hd, dtype="bf16", **masks, variant=variant,
+            head_splits=splits, graph_ms_by_head_splits=splits_ms,
             ffma_ms=ffma_ms, visible_pairs=pairs,
             bf16_limit_ratio=ratio, lse_max_abs_err=lse_err,
-            library_fwd_ms=lib_fwd, tflops_10hd=flops10 / dev_ms / 1e9,
+            library_fwd_ms=lib_fwd, library_backend=backend,
+            tflops_10hd=flops10 / dev_ms / 1e9,
             tflops_14hd=1.4 * flops10 / dev_ms / 1e9,
             bit_equal_repeat=True, **row)
         rows[where] = row
-        del q, k, v, out, lse, dout, qt, kt, vt, dot
+        del q, k, v, out, lse, dout
         torch.cuda.empty_cache()
-    return rows["train"]
+    return rows["train"], rows["recurrentgemma"]
 
 
 def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
@@ -1803,8 +1879,8 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
 
-    summary["flash_attention_bwd"] = flash_bwd_kernels(torch, dev, gen, bw,
-                                                       bf16)
+    summary["flash_attention_bwd"], summary["flash_attention_bwd_wide"] = \
+        flash_bwd_kernels(torch, dev, gen, bw, bf16)
     cfg = get_config("internlm2-1.8b")
     L, n = cfg.num_layers, TWIN_TRAIN_LAYERS
     twin = fp32_twin(
@@ -1870,12 +1946,15 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
     M (M: the same products over magnitudes; both round an fp32 sum of the
     same exact products), the inputs widened to fp32 within F32_REL of each
     gradient's max, two calls bit-equal, and every shape on the tensor-core
-    route (its counter must move through the autograd Function).  Times per
-    call and from a CUDA graph, the FFMA variant's on the same inputs (its
-    explicit route), the plain version's and, as library yardstick, two
-    ``torch.bmm`` calls (dx and dw).  Bound: x, w and dy read once, dx and
+    route (its counter must move through the autograd Function): the
+    persistent ``moe_gmm_bwd_tc_kernel``, whose dx and dw tile counts and
+    waves on the card's SMs are logged.  Times per call and from a CUDA
+    graph, the FFMA variant's on the same inputs (its explicit route), the
+    plain version's and, as library yardstick, two ``torch.bmm`` calls (dx
+    and dw; each also timed alone).  Bound: x, w and dy read once, dx and
     dw written once; 4 C D F FLOPs an expert.  Returns the train gate/up
     row."""
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
@@ -1933,14 +2012,20 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
         wt, xt = w.transpose(1, 2), x.transpose(1, 2)
         lib_ms = time_ms(torch, lambda: (torch.bmm(dy, wt),
                                          torch.bmm(xt, dy)), *loops)
+        lib_dx_ms = time_ms(torch, lambda: torch.bmm(dy, wt), *loops)
+        lib_dw_ms = time_ms(torch, lambda: torch.bmm(xt, dy), *loops)
         b_ms, b_by = bound(bw, bf16,
                            2 * (2 * E * C * K + 2 * E * K * N + E * C * N),
                            4 * E * C * K * N)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
+        tiles = gmm_kernel.bwd_tc_tiles(E, C, K, N)
         log("kernels", kernel="moe_gmm_bwd", shape=shape, E=E, C=C, D=K, F=N,
-            dtype="bf16", variant=variant, bf16_limit_ratio=ratio,
-            fp32_rel_err=rel32, ffma_ms=ffma_ms,
+            dtype="bf16", variant=variant, tiles_dx_dw=tiles,
+            waves_dx_dw=[t / sm_count(dev) for t in tiles],
+            bf16_limit_ratio=ratio,
+            fp32_rel_err=rel32, ffma_ms=ffma_ms, library_dx_ms=lib_dx_ms,
+            library_dw_ms=lib_dw_ms,
             tflops=4 * E * C * K * N / dev_ms / 1e9, bit_equal_repeat=True,
             **row)
         rows[shape] = row
@@ -2011,11 +2096,13 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
 
 
 def gmm_role(key: str):
-    """A moe_gmm tensor-core kernel's part of a train step, from its operand
-    layouts (tnspA, tnspB): the forward (0, 1), dx (0, 0), dw (1, 1)."""
-    m = re.search(r"moe_gmm_tc_kernel<(?:\d+,\s*){3}(\d),\s*(\d)>", key)
-    return {("0", "1"): "moe_gmm forward", ("0", "0"): "moe_gmm dx",
-            ("1", "1"): "moe_gmm dw"}.get(m.groups()) if m else None
+    """A moe_gmm tensor-core kernel's part of a train step: the forward
+    (``moe_gmm_tc_kernel``), or the backward's dx (the persistent kernel with
+    A K-major, tnspA 0: dx^T = w . dy^T) or dw (tnspA 1)."""
+    if "moe_gmm_tc_kernel<" in key:
+        return "moe_gmm forward"
+    m = re.search(r"moe_gmm_bwd_tc_kernel<(?:\d+,\s*){2}(\d),", key)
+    return ("moe_gmm dw" if m.group(1) == "1" else "moe_gmm dx") if m else None
 
 
 def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
@@ -2156,10 +2243,11 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     counters are set to 0 just before the run and read after each step: per
     step (16 x 2 + 2) M rglru_scan forwards (the 2 trailing blocks sit
     outside the remat units) and 18 M backwards, 8 M x 2 lse-twin flash
-    forwards on the tensor cores and 8 M flash backwards on the FFMA
-    variant (hd 256), and no other launch.  Every loss and grad
-    norm finite; the profiled step's FFMA backward time is its share of the
-    step.  Beside it: the backward kernel's rows (``scan_bwd_kernels``), the
+    forwards and 8 M flash backwards, all on the tensor cores (the backward
+    at hd 256 on the wide pair; none on FFMA), and no other launch.  Every
+    loss and grad norm finite; the profiled step's flash backward time,
+    split by kernel, and its share of the step.  Beside it: the scan
+    backward kernel's rows (``scan_bwd_kernels``), the
     fp32 twin (HYBRID_TWIN_LAYERS layers against the plain scan and
     attention) and restart (``restart_check``, HYBRID_TWIN_LAYERS
     layers)."""
@@ -2204,16 +2292,13 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         "flash_attention.launches_lse": 2 * n_attn * M,
         "flash_attention.launches_lse_tc": 2 * n_attn * M,
         "flash_attention.launches_bwd": n_attn * M,
-        "flash_attention.launches_bwd_ffma": n_attn * M})
+        "flash_attention.launches_bwd_tc": n_attn * M})
     total = watch.check("train_hybrid", want)
-    ffma_bwd = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel")
     prof = watch.profiled_fields(
-        lambda key: next((k for k in ffma_bwd + ("rglru_scan_bwd_kernel",
-                                                 "rglru_scan_kernel")
-                          if k in key), None))
+        lambda key: next((k for k in BWD_WIDE_KERNELS + (
+            "rglru_scan_bwd_kernel", "rglru_scan_kernel") if k in key), None))
     flash_bwd_ms = sum(prof["profiled_ms_calls"].get(k, [0.0])[0]
-                       for k in ffma_bwd)
+                       for k in BWD_WIDE_KERNELS)
     steps = watch.step_fields(timed=(1,))
     torch.cuda.empty_cache()
     restart = restart_check(torch, "recurrentgemma-2b", HYBRID_TWIN_LAYERS)
@@ -2230,21 +2315,21 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         peak_memory_gb=peak_gb,
         launches_per_step={k: v for k, v in want.items() if v},
         launches={k: v for k, v in total.items() if v}, **prof,
-        ffma_flash_backward_ms=flash_bwd_ms,
-        ffma_flash_backward_share_of_busy=(
+        flash_backward_ms=flash_bwd_ms,
+        flash_backward_share_of_busy=(
             flash_bwd_ms / prof["profiled_device_busy_ms"]
             if prof["profiled_device_busy_ms"] else None),
-        ffma_flash_backward_share_of_step=(
+        flash_backward_share_of_step=(
             flash_bwd_ms / prof["profiled_step_ms"]),
         fp32_twin=twin, restart=restart)
     return ({"rglru_scan": total["rglru_scan_op.launches"],
              "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
              "flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+             "flash_attention_bwd_wide": total["flash_attention.launches_bwd"]},
             {"flash_attention": {
                 "lse_tc": total["flash_attention.launches_lse_tc"],
                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
-             "flash_attention_bwd": {
+             "flash_attention_bwd_wide": {
                  "tc": total["flash_attention.launches_bwd_tc"],
                  "ffma": total["flash_attention.launches_bwd_ffma"]}})
 
@@ -3058,13 +3143,18 @@ def main() -> int:
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/models/layers.py:189",
          "kernels": list(BWD_KERNELS)},
+        # the same backward above hd 128 (RecurrentGemma-2B's hd 256)
+        {"name": "flash_attention_bwd_wide", "route": "cuda",
+         "source": csrc + "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:189",
+         "kernels": list(BWD_WIDE_KERNELS)},
         # the backwards of #5 and #6: XLA's autodiff of the MoE einsums and
         # of the associative scan in the reference (no pallas_call)
         {"name": "moe_gmm_bwd", "route": "cuda",
          "source": csrc + "moe_gmm.cu",
          "replaces": "src/repro/models/blocks.py:331",
-         "kernels": ["moe_gmm_tc_kernel (dx: tnspB 0)",
-                     "moe_gmm_tc_kernel (dw: tnspA 1)"]},
+         "kernels": ["moe_gmm_bwd_tc_kernel (dx^T = w . dy^T)",
+                     "moe_gmm_bwd_tc_kernel (dw = x^T . dy)"]},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": csrc + "rglru_scan.cu",
          "replaces": "src/repro/models/blocks.py:431",

@@ -38,14 +38,18 @@
 // visible (query, key) pair on 7 B S H hd inputs and outputs: bound by
 // operations.  Two variants of the two kernels, one rule
 // (kernels/flash_attention/kernel.py: route_bwd):
-// * "tc", bf16 with hd <= 128 (every trained model's attention):
-//   flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, the products
-//   on wgmma (989 TFLOP/s bf16 peak) from TMA-fed shared memory, below;
-// * "ffma", fp32 and bf16 above hd 128: the products on the CUDA cores in
-//   fp32 (66.9 TFLOP/s peak), the design of the FFMA forward in
-//   attention.cu: fp32 tiles in shared memory with an odd row stride (column
-//   reads hit distinct banks), 16 x 16 threads, each with a register tile of
-//   the BQ x BK scores and of its rows of the accumulators.
+// * "tc", bf16 (every trained model's attention): the products on wgmma
+//   (989 TFLOP/s bf16 peak) from TMA-fed shared memory, below:
+//   flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel up to hd 128,
+//   flash_bwd_dkdv_wgmma_wide_kernel and flash_bwd_dq_wgmma_wide_kernel
+//   (with flash_bwd_sum_kernel where the wrapper splits a KV group's heads)
+//   above, up to 256;
+// * "ffma", fp32 (and bf16 by its explicit route, the yardstick): the
+//   products on the CUDA cores in fp32 (66.9 TFLOP/s peak), the design of
+//   the FFMA forward in attention.cu: fp32 tiles in shared memory with an
+//   odd row stride (column reads hit distinct banks), 16 x 16 threads, each
+//   with a register tile of the BQ x BK scores and of its rows of the
+//   accumulators.
 //
 // flash_attention_bwd_launch returns cudaGetLastError() after its launches
 // (0 on success), or hopper.cuh's tensor-map error codes.
@@ -475,7 +479,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// "tc": bf16 on wgmma fed by TMA (hd <= 128), fp32 accumulate
+// "tc" up to hd 128: bf16 on wgmma fed by TMA, fp32 accumulate
 // ---------------------------------------------------------------------------
 //
 // The same two kernels in the shape of the tensor-core forward
@@ -977,6 +981,566 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// "tc" above hd 128 (up to 256): the wide pair, wgmma fed by TMA
+// ---------------------------------------------------------------------------
+//
+// hd is padded to HDP = 256 by TMA's zeros (hd 144 .. 256, multiples of 16).
+// The hd <= 128 pair above does not carry over:
+//
+// * Registers.  A consumer warpgroup that owned 64 keys would hold dK and dV
+//   as 2 x 64 x 256 fp32, 256 registers a thread, over the 240 setmaxnreg
+//   gives it.  So in flash_bwd_dkdv_wgmma_wide_kernel both consumer
+//   warpgroups own the block's same 64 keys and split the head dimension of
+//   dK and dV: warpgroup w accumulates columns 128 w .. 128 w + 127 (dK, dV:
+//   64 + 64 fp32 a thread).  The S^T / dP^T products of a 64-query tile are
+//   split by queries instead: warpgroup w computes them for its 32 queries
+//   (m64n32k16 over the full hd; 16 + 16 fp32 a thread), turns them into
+//   P^T and dS^T, and writes both as bf16 into shared memory in wgmma's
+//   128-byte-swizzled K-major layout (one 64-key x 64-query tile is 64 rows
+//   of 128 bytes).  After a named barrier of the two warpgroups, each runs
+//   dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] with
+//   both operands from shared memory (m64n128k16).  The P^T / dS^T tiles are
+//   double-buffered, so one barrier a tile suffices: a warpgroup writes tile
+//   i's buffer only after the barrier of tile i - 1, which the other passes
+//   only after its tile i - 2 products, the last readers of that buffer, are
+//   done.  Budget a consumer thread: 128 accumulators, 32 products, about 40
+//   addresses, masks and loop state; within 240, no spills (the ptxas line
+//   of chip_smoke.py's device phase).
+// * Shared memory.  K and V resident for 64 keys (2 x 32 KB), a two-stage
+//   Q / dO ring of 64-row tiles (2 x 64 KB, each stage with its 64 rows of
+//   lse * log2(e) and delta * scale, 512 bytes), the two P^T / dS^T buffers
+//   (2 x 16 KB), 5 mbarriers and the 1024-byte alignment slack: 231 464 of
+//   the 232 448 bytes a block may have (static_assert below).
+//   flash_bwd_dq_wgmma_wide_kernel keeps the hd <= 128 pair's shape, 128
+//   queries a block and 64 a consumer warpgroup (dQ 64 x 256 fp32: 128 a
+//   thread), with K and V tiles cut to 32 keys (S and dP m64n32k16: 16 + 16
+//   a thread), so that Q and dO resident (2 x 64 KB) and a three-stage ring
+//   of K / V tiles (3 x 32 KB) fit: 230 456 bytes.
+// * Too few dK/dV blocks for MQA at small B.  The grid (Kv, B, Skv / 64) is
+//   64 blocks at RecurrentGemma-2B's B 1 x S 4096 x 1 KV head: half of the
+//   H100's 132 SMs, each block walking all G = 10 query heads.  The wrapper
+//   (kernels/flash_attention/kernel.py: bwd_head_splits) cuts the G heads of
+//   a group into `splits` equal contiguous runs, one block each (grid x =
+//   Kv x splits), where the grid would otherwise be under one wave of
+//   blocks (one block an SM: the shared memory above allows no second): the
+//   fewest that make two waves, so that the SMs even out the unequal work a
+//   causal or window mask gives the key tiles (RecurrentGemma: 5 runs of 2
+//   heads).  Each split writes its dK and dV as fp32 partials to scratch
+//   the wrapper allocates, and flash_bwd_sum_kernel adds them in split order
+//   and rounds once, so two calls stay bit-equal.  With one split the block
+//   rounds and stores dK and dV itself.
+//
+// The element-wise step is the hd <= 128 pair's: ex2.approx, delta pre-
+// scaled, the mask as one interval per key (per query in the dQ kernel),
+// tested only on tiles the mask cuts.
+constexpr int kWideHDP = 256;
+constexpr int kWideNCH = kWideHDP / 64;  // 64-element boxes per row
+constexpr int kWideKeys = 64;            // dK/dV: a block's keys
+constexpr int kWideTile = 64;            // dK/dV: query rows of a tile
+constexpr int kWideQ = 128;              // dQ: a block's queries
+constexpr int kWideDqKeys = 32;          // dQ: keys of a tile
+constexpr int kWideStages = 2;           // dK/dV ring
+constexpr int kWideDqStages = 3;         // dQ ring
+constexpr int kSmemLimit = 232448;       // a block's dynamic shared memory
+constexpr int kSumThreads = 256;
+
+struct WgWide {
+  static constexpr int kKVBytes = kWideNCH * kWideKeys * 128;    // K or V
+  static constexpr int kTileBytes = kWideNCH * kWideTile * 128;  // Q or dO
+  static constexpr int kLDBytes = 2 * kWideTile * 4;  // lse2 and delta
+  static constexpr int kPBytes = kWideKeys * kWideTile * 2;  // P^T or dS^T
+  static constexpr int kSmemKV =
+      2 * kKVBytes + kWideStages * (2 * kTileBytes + kLDBytes) +
+      2 * 2 * kPBytes + (1 + 2 * kWideStages) * 8 + 1024;
+  static constexpr int kQBytes = kWideNCH * kWideQ * 128;        // Q or dO
+  static constexpr int kKeyBytes = kWideNCH * kWideDqKeys * 128;  // K or V
+  static constexpr int kSmemQ = 2 * kQBytes +
+                                kWideDqStages * 2 * kKeyBytes +
+                                (1 + 2 * kWideDqStages) * 8 + 1024;
+};
+static_assert(WgWide::kSmemKV == 231464 && WgWide::kSmemKV <= kSmemLimit,
+              "dK/dV wide: K, V, the Q/dO ring and the P/dS buffers");
+static_assert(WgWide::kSmemQ == 230456 && WgWide::kSmemQ <= kSmemLimit,
+              "dQ wide: Q, dO and the K/V ring");
+
+// the 64 x N fp32 accumulator fragment of rows row0 and row0 + 8 to global
+// memory as fp32 (the split partials), hd columns, rows below `rows`
+template <int R>
+__device__ __forceinline__ void store_fragment_f32(float* base,
+                                                   size_t row_stride,
+                                                   int row0, int rows,
+                                                   const float (&acc)[R],
+                                                   int hd, int lane) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    if (col >= hd) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row < rows)
+        *reinterpret_cast<float2*>(base + static_cast<size_t>(row) *
+                                              row_stride + col) =
+            make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+// grid (Kv * splits, B, ceil(Skv / 64)), 384 threads: warpgroups 0 and 1
+// consume (the block's 64 keys; queries 32 wg .. of each tile for S^T and
+// dP^T, hd columns 128 wg .. of dK and dV), warpgroup 2 produces.  Split sp
+// walks the query heads [sp G / splits, (sp + 1) G / splits) of the group.
+// part: (2, splits, B, Skv, Kv, hd) fp32 when splits > 1, else unused.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap dmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const float* __restrict__ ld,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 float* __restrict__ part, int H, int Kv,
+                                 int hd, int Sqp, float scale, Masks mk,
+                                 int splits) {
+  using Cfg = WgWide;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Ks = smem;
+  uint8_t* Vs = Ks + Cfg::kKVBytes;
+  uint8_t* tiles = Vs + Cfg::kKVBytes;  // stage s: Q at 2 s, dO at 2 s + 1
+  uint8_t* pds = tiles + kWideStages * 2 * Cfg::kTileBytes;  // buffer u:
+  // P^T at 2 u, dS^T at 2 u + 1
+  float* lds = reinterpret_cast<float*>(pds + 2 * 2 * Cfg::kPBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lds + kWideStages * 2 *
+                                                  kWideTile);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kWideStages;
+
+  const int kvh = blockIdx.x / splits, sp = blockIdx.x % splits;
+  const int b = blockIdx.y, kt = blockIdx.z;
+  const int G = H / Kv, Sq = mk.Sq, Skv = mk.Skv;
+  const int g0 = sp * G / splits, g1 = (sp + 1) * G / splits;
+  const int k_lo = kt * kWideKeys, k_hi = min(k_lo + kWideKeys, Skv) - 1;
+  const int n_q = (Sq + kWideTile - 1) / kWideTile;
+  const int wg = threadIdx.x / 128;
+  auto live = [&](int qt) {
+    return mk.live(qt * kWideTile, min((qt + 1) * kWideTile, Sq) - 1, k_lo,
+                   k_hi);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kv_full, 2 * Cfg::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < kWideNCH; ++c) {
+        tma_load_4d(Ks + c * kWideKeys * 128, &kmap, kv_full, 64 * c, kvh,
+                    k_lo, b);
+        tma_load_4d(Vs + c * kWideKeys * 128, &vmap, kv_full, 64 * c, kvh,
+                    k_lo, b);
+      }
+      int i = 0;
+      for (int g = g0; g < g1; ++g) {
+        const int h = kvh * G + g;
+        const float* ld_h = ld + (static_cast<size_t>(b) * H + h) * 2 * Sqp;
+        for (int qt = 0; qt < n_q; ++qt) {
+          if (!live(qt)) continue;
+          const int s = i % kWideStages, r = i / kWideStages;
+          uint8_t* qs = tiles + 2 * s * Cfg::kTileBytes;
+          uint8_t* ds = qs + Cfg::kTileBytes;
+          float* ls = lds + 2 * s * kWideTile;
+          if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * Cfg::kTileBytes + Cfg::kLDBytes);
+#pragma unroll
+          for (int c = 0; c < kWideNCH; ++c) {
+            tma_load_4d(qs + c * kWideTile * 128, &qmap, &full[s], 64 * c, h,
+                        qt * kWideTile, b);
+            tma_load_4d(ds + c * kWideTile * 128, &dmap, &full[s], 64 * c, h,
+                        qt * kWideTile, b);
+          }
+          bulk_load(ls, ld_h + qt * kWideTile, kWideTile * 4, &full[s]);
+          bulk_load(ls + kWideTile, ld_h + Sqp + qt * kWideTile,
+                    kWideTile * 4, &full[s]);
+          ++i;
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg
+    regs_inc<240>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int row = 16 * warp + lane / 4;  // keys k_lo + row and + 8
+    const int key0 = k_lo + row;
+    const int qh = 32 * wg;  // this warpgroup's queries of each tile
+    int qlo[2], qhi[2];  // the queries that see each of the two keys
+    mk.queries_of(key0, qlo[0], qhi[0]);
+    mk.queries_of(key0 + 8, qlo[1], qhi[1]);
+    const float scale_log2 = scale * kLog2e;
+    float dka[kWideHDP / 4], dva[kWideHDP / 4];  // columns 128 wg ..
+#pragma unroll
+    for (int j = 0; j < kWideHDP / 4; ++j) dka[j] = dva[j] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    int i = 0;
+    for (int g = g0; g < g1; ++g) {
+      for (int qt = 0; qt < n_q; ++qt) {
+        if (!live(qt)) continue;
+        const int s = i % kWideStages;
+        const uint32_t ph = (i / kWideStages) & 1;
+        const uint8_t* qs = tiles + 2 * s * Cfg::kTileBytes;
+        const uint8_t* ds = qs + Cfg::kTileBytes;
+        const float* lse2 = lds + 2 * s * kWideTile + qh;
+        const float* dls = lse2 + kWideTile;  // delta * scale
+        uint8_t* pt = pds + 2 * (i % 2) * Cfg::kPBytes;
+        uint8_t* dst = pt + Cfg::kPBytes;
+        const int q_lo = qt * kWideTile + qh;
+        mbar_wait(&full[s], ph);
+
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x this warpgroup's 32
+        // queries, the reduction over all of hd
+        float st[16], dpt[16];
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < kWideNCH; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_ss<0>(st,
+                      sw128_desc(Ks + c * kWideKeys * 128 + kk * 32, 16, 1024),
+                      sw128_desc(qs + c * kWideTile * 128 + qh * 128 + kk * 32,
+                                 16, 1024),
+                      (c | kk) != 0);
+            mma_ss<0>(dpt,
+                      sw128_desc(Vs + c * kWideKeys * 128 + kk * 32, 16, 1024),
+                      sw128_desc(ds + c * kWideTile * 128 + qh * 128 + kk * 32,
+                                 16, 1024),
+                      (c | kk) != 0);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // P^T (exactly 0 off the mask) and dS^T = P^T (dP^T scale - delta
+        // scale) as bf16 into the tile's K-major swizzled buffers: key row
+        // r, query column c at r 128 + ((c / 8) ^ (r % 8)) 16 + (c % 8) 2
+        const bool whole = mk.whole(q_lo, q_lo + 31, k_lo, k_lo + 63);
+#pragma unroll
+        for (int j = 0; j < 16; j += 2) {
+          const int col = 8 * (j / 4) + 2 * (lane % 4);  // queries col, + 1
+          const int hr = (j / 2) % 2;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+          const float2 dl = *reinterpret_cast<const float2*>(dls + col);
+          float p0 = ex2(fmaf(st[j], scale_log2, -l2.x));
+          float p1 = ex2(fmaf(st[j + 1], scale_log2, -l2.y));
+          if (!whole) {  // uniform over the warpgroup
+            const int t = q_lo + col;
+            p0 = t >= qlo[hr] && t <= qhi[hr] ? p0 : 0.f;
+            p1 = t + 1 >= qlo[hr] && t + 1 <= qhi[hr] ? p1 : 0.f;
+          }
+          const int r = row + 8 * hr, c = qh + col;
+          const int off = r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+          *reinterpret_cast<uint32_t*>(pt + off) = pack_bf16(p0, p1);
+          *reinterpret_cast<uint32_t*>(dst + off) =
+              pack_bf16(p0 * fmaf(dpt[j], scale, -dl.x),
+                        p1 * fmaf(dpt[j + 1], scale, -dl.y));
+        }
+        fence_proxy_async();  // the writes, visible to wgmma's reads
+        named_sync(1, 256);   // both halves of the tile written
+
+        // dV[:, half] += P^T dO[:, half], dK[:, half] += dS^T Q[:, half]:
+        // A K-major from the buffers, B MN-major, 16 query rows a step
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWideTile / 16; ++kk) {
+          mma_ss<1>(dva, sw128_desc(pt + kk * 32, 16, 1024),
+                    sw128_desc(ds + 2 * wg * kWideTile * 128 + kk * 16 * 128,
+                               kWideTile * 128, 1024),
+                    1);
+          mma_ss<1>(dka, sw128_desc(dst + kk * 32, 16, 1024),
+                    sw128_desc(qs + 2 * wg * kWideTile * 128 + kk * 16 * 128,
+                               kWideTile * 128, 1024),
+                    1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        if (lane == 0) mbar_arrive(&empty[s]);
+        ++i;
+      }
+    }
+
+    const size_t kv_stride = static_cast<size_t>(Kv) * hd;
+    const size_t off = static_cast<size_t>(b) * Skv * kv_stride +
+                       static_cast<size_t>(kvh) * hd + 128 * wg;
+    const int cols = hd - 128 * wg;  // > 0: hd > 128
+    if (splits == 1) {
+      store_fragment(dk + off, kv_stride, key0, Skv, dka, cols, lane);
+      store_fragment(dv + off, kv_stride, key0, Skv, dva, cols, lane);
+    } else {
+      const size_t n = static_cast<size_t>(gridDim.y) * Skv * kv_stride;
+      store_fragment_f32(part + sp * n + off, kv_stride, key0, Skv, dka, cols,
+                         lane);
+      store_fragment_f32(part + (splits + sp) * n + off, kv_stride, key0, Skv,
+                         dva, cols, lane);
+    }
+  }
+}
+
+// dk and dv (n elements each, bf16) = the fp32 partials of part (2, splits,
+// n) summed in split order, rounded once; four elements a thread (n % 4 ==
+// 0: hd % 16 == 0)
+__global__ void __launch_bounds__(kSumThreads)
+flash_bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, size_t n, int splits) {
+  const size_t i =
+      (static_cast<size_t>(blockIdx.x) * kSumThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float* p = part + static_cast<size_t>(which) * splits * n + i;
+    float4 acc = *reinterpret_cast<const float4*>(p);
+    for (int j = 1; j < splits; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(p + j * n);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    bf16* out = (which ? dv : dk) + i;
+    *reinterpret_cast<__nv_bfloat162*>(out) =
+        __floats2bfloat162_rn(acc.x, acc.y);
+    *reinterpret_cast<__nv_bfloat162*>(out + 2) =
+        __floats2bfloat162_rn(acc.z, acc.w);
+  }
+}
+
+// grid (H, B, ceil(Sq / 128)), 384 threads: warpgroups 0 and 1 consume
+// (queries q_lo + 64 wg ..), warpgroup 2 produces.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap dmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const float* __restrict__ ld,
+                               bf16* __restrict__ dq, int H, int Kv, int hd,
+                               int Sqp, float scale, Masks mk) {
+  using Cfg = WgWide;
+  using namespace hopper;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* dOs = Qs + Cfg::kQBytes;
+  uint8_t* tiles = dOs + Cfg::kQBytes;  // stage s: K at 2 s, V at 2 s + 1
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(tiles + kWideDqStages * 2 *
+                                                 Cfg::kKeyBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWideDqStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest rows first
+  const int kvh = h / (H / Kv), Sq = mk.Sq, Skv = mk.Skv;
+  const int q_lo = qt * kWideQ, q_hi = min(q_lo + kWideQ, Sq) - 1;
+  const int n_kv = (Skv + kWideDqKeys - 1) / kWideDqKeys;
+  const int wg = threadIdx.x / 128;
+  auto live = [&](int kt) {
+    return mk.live(q_lo, q_hi, kt * kWideDqKeys,
+                   min((kt + 1) * kWideDqKeys, Skv) - 1);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWideDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * Cfg::kQBytes);
+#pragma unroll
+      for (int c = 0; c < kWideNCH; ++c) {
+        tma_load_4d(Qs + c * kWideQ * 128, &qmap, q_full, 64 * c, h, q_lo, b);
+        tma_load_4d(dOs + c * kWideQ * 128, &dmap, q_full, 64 * c, h, q_lo,
+                    b);
+      }
+      int i = 0;
+      for (int kt = 0; kt < n_kv; ++kt) {
+        if (!live(kt)) continue;
+        const int s = i % kWideDqStages, r = i / kWideDqStages;
+        uint8_t* ks = tiles + 2 * s * Cfg::kKeyBytes;
+        uint8_t* vs = ks + Cfg::kKeyBytes;
+        if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * Cfg::kKeyBytes);
+#pragma unroll
+        for (int c = 0; c < kWideNCH; ++c) {
+          tma_load_4d(ks + c * kWideDqKeys * 128, &kmap, &full[s], 64 * c,
+                      kvh, kt * kWideDqKeys, b);
+          tma_load_4d(vs + c * kWideDqKeys * 128, &vmap, &full[s], 64 * c,
+                      kvh, kt * kWideDqKeys, b);
+        }
+        ++i;
+      }
+    }
+  } else {  // consumer warpgroup wg: queries q_lo + 64 wg .. + 63
+    regs_inc<240>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int wq_lo = q_lo + 64 * wg;
+    const int row0 = wq_lo + 16 * warp + lane / 4;  // and row0 + 8
+    int klo[2], khi[2];  // the keys each of the two rows sees
+    mk.keys_of(row0, klo[0], khi[0]);
+    mk.keys_of(row0 + 8, klo[1], khi[1]);
+    const float scale_log2 = scale * kLog2e;
+    const float* ld_h = ld + (static_cast<size_t>(b) * H + h) * 2 * Sqp;
+    float lse2[2], dls[2];  // lse * log2(e) and delta * scale of each row
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = row0 + 8 * hr;
+      lse2[hr] = t < Sq ? ld_h[t] : 0.f;
+      dls[hr] = t < Sq ? ld_h[Sqp + t] : 0.f;
+    }
+    const uint8_t* Qw = Qs + wg * 64 * 128;
+    const uint8_t* dOw = dOs + wg * 64 * 128;
+    float dqa[kWideHDP / 2];
+#pragma unroll
+    for (int j = 0; j < kWideHDP / 2; ++j) dqa[j] = 0.f;
+    mbar_wait(q_full, 0);
+
+    int i = 0;
+    for (int kt = 0; kt < n_kv; ++kt) {
+      if (!live(kt)) continue;
+      const int s = i % kWideDqStages;
+      const uint32_t ph = (i / kWideDqStages) & 1;
+      const uint8_t* ks = tiles + 2 * s * Cfg::kKeyBytes;
+      const uint8_t* vs = ks + Cfg::kKeyBytes;
+      const int k_lo = kt * kWideDqKeys;
+      mbar_wait(&full[s], ph);
+
+      // S = Q K^T and dP = dO V^T: this warpgroup's 64 queries x 32 keys
+      float sc[kWideDqKeys / 2], dp[kWideDqKeys / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kWideNCH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_ss<0>(sc, sw128_desc(Qw + c * kWideQ * 128 + kk * 32, 16, 1024),
+                    sw128_desc(ks + c * kWideDqKeys * 128 + kk * 32, 16, 1024),
+                    (c | kk) != 0);
+          mma_ss<0>(dp, sw128_desc(dOw + c * kWideQ * 128 + kk * 32, 16, 1024),
+                    sw128_desc(vs + c * kWideDqKeys * 128 + kk * 32, 16, 1024),
+                    (c | kk) != 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P in place of S, exactly 0 off the mask
+      const bool whole = mk.whole(wq_lo, wq_lo + 63, k_lo,
+                                  k_lo + kWideDqKeys - 1);
+#pragma unroll
+      for (int j = 0; j < kWideDqKeys / 2; ++j) {
+        const int hr = (j / 2) % 2;
+        const float x = ex2(fmaf(sc[j], scale_log2, -lse2[hr]));
+        const int key = k_lo + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+        sc[j] = whole || (key >= klo[hr] && key <= khi[hr]) ? x : 0.f;
+      }
+
+      // dS = P (dP scale - delta scale) as bf16 A operands
+      uint32_t da[kWideDqKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kWideDqKeys / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 8 * kk + 2 * r, hr = r % 2;
+          da[kk][r] = pack_bf16(sc[j] * fmaf(dp[j], scale, -dls[hr]),
+                                sc[j + 1] * fmaf(dp[j + 1], scale, -dls[hr]));
+        }
+
+      // dQ += dS K: K MN-major (boxes of 32 key rows), 16 keys a step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideDqKeys / 16; ++kk)
+        mma_rs<1>(dqa, da[kk],
+                  sw128_desc(ks + kk * 16 * 128, kWideDqKeys * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++i;
+    }
+
+    const size_t q_stride = static_cast<size_t>(H) * hd;
+    store_fragment(dq + static_cast<size_t>(b) * Sq * q_stride +
+                       static_cast<size_t>(h) * hd,
+                   q_stride, row0, Sq, dqa, hd, lane);
+  }
+}
+
+int launch_bwd_wgmma_wide(const void* q, const void* k, const void* v,
+                          const void* dout, const float* ld, void* dq,
+                          void* dk, void* dv, float* part, int B, int Sq,
+                          int Skv, int H, int Kv, int hd, int Sqp,
+                          int splits, const Masks& mk, cudaStream_t stream) {
+  using Cfg = WgWide;
+  using hopper::attention_map;
+  static std::atomic<size_t> ready_kv[hopper::kMaxDevices];
+  static std::atomic<size_t> ready_q[hopper::kMaxDevices];
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  // dK/dV: every tile 64 rows
+  CUtensorMap qmap, dmap, kmap, vmap;
+  int err = attention_map(&qmap, q, B, Sq, H, hd, kWideTile);
+  if (!err) err = attention_map(&dmap, dout, B, Sq, H, hd, kWideTile);
+  if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, kWideKeys);
+  if (!err) err = attention_map(&vmap, v, B, Skv, Kv, hd, kWideKeys);
+  if (err) return err;
+  auto* fkv = flash_bwd_dkdv_wgmma_wide_kernel;
+  cudaError_t serr = hopper::allow_smem(fkv, Cfg::kSmemKV, ready_kv);
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  fkv<<<dim3(Kv * splits, B, (Skv + kWideKeys - 1) / kWideKeys), kWgThreads,
+        Cfg::kSmemKV, stream>>>(qmap, dmap, kmap, vmap, ld,
+                                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                part, H, Kv, hd, Sqp, scale, mk, splits);
+  serr = cudaGetLastError();
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  if (splits > 1) {
+    const size_t n = static_cast<size_t>(B) * Skv * Kv * hd;
+    const size_t blocks = (n / 4 + kSumThreads - 1) / kSumThreads;
+    flash_bwd_sum_kernel<<<static_cast<unsigned>(blocks), kSumThreads, 0,
+                           stream>>>(part, static_cast<bf16*>(dk),
+                                     static_cast<bf16*>(dv), n, splits);
+    serr = cudaGetLastError();
+    if (serr != cudaSuccess) return static_cast<int>(serr);
+  }
+  // dQ: Q and dO in 128-row tiles, K and V in 32-row ones
+  err = attention_map(&qmap, q, B, Sq, H, hd, kWideQ);
+  if (!err) err = attention_map(&dmap, dout, B, Sq, H, hd, kWideQ);
+  if (!err) err = attention_map(&kmap, k, B, Skv, Kv, hd, kWideDqKeys);
+  if (!err) err = attention_map(&vmap, v, B, Skv, Kv, hd, kWideDqKeys);
+  if (err) return err;
+  auto* fq = flash_bwd_dq_wgmma_wide_kernel;
+  serr = hopper::allow_smem(fq, Cfg::kSmemQ, ready_q);
+  if (serr != cudaSuccess) return static_cast<int>(serr);
+  fq<<<dim3(H, B, (Sq + kWideQ - 1) / kWideQ), kWgThreads, Cfg::kSmemQ,
+       stream>>>(qmap, dmap, kmap, vmap, ld, static_cast<bf16*>(dq), H, Kv,
+                 hd, Sqp, scale, mk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int PACK>
 int launch_delta(const void* out, const void* dout, const float* lse,
                  float* delta, int B, int Sq, int Sqp, int H, int hd,
@@ -1045,17 +1609,22 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16 for q, k, v, out, dout, dq, dk, dv; lse
 // (B, H, Sq) is fp32.  hd a multiple of 16 up to 256.  variant: 0 "ffma",
-// 1 "tc" (the wgmma pair, bf16 with hd <= 128 only).  delta is fp32
-// scratch: (B, H, Sq) for "ffma", (B, H, 2, Sqp) for "tc", Sqp = Sq rounded
-// up to a multiple of 64, 16-byte aligned.
+// 1 "tc" (bf16 only: the wgmma pair up to hd 128, the wide pair above).
+// delta is fp32 scratch: (B, H, Sq) for "ffma", (B, H, 2, Sqp) for "tc",
+// Sqp = Sq rounded up to a multiple of 64, 16-byte aligned.  splits: the
+// wide dK/dV kernel's head splits (1 otherwise); with more than one, part
+// is fp32 scratch of (2, splits, B, Skv, Kv, hd).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int dtype, int B, int Sq, int Skv, int H, int Kv, int hd,
-    int causal, int window, int chunk, int variant, void* stream) {
+    int causal, int window, int chunk, int variant, int splits, float* part,
+    void* stream) {
   using repro_torch::Masks;
   auto s = static_cast<cudaStream_t>(stream);
-  if (variant < 0 || variant > 1 || (variant && (dtype != 1 || hd > 128)))
+  const bool wide = variant == 1 && hd > 128;
+  if (variant < 0 || variant > 1 || (variant && (dtype != 1 || hd > 256)) ||
+      splits < 1 || (splits > 1 && (!wide || !part || splits > H / Kv)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Masks mk{Sq, Skv, causal, window, chunk};
   if (variant == 1) {
@@ -1063,6 +1632,10 @@ extern "C" int flash_attention_bwd_launch(
     int err = repro_torch::launch_delta<__nv_bfloat16, 1>(
         out, dout, lse, delta, B, Sq, Sqp, H, hd, s);
     if (err) return err;
+    if (wide)
+      return repro_torch::launch_bwd_wgmma_wide(q, k, v, dout, delta, dq, dk,
+                                                dv, part, B, Sq, Skv, H, Kv,
+                                                hd, Sqp, splits, mk, s);
     if (hd <= 64)
       return repro_torch::launch_bwd_wgmma<64>(q, k, v, dout, delta, dq, dk,
                                                dv, B, Sq, Skv, H, Kv, hd, Sqp,

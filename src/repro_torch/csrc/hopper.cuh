@@ -1,8 +1,10 @@
-// Hopper building blocks of the tensor-core kernels (moe_gmm_tc_kernel in
-// moe_gmm.cu, flash_attention_tc_kernel in flash_attention_tc.cu, the wgmma
-// pair of flash_attention_bwd.cu): mbarriers, TMA tile and bulk loads, named
-// barriers, wgmma shared-memory descriptors, the wgmma instructions
-// themselves, setmaxnreg, and the host-side encoding of TMA tensor maps; the
+// Hopper building blocks of the tensor-core kernels (moe_gmm_tc_kernel and
+// moe_gmm_bwd_tc_kernel in moe_gmm.cu, flash_attention_tc_kernel in
+// flash_attention_tc.cu, the wgmma pairs of flash_attention_bwd.cu):
+// mbarriers, TMA tile and bulk loads, TMA tile stores with the proxy fence
+// and stmatrix that feed them, named barriers, wgmma shared-memory
+// descriptors, the wgmma instructions themselves, setmaxnreg, and the
+// host-side encoding of TMA tensor maps; the
 // cp.async, ldmatrix and warp-level mma.sync of the kernels with small tiles
 // (tiled_topk.cuh, decode_attention_tc.cu); plus the shared-memory limit
 // helper of every kernel with large tiles.  Everything here is sm_90a PTX
@@ -449,6 +451,107 @@ __device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4],
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
         "n"(TB));
+}
+
+template <int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+template <int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss(float (&d)[80], uint64_t a, uint64_t b,
+                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79 "
+      "}, %80, %81, p, 1, 1, %84, %83;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+// -- shared memory to global through TMA (the persistent backward's
+// epilogue) --------------------------------------------------------------
+// Generic-proxy writes to shared memory (st.shared, stmatrix) become visible
+// to the async proxy (TMA, wgmma) only after this fence; the writers fence,
+// then a barrier, then one thread issues the copy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// four 8 x 8 b16 matrices to shared memory: register i holds matrix i in the
+// mma accumulator layout (thread t: row t / 4, columns 2 (t % 4) and + 1),
+// lane l gives the address of memory row l % 8 of matrix l / 8; .trans
+// stores each matrix transposed (memory row i = the fragment's column i)
+__device__ __forceinline__ void stmatrix_x4(void* p, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+__device__ __forceinline__ void stmatrix_x4_trans(void* p,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n"
+      :: "r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+// a box of the map's swizzled layout, shared -> global; coordinates past the
+// tensor's extent are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed stores are still reading
+// shared memory (.read), or still in flight at all
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // -- host: TMA tensor maps ---------------------------------------------------

@@ -9,17 +9,19 @@
 //
 // The backward (the JAX package differentiates its three MoE einsums with
 // XLA, src/repro/models/blocks.py:331-337; no Pallas kernel) is two more
-// grouped products of the same kernels, for dy (E, C, F):
+// grouped products, for dy (E, C, F):
 //   dx[e] = dy[e] @ w[e]^T   (E, C, D), a sum over F;
 //   dw[e] = x[e]^T @ dy[e]   (E, D, F), a sum over the C rows.
 // Each output element is one thread's or one warpgroup's fp32 sum in a fixed
 // order, written once: no atomics, so equal inputs give bit-equal outputs.
 // Every kernel computes out[e] (M x N) = A[e] (M x K) . B[e] (K x N), each
 // operand read in place in one of two layouts, a template switch:
-//   A K-major (stored (M, K)): x in the forward, dy in dx;
+//   A K-major (stored (M, K)): x in the forward, dy in the FFMA dx, w in
+//     the tensor-core dx^T = w . dy^T;
 //   A MN-major (stored (K, M)): x, read as x^T, in dw;
 //   B MN-major (stored (K, N)): w in the forward, dy in dw;
-//   B K-major (stored (N, K)): w, read as w^T, in dx.
+//   B K-major (stored (N, K)): w, read as w^T, in the FFMA dx; dy, read as
+//     dy^T, in the tensor-core dx^T.
 //
 // What bounds it on an H100: at prefill (C = 640 rows per expert for
 // Llama-4-Scout at 8 x 1024 tokens) the product does 2 C D F FLOPs on
@@ -33,32 +35,33 @@
 // Two variants, chosen by one rule on dtype and shape (kernels/moe_gmm/
 // kernel.py: route, route_bwd):
 //
-// * moe_gmm_tc_kernel, bf16 with D and F multiples of 8: wgmma on the tensor
+// * moe_gmm_tc_kernel (the forward) and moe_gmm_bwd_tc_kernel (the
+//   backward, below), bf16 with D and F multiples of 8: wgmma on the tensor
 //   cores fed by TMA.  TMA needs every global stride to be a multiple of 16
 //   bytes, which for bf16 rows of D or F elements means D % 8 == F % 8 == 0;
 //   every served and trained shape meets it.  Each operand is read through a
 //   3-D tensor map (row, column, expert) with 128-byte swizzle (boxes 64
-//   elements wide).  Because the maps are 3-D, rows of a box past the
-//   expert's last row are out of bounds and read as zeros, never as the next
-//   expert's rows: decode (C = 8) and ragged C run without padding, ragged K
-//   adds zeros on both sides of the sum (in dw, K = C: rows past C add
-//   nothing), and ragged M and N are never stored.  A ring of shared-memory
-//   stages, each one A tile (BM x 64 of K) and one B tile (64 of K x BN),
-//   with full and empty mbarriers; one producer thread issues the TMA loads,
-//   and NC consumer warpgroups (64 rows each) issue wgmma.mma_async
-//   m64nBNk16 from shared memory (tnspA / tnspB name each operand's
-//   layout), keeping one wgmma group in flight while the next stage is
-//   waited for.  A K-major tile is one box of BM (B: BN) rows of 64 K; an
+//   elements wide).  Because the maps are 3-D, rows of a box past the expert's
+//   last row are out of bounds and read as zeros, never as the next expert's
+//   rows: decode (C = 8) and ragged C run without padding, ragged K adds zeros
+//   on both sides of the sum (in dw, K = C: rows past C add nothing), and
+//   ragged M and N are never stored.  A ring of shared-memory stages, each one
+//   A tile (BM x 64 of K) and one B tile (64 of K x BN), with full and empty
+//   mbarriers (the forward's design from here on: one producer thread issues
+//   the TMA loads, and NC consumer warpgroups (64 rows each) issue
+//   wgmma.mma_async m64nBNk16 from shared memory (tnspA / tnspB name each
+//   operand's layout), keeping one wgmma group in flight while the next stage
+//   is waited for.  A K-major tile is one box of BM (B: BN) rows of 64 K; an
 //   MN-major tile is BM / 64 (B: BN / 64) boxes of 64 K-rows.  Large M (the
-//   forward and dx at C > 64, dw at every D): BM 128 (two consumer
-//   warpgroups), BN 256, 4 stages of 48 KB; setmaxnreg gives the consumers
-//   232 registers (the 64 x 256 fp32 accumulator is 128 a thread) and the
-//   producer warpgroup 40.  M <= 64 (decode): BM 64, of which rows >= M are
-//   TMA zeros (the padded tensor-core work, ~0.09 ms at the Scout shape,
-//   stays under the 0.40 ms byte bound), BN 128, and 8 stages: 128 KB of B
-//   in flight per SM, so the kernel is a stream of the expert weights.  The
-//   epilogue rounds the fp32 accumulator to bf16 in registers and stores
-//   rows < M, columns < N.
+//   forward at C > 64): BM 128 (two consumer warpgroups), BN 256, 4 stages of
+//   48 KB; setmaxnreg gives the consumers 232 registers (the 64 x 256 fp32
+//   accumulator is 128 a thread) and the producer warpgroup 40.  M <= 64
+//   (decode): BM 64, of which rows >= M are TMA zeros (the padded tensor-core
+//   work, ~0.09 ms at the Scout shape, stays under the 0.40 ms byte bound), BN
+//   128, and 8 stages: 128 KB of B in flight per SM, so the kernel is a stream
+//   of the expert weights.  The epilogue rounds the fp32 accumulator to bf16 in
+//   registers and stores rows < M, columns < N).  The backward's kernel walks
+//   its tiles persistently and stores through TMA: its note is below.
 //
 // * moe_gmm_kernel, fp32 (the tests' and the fp32 twins' dtype) and the
 //   bf16 shapes TMA cannot take: the first port's FFMA design.  One block
@@ -378,6 +381,256 @@ int dispatch_gmm_tc(const void* a, const void* b, void* out, int E, int M,
   return launch_gmm_tc<2, 256, 4, TA, TB>(a, b, out, E, M, K, N, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores: a persistent tile walk
+// ---------------------------------------------------------------------------
+//
+// moe_gmm_tc_kernel above was designed for the forward's K (D or F); the
+// backward's shapes defeat it.  dw's K is C (320 rows at Scout's train
+// microbatch): a block fills its ring for 5 k-steps, then stores 64 KB
+// through registers with nothing overlapping, 20 480 blocks one after
+// another on each SM.  dx's M is C: 128-row tiles compute 384 rows for 320.
+// moe_gmm_bwd_tc_kernel is one kernel for both:
+//
+// * Persistent.  One block an SM; block b walks output tiles b, b + grid,
+//   ... of a fixed order (expert slowest, then the M tile, the N tile
+//   fastest, so blocks side by side share an A panel).  Every tile is
+//   written by exactly one block: no split-K and no atomics, so each
+//   element is one fp32 sum of the same exact products rounded once, and
+//   two calls are bit-equal.  The producer's ring runs on across tiles: it
+//   fills the next tile's stages while the consumers finish the last one.
+// * An epilogue that overlaps.  Each consumer warpgroup rounds its 64 x BN
+//   fp32 accumulator to bf16 into its own staging buffer in shared memory
+//   (stmatrix, in the TMA map's 128-byte swizzle) and one thread stores it
+//   with cp.async.bulk.tensor (shared -> global): the warpgroup goes on to
+//   the next tile's products while the copy runs, and waits for it to have
+//   read the buffer only at the next epilogue.  The store clips rows and
+//   columns past the tensor, so ragged M and N need no masks.
+// * dx as dx^T.  dx = dy . w^T has M = C; the kernel computes dx^T (D x C)
+//   = w (D x F) . dy^T instead, both operands K-major (w as stored, dy read
+//   as (C, F) rows), with C as N in tiles of BN = 160 (2 tiles for Scout's
+//   320, no row wasted; C <= 64: BN 64), and stores each 8 x 8 accumulator
+//   block transposed (stmatrix.trans) into dx's (C, D) rows.  dw = x^T . dy
+//   stays as it was: A = x and B = dy both MN-major, BN 256.
+//
+// Tiles: BM 128 (two consumer warpgroups of 64 rows of D), 64-deep stages.
+// Shared memory: dw 3 stages of 48 KB and 2 x 32 KB staging (214 064 bytes
+// with barriers and alignment); dx 4 stages of 36 KB and 2 x 20 KB (189 504);
+// dx at C <= 64 8 stages of 24 KB and 2 x 8 KB (214 144).  Registers: the
+// consumers' setmaxnreg 232 holds dw's 128 accumulators a thread.
+template <int BN, int STAGES>
+struct BwdGmm {
+  static constexpr int BM = 128;
+  static constexpr int kThreads = 384;
+  static constexpr int kStage = BM * 128 + BN * 128;  // A and B tiles
+  static constexpr int kOutBytes = BN * 128;  // a warpgroup's 64 x BN bf16
+  static constexpr int kSmem =
+      STAGES * kStage + 2 * kOutBytes + 2 * STAGES * 8 + 1024;
+};
+static_assert(BwdGmm<256, 3>::kSmem == 214064 &&
+                  BwdGmm<160, 4>::kSmem == 189504 &&
+                  BwdGmm<64, 8>::kSmem == 214144,
+              "the byte sums of the source note");
+static_assert(BwdGmm<256, 3>::kSmem <= 232448 &&
+                  BwdGmm<160, 4>::kSmem <= 232448 &&
+                  BwdGmm<64, 8>::kSmem <= 232448,
+              "a block's dynamic shared memory");
+
+// out (E, M, N) = A . B, or with TOUT its transpose stored as (E, N, M);
+// TA = 1: A stored (E, K, M), else (E, M, K); TB = 1: B stored (E, K, N),
+// else (E, N, K).  omap: the output's map, boxes of 64 inner elements x 64
+// rows (64 x BN with TOUT).  grid: min(tiles, SMs), 384 threads.
+template <int BN, int STAGES, int TA, int TB, bool TOUT>
+__global__ void __launch_bounds__(BwdGmm<BN, STAGES>::kThreads, 1)
+moe_gmm_bwd_tc_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap omap, int E, int M,
+                      int K, int N) {
+  using Cfg = BwdGmm<BN, STAGES>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* staging = smem + STAGES * Cfg::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * Cfg::kOutBytes);
+  uint64_t* empty = full + STAGES;
+
+  const int n_m = (M + Cfg::BM - 1) / Cfg::BM, n_n = (N + BN - 1) / BN;
+  const int tiles = E * n_m * n_n;
+  const int n_k = (K + kTcBK - 1) / kTcBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      int i = 0;  // stage uses, counted across tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int n0 = t % n_n * BN, m0 = t / n_n % n_m * Cfg::BM;
+        const int e = t / (n_n * n_m);
+        for (int kb = 0; kb < n_k; ++kb, ++i) {
+          const int s = i % STAGES, r = i / STAGES;
+          if (r > 0) mbar_wait(&empty[s], (r - 1) & 1);
+          uint8_t* as = smem + s * Cfg::kStage;
+          uint8_t* bs = as + Cfg::BM * 128;
+          const int k0 = kb * kTcBK;
+          mbar_expect_tx(&full[s], Cfg::kStage);
+          if constexpr (TA == 0) {
+            tma_load_3d(as, &amap, &full[s], k0, m0, e);
+          } else {
+#pragma unroll
+            for (int j = 0; j < Cfg::BM / 64; ++j)
+              tma_load_3d(as + j * kBoxBytes, &amap, &full[s], m0 + 64 * j,
+                          k0, e);
+          }
+          if constexpr (TB == 0) {
+            tma_load_3d(bs, &bmap, &full[s], k0, n0, e);
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load_3d(bs + j * kBoxBytes, &bmap, &full[s], n0 + 64 * j,
+                          k0, e);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: rows m0 + 64 wg .. m0 + 64 wg + 63
+    regs_inc<232>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const bool leader = threadIdx.x % 128 == 0;  // issues the stores
+    uint8_t* out = staging + wg * Cfg::kOutBytes;
+    int i = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int n0 = t % n_n * BN, m0 = t / n_n % n_m * Cfg::BM;
+      const int e = t / (n_n * n_m);
+      float acc[BN / 2];
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+      for (int kb = 0; kb < n_k; ++kb, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        // K-major: rows 64 wg.. of one box; MN-major: box wg
+        const uint8_t* as = smem + s * Cfg::kStage + wg * 64 * 128;
+        const uint8_t* bs = smem + s * Cfg::kStage + Cfg::BM * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTcBK / 16; ++kk) {
+          const uint64_t ad =
+              TA ? sw128_desc(as + kk * 16 * 128, kBoxBytes, 1024)
+                 : sw128_desc(as + kk * 32, 16, 1024);
+          const uint64_t bd =
+              TB ? sw128_desc(bs + kk * 16 * 128, kBoxBytes, 1024)
+                 : sw128_desc(bs + kk * 32, 16, 1024);
+          mma_ss<TB, TA>(acc, ad, bd, 1);
+        }
+        wgmma_commit();
+        // the previous stage's products are done: hand its buffers back
+        wgmma_wait<1>();
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+
+      // epilogue: the last tile's store has read the staging buffer
+      if (leader) bulk_wait_read<0>();
+      named_sync(1 + wg, 128);
+      // four 8 x 8 blocks a step: columns 8 j .. 8 j + 15, rows 16 warp ..
+      // 16 warp + 15; lane l addresses row l % 8 of block l / 8
+      const int blk = lane / 8, rr = lane % 8;
+      const int h = blk % 2;
+#pragma unroll
+      for (int j = 0; j < BN / 8; j += 2) {
+        const uint32_t r[4] = {pack_bf16(acc[4 * j], acc[4 * j + 1]),
+                               pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+                               pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+                               pack_bf16(acc[4 * j + 6], acc[4 * j + 7])};
+        const int jj = j + blk / 2;  // the block's 8-column group
+        if constexpr (TOUT) {
+          // transposed: staging row = column 8 jj + rr of the tile, its 16
+          // bytes the rows 16 warp + 8 h .. + 7 (chunk 2 warp + h)
+          const int c = 8 * jj + rr;
+          stmatrix_x4_trans(out + c * 128 + (((2 * warp + h) ^ rr) << 4), r);
+        } else {
+          // box jj / 8 of 64 columns, row 16 warp + 8 h + rr, chunk jj % 8
+          const int m = 16 * warp + 8 * h + rr;
+          stmatrix_x4(out + jj / 8 * kBoxBytes + m * 128 +
+                          (((jj % 8) ^ rr) << 4),
+                      r);
+        }
+      }
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+      if (leader && m0 + 64 * wg < M) {
+        if constexpr (TOUT) {
+          tma_store_3d(&omap, out, m0 + 64 * wg, n0, e);
+        } else {
+#pragma unroll
+          for (int jb = 0; jb < BN / 64; ++jb)
+            if (n0 + 64 * jb < N)
+              tma_store_3d(&omap, out + jb * kBoxBytes, n0 + 64 * jb,
+                           m0 + 64 * wg, e);
+        }
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait<0>();
+  }
+}
+
+template <int BN, int STAGES, int TA, int TB, bool TOUT>
+int launch_gmm_bwd_tc(const CUtensorMap& amap, const CUtensorMap& bmap,
+                      const CUtensorMap& omap, int E, int M, int K, int N,
+                      cudaStream_t stream) {
+  using Cfg = BwdGmm<BN, STAGES>;
+  static std::atomic<size_t> ready[hopper::kMaxDevices];
+  auto* fn = moe_gmm_bwd_tc_kernel<BN, STAGES, TA, TB, TOUT>;
+  cudaError_t err = hopper::allow_smem(fn, Cfg::kSmem, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long tiles = static_cast<long>(E) * ((M + Cfg::BM - 1) / Cfg::BM) *
+                     ((N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  fn<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(amap, bmap, omap, E, M, K,
+                                                  N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx^T (E, D, C) = w . dy^T stored as dx (E, C, D), then dw (E, D, F) =
+// x^T . dy, in order on the stream
+int gmm_bwd_tc(const void* x, const void* w, const void* dy, void* dx,
+               void* dw, int E, int C, int D, int F, cudaStream_t stream) {
+  CUtensorMap amap, bmap, omap;
+  const int bn = C <= 64 ? 64 : 160;
+  int err = gmm_map(&amap, w, E, D, F, 128);
+  if (!err) err = gmm_map(&bmap, dy, E, C, F, bn);
+  if (!err) err = gmm_map(&omap, dx, E, C, D, bn);
+  if (!err)
+    err = bn == 64
+              ? launch_gmm_bwd_tc<64, 8, 0, 0, true>(amap, bmap, omap, E, D,
+                                                     F, C, stream)
+              : launch_gmm_bwd_tc<160, 4, 0, 0, true>(amap, bmap, omap, E, D,
+                                                      F, C, stream);
+  if (err) return err;
+  err = gmm_map(&amap, x, E, C, D, 64);
+  if (!err) err = gmm_map(&bmap, dy, E, C, F, 64);
+  if (!err) err = gmm_map(&omap, dw, E, D, F, 64);
+  if (err) return err;
+  return launch_gmm_bwd_tc<256, 3, 1, 1, false>(amap, bmap, omap, E, D, C, F,
+                                                stream);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -412,14 +665,11 @@ extern "C" int moe_gmm_bwd_launch(const void* x, const void* w, const void* dy,
   return repro_torch::gmm_bwd<__nv_bfloat16>(x, w, dy, dx, dw, E, C, D, F, s);
 }
 
-// The backward on the tensor cores: bf16, D and F multiples of 8, C >= 1
-// (the caller's route).  dx = dy . w^T reads w K-major (tnspB = 0); dw =
-// x^T . dy reads x MN-major (tnspA = 1) with K = C.
+// The backward on the tensor cores, moe_gmm_bwd_tc_kernel: bf16, D and F
+// multiples of 8, C >= 1 (the caller's route).
 extern "C" int moe_gmm_bwd_tc_launch(const void* x, const void* w,
                                      const void* dy, void* dx, void* dw, int E,
                                      int C, int D, int F, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const int err = repro_torch::dispatch_gmm_tc<0, 0>(dy, w, dx, E, C, F, D, s);
-  if (err) return err;
-  return repro_torch::dispatch_gmm_tc<1, 1>(x, dy, dw, E, D, C, F, s);
+  return repro_torch::gmm_bwd_tc(x, w, dy, dx, dw, E, C, D, F,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -117,7 +117,7 @@ def _build() -> KernelLibrary:
             ("dsqe_score_select_launch", [P] * 14 + [I] * 11 + [P], I),
             ("flash_attention_launch", [P] * 5 + [I] * 10 + [P], I),
             ("flash_attention_tc_launch", [P] * 5 + [I] * 9 + [P], I),
-            ("flash_attention_bwd_launch", [P] * 10 + [I] * 11 + [P], I),
+            ("flash_attention_bwd_launch", [P] * 10 + [I] * 12 + [P, P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
             ("decode_attention_tc_smem_bytes", [I], S),
             ("decode_attention_tc_launch", [P] * 8 + [I] * 9 + [P], I),

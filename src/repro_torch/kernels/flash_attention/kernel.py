@@ -21,19 +21,23 @@ kernel, so the serving variant is untouched), which also writes lse (B, H,
 Sq) in fp32, and the backward ``csrc/flash_attention_bwd.cu`` (``launch_bwd``):
 a delta kernel, then a dK/dV kernel over KV tiles and a dQ kernel over query
 tiles, deterministic (no atomics).  Its variants (``route_bwd``):
-``"tc"``, bf16 with head_dim <= 128, the pair on wgmma fed by TMA (the
-forward's shape; its delta kernel also packs lse * log2(e) and delta into
-one scratch padded to 64 rows, so that both load by bulk copy); ``"ffma"``,
-fp32 and wider bf16 heads, on the CUDA cores.
+``"tc"``, bf16, on wgmma fed by TMA (the forward's shape; its delta
+kernel also packs lse * log2(e) and delta into one scratch padded to 64
+rows, so that both load by bulk copy): one pair up to head_dim 128, a wide
+pair above it (up to 256), whose two consumer warpgroups split the head
+dimension of dK and dV, and whose dK/dV blocks may split a KV group's query
+heads (``bwd_head_splits``); ``"ffma"``, fp32, on the CUDA cores.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import KERNEL_DTYPES, on_device, raw_stream
+from repro_torch.kernels.common import (KERNEL_DTYPES, on_device, raw_stream,
+                                        sm_count)
 
 VARIANTS = ("tc", "ffma")
+WIDE_KEYS = 64  # keys of a block of the wide dK/dV kernel (head_dim > 128)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -46,10 +50,33 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def route_bwd(dtype: torch.dtype, head_dim: int) -> str:
     """The backward's variant for inputs that pass
-    ``check_attention_inputs``."""
-    if dtype == torch.bfloat16 and head_dim <= 128:
+    ``check_attention_inputs`` (head_dim a multiple of 16 up to 256)."""
+    if dtype == torch.bfloat16 and head_dim <= 256:
         return "tc"
     return "ffma"
+
+
+def bwd_head_splits(B: int, Skv: int, Kv: int, H: int, head_dim: int,
+                    sms: int) -> int:
+    """How many dK/dV blocks share the G = H / Kv query heads of one KV
+    group in the tensor-core backward (each walks a contiguous run of them,
+    and a second kernel adds their fp32 partials in run order).
+
+    Only the wide kernel (head_dim > 128) splits, and only where its grid,
+    B Kv ceil(Skv / 64) blocks of one an SM (its shared memory leaves room
+    for no second), is under one wave of ``sms`` blocks.  Then the heads are
+    cut into the fewest equal runs (a divisor of G) that make two waves, or
+    into G: under a causal or window mask the key tiles carry unequal work,
+    and two waves of smaller blocks let the SMs even it out.
+    RecurrentGemma-2B trains at B 1, Skv 4096, one KV head of 10: 64
+    blocks, 5 runs of 2 heads (on the H100 faster than 1, 2 or 10 runs,
+    PERF.md).  Otherwise 1."""
+    blocks = B * Kv * -(-Skv // WIDE_KEYS)
+    if head_dim <= 128 or blocks >= sms:
+        return 1
+    G = H // Kv
+    return next(d for d in range(1, G + 1)
+                if G % d == 0 and (blocks * d >= 2 * sms or d == G))
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
@@ -101,12 +128,17 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{variant!r}")
     if variant == "tc" and route_bwd(q.dtype, hd) != "tc":
         raise ValueError(f"flash_attention backward: the tensor-core variant "
-                         f"takes bf16 with head_dim <= 128, got {q.dtype}, "
+                         f"takes bf16 with head_dim <= 256, got {q.dtype}, "
                          f"{hd}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # "tc": lse * log2(e) and delta side by side, rows padded to 64
     shape = (B, H, 2, -(-Sq // 64) * 64) if variant == "tc" else (B, H, Sq)
     delta = torch.empty(shape, dtype=torch.float32, device=q.device)
+    splits = bwd_head_splits(B, Skv, Kv, H, hd, sm_count(q.device)) \
+        if variant == "tc" else 1
+    # the splits' fp32 dK and dV partials
+    part = torch.empty((2, splits, k.numel()), dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     lib = kernel_library().lib
     with on_device(q.device):
         err = lib.flash_attention_bwd_launch(
@@ -114,6 +146,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), KERNEL_DTYPES[q.dtype], B, Sq, Skv,
             H, Kv, hd, int(causal), window, chunk_attn, int(variant == "tc"),
+            splits, None if part is None else part.data_ptr(),
             raw_stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: error "

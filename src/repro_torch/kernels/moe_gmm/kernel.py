@@ -13,11 +13,14 @@ decode) and how each variant is built.
 * ``"ffma"``, everything else (fp32, and bf16 shapes TMA cannot take):
   ``moe_gmm_kernel``, the first port's fp32 FFMA design from shared memory.
 
-The backward (``launch_bwd``) launches the same two kernels on the other
-operand layouts, dx = dy . w^T and then dw = x^T . dy, by one rule
-(``route_bwd``, the forward's): ``"tc"`` reads w K-major for dx and x
-MN-major for dw (wgmma's tnspB = 0 and tnspA = 1), ``"ffma"`` loads each
-operand along its contiguous axis.  Both are deterministic (no atomics).
+The backward (``launch_bwd``) computes dx = dy . w^T and then dw = x^T .
+dy, by one rule (``route_bwd``, the forward's): ``"tc"`` launches
+``moe_gmm_bwd_tc_kernel`` twice, a persistent kernel (one block an SM, a
+fixed walk over output tiles, the epilogue's TMA store overlapping the next
+tile) that computes dx as dx^T = w . dy^T in tiles of C fitted to 160 rows,
+and dw with x and dy read MN-major; ``"ffma"`` launches the FFMA kernel on
+the other operand layouts, loading each along its contiguous axis.  Both
+are deterministic (no split-K, no atomics).
 """
 from __future__ import annotations
 
@@ -62,6 +65,15 @@ def launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"moe_gmm {variant} launch failed: error {err}")
     return out
+
+
+def bwd_tc_tiles(E: int, C: int, D: int, F: int) -> tuple[int, int]:
+    """The output tiles the tensor-core backward walks, (dx, dw): dx as
+    dx^T (E, D, C) in 128 x 160 tiles (128 x 64 when C <= 64), dw (E, D, F)
+    in 128 x 256 (``csrc/moe_gmm.cu: gmm_bwd_tc``).  Each launch runs
+    min(tiles, SMs) blocks."""
+    m = -(-D // 128)
+    return E * m * -(-C // (64 if C <= 64 else 160)), E * m * -(-F // 256)
 
 
 def route_bwd(dtype: torch.dtype, D: int, F: int) -> str:

@@ -1028,6 +1028,41 @@ def test_moe_gmm_backward_kernel_matches_plain(E, C, D, F, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("E,C,D,F,walk", [
+    (2, 40, 256, 512, "below"),      # dx 4 tiles, dw 8: fewer than the SMs
+    (5, 330, 1536, 768, "above"),    # 180 and 180: one wave and a part
+    (11, 64, 768, 1024, "multiple"),  # dw 264 = 2 x 132; dx 66 (C <= 64)
+])
+def test_moe_gmm_backward_persistent_walk(E, C, D, F, walk):
+    """bf16 through the autograd Function at tile counts below one block an
+    SM, above it and not a multiple of it, and an exact multiple: every tile
+    written once (the plain version's bound everywhere), the tc count moved,
+    two calls bit-equal."""
+    from repro_torch.kernels.moe_gmm import kernel
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    dev = _cuda()
+    sms = sm_count(dev)
+    dx_tiles, dw_tiles = kernel.bwd_tc_tiles(E, C, D, F)
+    if walk == "below":
+        assert max(dx_tiles, dw_tiles) < sms
+    elif walk == "above":
+        assert min(dx_tiles, dw_tiles) > sms and dw_tiles % sms
+    else:
+        assert dw_tiles % sms == 0 and dw_tiles > sms
+    x, w, dy = _gmm_bwd_case(np.random.default_rng(C + D), E, C, D, F,
+                             torch.bfloat16, dev)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = moe_gmm.launches_bwd_tc
+    got = torch.autograd.grad(moe_gmm(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches_bwd_tc == before + 1
+    _assert_gmm_bwd(got, x, w, dy, (E, C, D, F, walk))
+    again = kernel.launch_bwd(x, w, dy, "tc")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("E,C,D,F", [(16, 8, 520, 136), (3, 77, 72, 136),
                                      (2, 320, 1024, 2048)])
 def test_moe_gmm_backward_variants_agree_in_bf16(E, C, D, F):
@@ -1202,8 +1237,44 @@ def _flash_bwd_case(dtype, B, Sq, Skv, H, Kv, hd, masks, seed):
 @pytest.mark.parametrize("G", [1, 2, 7])
 def test_flash_backward_kernel_matches_plain(dtype, hd, G):
     """Causal, ragged S (not a multiple of any variant's tiles), GQA groups
-    of 1, 2 and 7 summed in the dK/dV block; bf16 at hd 256 takes FFMA."""
+    of 1, 2 and 7 summed in the dK/dV block; bf16 takes the tensor-core
+    kernels (at hd 256 the wide pair, whose 12 dK/dV blocks split the group
+    into G runs), the FFMA ones checked beside them."""
     _flash_bwd_case(dtype, 2, 150, 150, 2 * G, 2, hd, _CAUSAL, seed=hd + G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,hd,masks", [
+    # MQA G 10 at hd 256 with a window, S a multiple of no tile
+    (1, 300, 10, 1, 256, dict(causal=True, window=48, chunk_attn=0)),
+    (2, 150, 4, 2, 192, _CAUSAL),   # hd 192: the wide pair, padded to 256
+    (1, 200, 4, 2, 144, dict(causal=False, window=0, chunk_attn=64)),
+])
+def test_flash_backward_wide_kernel_matches_plain(B, S, H, Kv, hd, masks):
+    """The wide tensor-core pair (hd above 128) in bf16 against the plain
+    version, and the FFMA kernels beside it."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    assert kernel.route_bwd(torch.bfloat16, hd) == "tc"
+    _flash_bwd_case(torch.bfloat16, B, S, S, H, Kv, hd, masks, seed=S + hd)
+
+
+@pytest.mark.cuda
+def test_flash_backward_head_split_is_deterministic():
+    """B 1, one KV head of 10, S 2000 (32 dK/dV blocks): the heads split
+    into runs whose fp32 partials are summed in a fixed order; the result
+    within the bf16 limit, and two calls bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = _cuda()
+    masks = dict(causal=True, window=512, chunk_attn=0)
+    assert kernel.bwd_head_splits(1, 2000, 1, 10, 256, sm_count(dev)) > 1
+    q, k, v, out, lse, dout = _flash_bwd_case(torch.bfloat16, 1, 2000, 2000,
+                                              10, 1, 256, masks, seed=2000)
+    first = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **masks)
+    second = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **masks)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1231,14 +1302,16 @@ def test_flash_backward_long_ragged_sequence():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,variant", [(torch.float32, "ffma"),
-                                           (torch.bfloat16, "tc")])
+@pytest.mark.parametrize("dtype,variant,hd", [(torch.float32, "ffma", 32),
+                                              (torch.bfloat16, "tc", 32),
+                                              (torch.bfloat16, "tc", 256)])
 def test_flash_backward_rows_that_see_nothing_get_zero_gradients(dtype,
-                                                                 variant):
+                                                                 variant, hd):
     """chunk 16 with Sq 48 > Skv 24: query rows 32-47 are in a chunk that has
-    no key; their output, dq and every contribution are 0, not NaN."""
+    no key; their output, dq and every contribution are 0, not NaN (hd 256:
+    the wide pair)."""
     q, k, v, out, lse, dout = _flash_bwd_case(
-        dtype, 1, 48, 24, 2, 1, 32,
+        dtype, 1, 48, 24, 2, 1, hd,
         dict(causal=True, window=0, chunk_attn=16), seed=5)
     from repro_torch.kernels.flash_attention import kernel
 
@@ -1271,20 +1344,23 @@ def test_flash_backward_is_deterministic(dtype, variant):
 
 @pytest.mark.cuda
 def test_flash_backward_routes_follow_dtype_and_width():
-    """bf16 up to hd 128 takes the wgmma pair, fp32 and bf16 at hd 192 or
-    256 the FFMA kernels; the tensor-core variant refuses the rest."""
+    """bf16 takes the tensor-core kernels at every width up to hd 256 (the
+    wgmma pair up to 128, the wide pair above), fp32 the FFMA kernels; the
+    tensor-core variant refuses fp32."""
     from repro_torch.kernels.flash_attention import kernel
 
     assert kernel.route_bwd(torch.bfloat16, 128) == "tc"
     assert kernel.route_bwd(torch.bfloat16, 16) == "tc"
-    assert kernel.route_bwd(torch.bfloat16, 192) == "ffma"
+    assert kernel.route_bwd(torch.bfloat16, 192) == "tc"
+    assert kernel.route_bwd(torch.bfloat16, 256) == "tc"
     assert kernel.route_bwd(torch.float32, 64) == "ffma"
+    assert kernel.route_bwd(torch.float32, 256) == "ffma"
     dev = _cuda()
     rng = np.random.default_rng(6)
     q, k, v, dout = _flash_train_inputs(rng, 1, 40, 40, 2, 1, 256,
-                                        torch.bfloat16, dev)
-    out, lse = kernel.launch(q, k, v, "tc", with_lse=True, **_CAUSAL)
-    with pytest.raises(ValueError, match="128"):
+                                        torch.float32, dev)
+    out, lse = kernel.launch(q, k, v, "ffma", with_lse=True, **_CAUSAL)
+    with pytest.raises(ValueError, match="256"):
         kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **_CAUSAL)
 
 

@@ -7,8 +7,11 @@ Both are plain functions of dtype and shape, so they run on the CPU:
   strides) goes to the wgmma kernel, everything else to the FFMA kernel;
   its backward by the same rule.
 * ``flash_attention``: bf16 goes to the wgmma kernel, fp32 to the FFMA one;
-  its backward: bf16 up to head_dim 128 to the wgmma pair (``"tc"``), the
-  rest to the FFMA kernels (``"ffma"``); no other name is a variant.
+  its backward: bf16 (every head_dim up to 256) to the wgmma kernels
+  (``"tc"``), fp32 to the FFMA kernels (``"ffma"``); no other name is a
+  variant.  ``bwd_head_splits`` splits a KV group's query heads over dK/dV
+  blocks of the wide (head_dim > 128) kernel where its grid is under one
+  wave.
 * ``decode_attention``: bf16 with G = H / Kv <= 16 goes to the mma.sync
   kernel, everything else (fp32) to the FFMA kernel; ``tc_splits`` cuts W
   into whole tiles within one wave of blocks.
@@ -62,6 +65,19 @@ def test_moe_gmm_backward_refuses_before_launch(dtype, D, F, variant,
         gmm_kernel.launch_bwd(x, w, dy, variant)
 
 
+@pytest.mark.parametrize("E,C,D,F,want", [
+    (16, 320, 5120, 8192, (1280, 20480)),  # Scout's train gate/up
+    (16, 320, 8192, 5120, (2048, 20480)),  # and down
+    (16, 8, 5120, 8192, (640, 20480)),     # decode-sized C: 64-wide dx tiles
+    (5, 330, 1536, 768, (180, 180)),       # ragged C on 160
+    (1, 1, 64, 64, (1, 1)),
+])
+def test_moe_gmm_backward_tiles(E, C, D, F, want):
+    """The persistent backward's tiles: dx^T in 128 x 160 (C > 64: Scout's
+    C = 320 in exactly two) or 128 x 64, dw in 128 x 256."""
+    assert gmm_kernel.bwd_tc_tiles(E, C, D, F) == want
+
+
 @pytest.mark.parametrize("dtype,hd,want", [
     (bf16, 128, "tc"), (bf16, 256, "tc"), (bf16, 64, "tc"), (bf16, 16, "tc"),
     (bf16, 48, "tc"), (bf16, 192, "tc"),
@@ -74,21 +90,52 @@ def test_flash_attention_route(dtype, hd, want):
 @pytest.mark.parametrize("dtype", [bf16, f32])
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112, 128, 192, 256])
 def test_flash_backward_route(dtype, hd):
-    want = "tc" if dtype == bf16 and hd <= 128 else "ffma"
+    want = "tc" if dtype == bf16 and hd <= 256 else "ffma"
     assert flash_kernel.route_bwd(dtype, hd) == want
 
 
-@pytest.mark.parametrize("dtype,hd", [(bf16, 192), (bf16, 256), (f32, 128),
+@pytest.mark.parametrize("dtype,hd", [(f32, 192), (f32, 256), (f32, 128),
                                       (f32, 64)])
 def test_flash_backward_tensor_core_variant_refuses_before_launch(dtype, hd):
-    """The wgmma pair takes bf16 with head_dim <= 128 only: asked for
-    anything else it raises before anything is built or launched."""
+    """The wgmma kernels take bf16 (head_dim <= 256) only: asked for
+    anything else they raise before anything is built or launched."""
     q = torch.zeros((1, 8, 2, hd), dtype=dtype)
     k = torch.zeros((1, 8, 1, hd), dtype=dtype)
     lse = torch.zeros((1, 2, 8))
-    with pytest.raises(ValueError, match="head_dim <= 128"):
+    with pytest.raises(ValueError, match="head_dim <= 256"):
         flash_kernel.launch_bwd(q, k, k, q, lse, q, "tc", causal=True,
                                 window=0, chunk_attn=0)
+
+
+@pytest.mark.parametrize("B,Skv,Kv,H,hd,want", [
+    (1, 4096, 1, 10, 256, 5),    # RecurrentGemma-2B's train microbatch
+    (2, 4096, 1, 10, 256, 5),    # 128 blocks: still under a wave
+    (1, 8192, 1, 10, 256, 5),
+    (1, 1000, 1, 10, 256, 10),   # 16 blocks: two waves need more than G
+    (1, 2000, 1, 10, 256, 10),   # 32 blocks: 5 runs make 160, under two waves
+    (1, 3000, 1, 10, 256, 10),   # 47 blocks: 5 runs make 235, still short
+    (1, 64, 2, 4, 192, 2),       # G 2 caps the runs
+    (1, 5000, 1, 1, 256, 1),     # MHA: nothing to split
+    (4, 4096, 8, 16, 128, 1),    # InternLM2: the hd <= 128 pair never splits
+    (1, 64, 1, 10, 128, 1),
+    (1, 4096, 8, 16, 256, 1),    # 512 blocks: a wave already
+])
+def test_flash_backward_head_splits(B, Skv, Kv, H, hd, want):
+    """The wide dK/dV kernel's head splits on an H100's 132 SMs: under one
+    wave of the B Kv Skv / 64 blocks, the fewest equal runs of the group's
+    heads (a divisor of G) that make two waves, or G; 1 once the blocks
+    fill a wave, and always at head_dim <= 128."""
+    splits = flash_kernel.bwd_head_splits(B, Skv, Kv, H, hd, 132)
+    assert splits == want
+    G = H // Kv
+    blocks = B * Kv * -(-Skv // flash_kernel.WIDE_KEYS)
+    assert G % splits == 0
+    if hd <= 128 or blocks >= 132:
+        assert splits == 1
+    else:
+        assert blocks * splits >= 2 * 132 or splits == G
+        assert all(blocks * d < 2 * 132 for d in range(1, splits)
+                   if G % d == 0)
 
 
 @pytest.mark.parametrize("variant", ["mma", "wgmma", "TC", ""])

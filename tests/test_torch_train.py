@@ -69,6 +69,8 @@ def _rel(got, want) -> float:
     (2, 16, 24, 4, 2, 32, dict(causal=False, window=0, chunk_attn=0)),
     (2, 24, 16, 4, 2, 16, dict(causal=True, window=0, chunk_attn=0)),
     (1, 24, 24, 4, 4, 16, dict(causal=True, window=0, chunk_attn=0)),
+    # RecurrentGemma-2B's attention: MQA (G 10), hd 256, a window
+    (1, 24, 24, 10, 1, 256, dict(causal=True, window=8, chunk_attn=0)),
 ])
 def test_flash_backward_matches_jax_custom_vjp(B, Sq, Skv, H, Kv, hd, masks):
     rng = np.random.default_rng(Sq + Skv + hd)
