@@ -15,7 +15,9 @@ line each:
    kernels whose wgmma instructions ptxas serialized.
 2. ``kernels``: each kernel against its plain version (the attention
    kernels element by element in bf16, and at 1e-5 on the same inputs in
-   fp32; see ``attention_kernels``, ``gmm_kernels`` and ``scan_kernels``),
+   fp32; see ``attention_kernels`` and ``gmm_kernels``; rglru_scan bit for
+   bit, ``scan_kernels``, with its plan, route and the other store
+   variant's time, and no ptxas spill in ``rglru_scan.cu``),
    with its time per call (CUDA events around back-to-back calls, so at
    small shapes the wrapper's host overhead is part of it), the plain
    version's time, the least time the card could take (``bound_ms``) and
@@ -92,8 +94,9 @@ line each:
    launch counts, the share of assignments dropped by capacity, and
    prefill -> decode on a dropless twin.
 9. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
-   (``hybrid_phase``): exact rglru_scan / flash / decode launch counts and
-   prefill -> decode through a wrapped ring.
+   (``hybrid_phase``): exact rglru_scan / flash / decode launch counts (the
+   scan's on the route ``scan_plan`` names) and prefill -> decode through a
+   wrapped ring.
 10. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
    (``xlstm_phase``): no attention launches, prefill -> decode by teacher
    forcing (the mLSTM prefill takes whole 256-token chunks only).
@@ -123,7 +126,8 @@ line each:
 14. ``train_hybrid``: RecurrentGemma-2B uncut trained through
    ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
    microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
-   backward and flash launches (the backward on the wide tensor-core pair
+   backward launches, every one on the producer route ``scan_plan`` names,
+   and flash launches (the backward on the wide tensor-core pair
    at hd 256, none on FFMA), the profiled step's backward split by kernel;
    the scan's backward bit-equal to its plain version
    (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
@@ -165,6 +169,15 @@ SRC = ROOT / "src"
 PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 66.9e12, 989e12)}
 TIE = 1e-5  # values this close may order either way under fp32 rounding
 VARIANTS = ("tc", "ffma")  # the kernels with two variants count each apart
+SCAN_ROUTES = ("tma", "cp_async")  # rglru_scan's producers, counted apart
+
+
+def op_variants(op) -> tuple:
+    """The counted variants of a kernel op: tc / ffma, the scan's producer
+    routes, or none."""
+    if hasattr(op, "launches_tc"):
+        return VARIANTS
+    return SCAN_ROUTES if hasattr(op, "launches_tma") else ()
 ATOL = 1e-5  # unit-vector similarities and vote sums of <= k such terms
 TRIALS, LOOP = 5, 20
 ROW_MAX_D = 1024  # widths the warp-per-row kernels are timed at (they refuse
@@ -679,20 +692,50 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
     return summary
 
 
+def scan_route(B, S, R, dtype, backward) -> str:
+    """The producer route ``kernel.scan_plan`` names for an rglru_scan
+    launch (16-byte aligned tensors, as the model's fresh ones are)."""
+    from repro_torch.kernels.rglru_scan.kernel import scan_plan
+
+    return scan_plan(B, S, R, dtype, backward).route
+
+
+def scan_fields(torch, a, backward, other_store) -> dict:
+    """rglru_scan's plan at a's shape (route, CH, T, D, shared bytes) and the
+    time of the store variant its C entry does not keep (``other_store``,
+    which the TMA route only has)."""
+    from repro_torch.kernels.rglru_scan.kernel import TMA_STORE, plan_for
+
+    plan = plan_for(a, backward=backward)
+    row = dict(route=plan.route, CH=plan.ch, T=plan.t, D=plan.d,
+               smem_bytes=plan.smem_bytes, blocks=plan.blocks,
+               store=("tma" if TMA_STORE else "per step"))
+    if plan.route == "tma":
+        row.update(other_store="per step" if TMA_STORE else "tma",
+                   other_store_ms=time_ms(torch, other_store),
+                   other_store_graph_ms=graph_ms(torch, other_store))
+    return row
+
+
 def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
-    """rglru_scan against its plain version at the served RecurrentGemma-2B
-    prefill (B 4, S 3072, R 2560; the model feeds it fp32 decays and
-    inputs), the same in bf16, and a ragged shape: max |out - ref| <=
-    F32_REL max |ref| (both run the same fp32 recurrence, rounding the
-    product and the sum apart).  No single PyTorch call computes the
-    recurrence, so there is no library time.  Returns the served shape's
-    numbers."""
+    """rglru_scan against its plain version at RecurrentGemma-2B's train
+    microbatch (B 1, S 4096, R 2560) and served prefill (B 4, S 3072; the
+    model feeds it fp32 decays and inputs), the served prefill in bf16, and
+    a ragged shape: bit-equal to the plain loop (both run the same fp32
+    recurrence in the same order, rounding the product and the sum apart),
+    with the launch on the route ``kernel.scan_plan`` names.  Each row logs
+    the plan (route, CH, T, D) and the other store variant's time.  No
+    single PyTorch call computes the recurrence, so there is no library
+    time.  Returns the train row, the shape of most of its launches."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
     from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
-    summary = None
+    rows = {}
     f32, bf16 = torch.float32, torch.bfloat16
-    for shape, B, S, R, dt in (("served prefill", 4, 3072, 2560, f32),
+    for shape, B, S, R, dt in (("train", 1, 4096, 2560, f32),
+                               ("served prefill", 4, 3072, 2560, f32),
                                ("served prefill bf16", 4, 3072, 2560, bf16),
                                ("ragged", 3, 1001, 1000, f32)):
         where = f"rglru_scan/{shape}"
@@ -701,24 +744,38 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
         x = torch.randn((B, S, R), generator=gen, device=dev).to(dt)
         h0 = torch.randn((B, R), generator=gen, device=dev)
         ref = rglru_scan_ref(a, x, h0)
-        err = float((rglru_scan_op(a, x, h0) - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        if not rel <= F32_REL:
+        route = scan_route(B, S, R, dt, False)
+        before = getattr(rglru_scan_op, f"launches_{route}")
+        got = rglru_scan_op(a, x, h0)
+        torch.cuda.synchronize()
+        if getattr(rglru_scan_op, f"launches_{route}") != before + 1:
+            raise AssertionError(f"{where}: not launched on the {route} "
+                                 "route")
+        err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
             raise AssertionError(f"{where}: kernel differs from the plain "
-                                 f"version by rel {rel}")
-        ms = time_ms(torch, lambda: rglru_scan_op(a, x, h0))
+                                 f"version by {err}")
+        if not torch.equal(rglru_scan_op(a, x, h0), got):
+            raise AssertionError(f"{where}: two calls differ")
+        del got
+        call = lambda: rglru_scan_op(a, x, h0)
+        ms, dev_ms = time_ms(torch, call), graph_ms(torch, call)
         plain = time_ms(torch, lambda: rglru_scan_ref(a, x, h0), 3, 2)
+        code = KERNEL_DTYPES[dt]
+        plan = scan_fields(torch, a, False, lambda: scan_kernel.launch(
+            a, x, h0, code, not scan_kernel.TMA_STORE))
         # a and x read once, h0 read, every state written in fp32
         b_ms, b_by = bound(bw, fp32, B * S * R * (2 * a.element_size() + 4)
                            + 4 * B * R, 2 * B * S * R)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
+                   bound_by=b_by, library_ms=None, graph_ms=dev_ms)
         log("kernels", kernel="rglru_scan", shape=shape, B=B, S=S, R=R,
-            dtype=str(dt).removeprefix("torch."), rel_err=rel, **row)
-        summary = summary or row
+            dtype=str(dt).removeprefix("torch."), bit_equal_plain=True,
+            bit_equal_repeat=True, **plan, **row)
+        rows[shape] = row
         del a, x, h0, ref
     torch.cuda.empty_cache()
-    return summary
+    return rows["train"]
 
 
 def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
@@ -752,13 +809,13 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
     def zero():
         for op in ops.values():
             op.launches = 0
-            for v in VARIANTS:
-                if hasattr(op, f"launches_{v}"):
-                    setattr(op, f"launches_{v}", 0)
+            for v in op_variants(op):
+                setattr(op, f"launches_{v}", 0)
 
     def variants():
-        return {name: {v: getattr(op, f"launches_{v}") for v in VARIANTS}
-                for name, op in ops.items() if hasattr(op, "launches_tc")}
+        return {name: {v: getattr(op, f"launches_{v}")
+                       for v in op_variants(op)}
+                for name, op in ops.items() if op_variants(op)}
 
     zero()
     t0 = time.perf_counter()
@@ -792,7 +849,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
             ("prefill", prefill_launches, prefill_variants),
             ("decode", decode_launches, decode_variants)):
         for name, n in by_variant.items():
-            if n != {"tc": counts[name], "ffma": 0}:
+            if "tc" in n and n != {"tc": counts[name], "ffma": 0}:
                 raise AssertionError(f"{cfg.name} {what}: {name} launched "
                                      f"{n} by variant, want every one of "
                                      f"{counts[name]} on the tensor cores")
@@ -813,7 +870,7 @@ def variant_totals(run) -> dict:
     out = {}
     for counts in (run["prefill_variants"], run["decode_variants"]):
         for name, by in counts.items():
-            acc = out.setdefault(name, dict.fromkeys(VARIANTS, 0))
+            acc = out.setdefault(name, dict.fromkeys(by, 0))
             for v, n in by.items():
                 acc[v] += n
     return out
@@ -1119,6 +1176,11 @@ def hybrid_phase(torch, dev) -> dict:
     check_launches(cfg, "decode", run["decode_launches"],
                    {"rglru_scan": 0, "flash_attention": 0,
                     "decode_attention": n_attn * OUT})
+    # the block feeds the scan fp32 decays and inputs (models/blocks.py)
+    route = scan_route(B, S, cfg.rnn_state_dim, torch.float32, False)
+    check_launches(cfg, "prefill rglru_scan by route",
+                   run["prefill_variants"]["rglru_scan"],
+                   {r: n_rec * (r == route) for r in SCAN_ROUTES})
     rels = prefill_decode_rel(torch, params, cfg, prompts, run)
     log("hybrid_model",
         **served_fields(torch, cfg, params, run, OUT, init_s),
@@ -1501,7 +1563,9 @@ TRAIN_COUNTERS = {
                         "launches_bwd_ffma"),
     "moe_gmm": ("launches", "launches_tc", "launches_ffma", "launches_bwd",
                 "launches_bwd_tc", "launches_bwd_ffma"),
-    "rglru_scan_op": ("launches", "launches_bwd"),
+    "rglru_scan_op": ("launches", "launches_tma", "launches_cp_async",
+                      "launches_bwd", "launches_bwd_tma",
+                      "launches_bwd_cp_async"),
     "decode_attention": ("launches",),
 }
 
@@ -2039,8 +2103,10 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
     RecurrentGemma-2B's train microbatch (B 1, S 4096, R 2560; fp32 decays
     and inputs, as the model feeds them), the same in bf16, and a ragged
     shape, with a non-zero h0: da, dx and dh0 bit-equal to the plain
-    version through the autograd Function (its counter must move), and two
-    calls bit-equal.  No PyTorch call computes it.  Bound: a, dh and h read
+    version through the autograd Function (its counter must move, on the
+    route ``kernel.scan_plan`` names), and two calls bit-equal; the plan
+    and the other store variant's time are logged.  No PyTorch call
+    computes it.  Bound: a, dh and h read
     once, da and dx written once (20 bytes an element in fp32), h0 read and
     dh0 written.  Returns the train row."""
     from repro_torch.kernels.common import KERNEL_DTYPES
@@ -2060,11 +2126,16 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
         h0 = torch.randn((B, R), generator=gen, device=dev)
         dh = torch.randn((B, S, R), generator=gen, device=dev)
         leaves = [t.detach().requires_grad_(True) for t in (a, x, h0)]
-        before = rglru_scan_op.launches_bwd
+        route = scan_route(B, S, R, dt, True)
+        before = (rglru_scan_op.launches_bwd,
+                  getattr(rglru_scan_op, f"launches_bwd_{route}"))
         h = rglru_scan_op(*leaves)
         got = torch.autograd.grad(h, leaves, dh)
-        if rglru_scan_op.launches_bwd != before + 1:
-            raise AssertionError(f"{where}: the count did not move")
+        if (rglru_scan_op.launches_bwd,
+                getattr(rglru_scan_op, f"launches_bwd_{route}")) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"{where}: the count did not move on the "
+                                 f"{route} route")
         h = h.detach()
         code = KERNEL_DTYPES[dt]
         bwd = lambda: scan_kernel.launch_bwd(a, h0, h, dh, code)
@@ -2081,6 +2152,8 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
         del got, again, ref, leaves
         ms, dev_ms = time_ms(torch, bwd), graph_ms(torch, bwd)
         plain = time_ms(torch, lambda: rglru_scan_bwd_ref(a, h0, h, dh), 2, 1)
+        plan = scan_fields(torch, a, True, lambda: scan_kernel.launch_bwd(
+            a, h0, h, dh, code, not scan_kernel.TMA_STORE))
         size = a.element_size()
         b_ms, b_by = bound(bw, fp32, B * S * R * (3 * size + 8) + 8 * B * R,
                            3 * B * S * R)
@@ -2088,7 +2161,7 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
                    bound_by=b_by, library_ms=None, graph_ms=dev_ms)
         log("kernels", kernel="rglru_scan_bwd", shape=shape, B=B, S=S, R=R,
             dtype=str(dt).removeprefix("torch."), bit_equal_plain=True,
-            bit_equal_repeat=True, **row)
+            bit_equal_repeat=True, **plan, **row)
         rows[shape] = row
         del a, x, h0, dh, h
         torch.cuda.empty_cache()
@@ -2259,9 +2332,14 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     twin_cfg = cfg.with_overrides(num_layers=HYBRID_TWIN_LAYERS,
                                   dtype="float32")
     r, a = (twin_cfg.layer_types.count(t) for t in ("rglru", "attn"))
+    R = cfg.rnn_state_dim
+    # the block feeds the scan fp32 decays and inputs (models/blocks.py)
+    fwd, bwd = (scan_route(1, 1024, R, torch.float32, b) for b in (0, 1))
     twin = fp32_twin(
         torch, dev, twin_cfg, 13,
-        {"rglru_scan_op.launches": 2 * r, "rglru_scan_op.launches_bwd": r,
+        {"rglru_scan_op.launches": 2 * r, f"rglru_scan_op.launches_{fwd}":
+         2 * r, "rglru_scan_op.launches_bwd": r,
+         f"rglru_scan_op.launches_bwd_{bwd}": r,
          "flash_attention.launches_lse": 2 * a,
          "flash_attention.launches_lse_ffma": 2 * a,
          "flash_attention.launches_bwd": a,
@@ -2274,6 +2352,9 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     pat = cfg.block_pattern
     unit_rec = cfg.num_layers // len(pat) * pat.count("rglru")
     M = HYBRID_TRAIN_MB
+    mb = HYBRID_TRAIN_B // M
+    fwd, bwd = (scan_route(mb, HYBRID_TRAIN_S, R, torch.float32, b)
+                for b in (0, 1))
     watch = StepWatch(torch, profiled=MOE_HYBRID_STEPS - 1)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2286,9 +2367,12 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = (2 * unit_rec + n_rec - unit_rec) * M
     want = want_counts({
-        "rglru_scan_op.launches": (2 * unit_rec + n_rec - unit_rec) * M,
+        "rglru_scan_op.launches": n_fwd,
+        f"rglru_scan_op.launches_{fwd}": n_fwd,
         "rglru_scan_op.launches_bwd": n_rec * M,
+        f"rglru_scan_op.launches_bwd_{bwd}": n_rec * M,
         "flash_attention.launches_lse": 2 * n_attn * M,
         "flash_attention.launches_lse_tc": 2 * n_attn * M,
         "flash_attention.launches_bwd": n_attn * M,
@@ -2326,7 +2410,11 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
              "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
              "flash_attention": total["flash_attention.launches_lse"],
              "flash_attention_bwd_wide": total["flash_attention.launches_bwd"]},
-            {"flash_attention": {
+            {"rglru_scan": {r: total[f"rglru_scan_op.launches_{r}"]
+                            for r in SCAN_ROUTES},
+             "rglru_scan_bwd": {r: total[f"rglru_scan_op.launches_bwd_{r}"]
+                                for r in SCAN_ROUTES},
+             "flash_attention": {
                 "lse_tc": total["flash_attention.launches_lse_tc"],
                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
              "flash_attention_bwd_wide": {
@@ -2865,6 +2953,10 @@ def main() -> int:
                     "bf16_tensor_flops_per_s": bf16},
         kernel_build_s=round(lib.build_s, 3), ptxas=ptxas_report(lib.log),
         wgmma_serialized=wgmma_serialized(lib.log))
+    spills = [e for e in ptxas_report(lib.log)
+              if e["kernel"].startswith("rglru_scan") and e["spill_bytes"]]
+    if spills:
+        raise AssertionError(f"ptxas spills in rglru_scan.cu: {spills}")
     dev = torch.device("cuda")
 
     # the served selector: its tables are the main-path shapes
@@ -3110,7 +3202,7 @@ def main() -> int:
         for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
         for op, by in by_variant.items():
-            acc = variants.setdefault(op, dict.fromkeys(VARIANTS, 0))
+            acc = variants.setdefault(op, dict.fromkeys(by, 0))
             for v, n in by.items():
                 acc[v] = acc.get(v, 0) + n
 

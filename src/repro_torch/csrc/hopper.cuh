@@ -6,9 +6,11 @@
 // descriptors, the wgmma instructions themselves, setmaxnreg, and the
 // host-side encoding of TMA tensor maps; the
 // cp.async, ldmatrix and warp-level mma.sync of the kernels with small tiles
-// (tiled_topk.cuh, decode_attention_tc.cu); plus the shared-memory limit
-// helper of every kernel with large tiles.  Everything here is sm_90a PTX
-// written inline; nothing comes from a library of finished kernels.
+// (tiled_topk.cuh, decode_attention_tc.cu), and cp.async completion on an
+// mbarrier with unswizzled TMA maps (the rings of rglru_scan.cu); plus the
+// shared-memory limit helper of every kernel with large tiles.  Everything
+// here is sm_90a PTX written inline; nothing comes from a library of
+// finished kernels.
 //
 // Layout contract of every tile: TMA writes a box whose innermost extent is
 // 64 bf16 (128 bytes) with CU_TENSOR_MAP_SWIZZLE_128B, so a box of R rows is
@@ -603,22 +605,30 @@ inline void bind_context() {
 constexpr int kMapError = 1000;
 constexpr int kNoEncoder = 999;
 
-// A bf16 tensor map with 128-byte swizzle.  dims and box innermost first;
-// strides in bytes for dims 1 .. rank - 1.  Elements outside dims read as 0.
-inline int bf16_map(CUtensorMap* map, const void* base, int rank,
-                    const cuuint64_t* dims, const cuuint64_t* strides,
-                    const cuuint32_t* box) {
+// A tensor map of `type` elements.  dims and box innermost first; strides in
+// bytes for dims 1 .. rank - 1.  Elements outside dims read as 0.  Without
+// swizzle a box lands in shared memory as a dense row-major block.
+inline int tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return kNoEncoder;
   bind_context();
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// A bf16 tensor map with 128-byte swizzle (the tensor-core kernels' tiles).
+inline int bf16_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint64_t* strides,
+                    const cuuint32_t* box) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                  strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // a (B, S, heads, hd) bf16 tensor as a 4-D map (hd, heads, S, B), boxes of
@@ -658,6 +668,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// arrive on `bar` once every cp.async this thread has issued so far has
+// landed; the arrival counts toward the barrier's expected count (.noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 // four 8 x 8 b16 matrices from shared memory; lane l gives the address of

@@ -126,7 +126,10 @@ def _build() -> KernelLibrary:
             ("moe_gmm_bwd_launch", [P] * 5 + [I] * 5 + [P], I),
             ("moe_gmm_bwd_tc_launch", [P] * 5 + [I] * 4 + [P], I),
             ("rglru_scan_launch", [P] * 4 + [I] * 4 + [P], I),
-            ("rglru_scan_bwd_launch", [P] * 7 + [I] * 4 + [P], I)):
+            ("rglru_scan_bwd_launch", [P] * 7 + [I] * 4 + [P], I),
+            ("rglru_scan_store_launch", [P] * 4 + [I] * 5 + [P], I),
+            ("rglru_scan_bwd_store_launch", [P] * 7 + [I] * 5 + [P], I),
+            ("rglru_scan_plan", [I] * 5 + [P], I)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = res
@@ -138,7 +141,8 @@ def kernel_library() -> KernelLibrary:
     """Every kernel in ``csrc/`` (retrieval_topk and dsqe_score, each with
     its tiled, select and row variants, flash_attention and decode_attention
     and their tensor-core variants, the flash backward, moe_gmm and its
-    backward, each with a tensor-core variant, rglru_scan and its backward),
+    backward, each with a tensor-core variant, rglru_scan and its backward,
+    each on a TMA or a cp.async producer),
     built if needed and loaded once per process."""
     global _loaded
     if _loaded is None:

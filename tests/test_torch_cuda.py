@@ -813,8 +813,9 @@ def test_xlstm_block_in_bf16_tracks_fp32_on_the_card(kind):
 # element: |out - ref| <= 2^-7 |ref| + 1e-5 (|x| . |w|).  Both sides round an
 # fp32 sum of the same products to bf16, each rounding at most 2^-8 of the
 # value; the sums themselves differ by far less than 1e-5 of the sum of the
-# products' magnitudes.  rglru_scan: max |out - ref| <= 1e-5 of max |ref|
-# (the same fp32 recurrence; both round the product and the sum apart).
+# products' magnitudes.  rglru_scan: bit-equal to rglru_scan_ref (the same
+# fp32 recurrence in the same order; both round the product and the sum
+# apart).
 
 
 def _gmm_case(rng, E, C, D, F, dtype, dev):
@@ -910,30 +911,101 @@ def test_kernel_routes_follow_dtype_and_shape():
         assert moved == ((1, 0) if variant == "tc" else (0, 1))
 
 
+# (B, S, R) of the scan kernels' card tests: ring tiles hold 32 steps
+_SCAN_SHAPES = [
+    (2, 256, 128), (1, 512, 100), (3, 100, 256),  # tests/test_kernels.py
+    (2, 17, 33),       # S shorter than a tile, R ragged (cp.async)
+    (2, 20, 64),       # S shorter than a tile on the TMA route
+    (3, 1001, 1000),   # S not a multiple of the tile, the last block ragged
+    (1, 1, 8),         # one step
+    (4, 3072, 2560),   # the served RecurrentGemma-2B prefill
+    (1, 4096, 2560),   # RecurrentGemma-2B's train microbatch
+]
+
+
+def _scan_inputs(rng, B, S, R, dtype, dev):
+    a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, R)),
+                        dtype=torch.float32, device=dev).to(dtype)
+    return (a, _randn(rng, (B, S, R), dtype, dev),
+            _randn(rng, (B, R), torch.float32, dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,R", [
-    (2, 256, 128), (1, 512, 100), (3, 100, 256),  # tests/test_kernels.py
-    (2, 17, 33),       # S not a multiple of the 16-step unroll, R ragged
-    (4, 3072, 2560),   # the served RecurrentGemma-2B prefill
-])
+@pytest.mark.parametrize("B,S,R", _SCAN_SHAPES)
 def test_rglru_scan_kernel_matches_plain(B, S, R, dtype):
     from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     dev = _cuda()
     rng = np.random.default_rng(S + R)
-    a = torch.as_tensor(rng.uniform(0.7, 0.999, (B, S, R)),
-                        dtype=torch.float32, device=dev).to(dtype)
-    x = _randn(rng, (B, S, R), dtype, dev)
-    h0 = _randn(rng, (B, R), torch.float32, dev)
+    a, x, h0 = _scan_inputs(rng, B, S, R, dtype, dev)
     before = rglru_scan_op.launches
     out = rglru_scan_op(a, x, h0)
     torch.cuda.synchronize()
     assert rglru_scan_op.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (B, S, R)
-    ref = rglru_scan_ref(a, x, h0)
-    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out, rglru_scan_ref(a, x, h0))
+
+
+def _scan_route_counts(op):
+    return {k: getattr(op, k) for k in (
+        "launches_tma", "launches_cp_async", "launches_bwd_tma",
+        "launches_bwd_cp_async")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R", _SCAN_SHAPES)
+def test_rglru_scan_takes_the_planned_route(B, S, R, dtype, misaligned):
+    """Forward and backward land on the route ``scan_plan`` names (its
+    counter moves by 1, no other), the C side's plan equals the Python one,
+    both store variants and two calls are bit-equal to the plain loops.
+    ``misaligned``: a and x start 4 bytes past a 16-byte boundary, which
+    TMA cannot take."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    from repro_torch.kernels.rglru_scan import kernel
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+
+    dev = _cuda()
+    rng = np.random.default_rng(S + R + 2)
+    a, x, h0 = _scan_inputs(rng, B, S, R, dtype, dev)
+    if misaligned:
+        shift = 4 // a.element_size()
+        a, x = (torch.empty(a.numel() + shift, dtype=dtype, device=dev)[
+            shift:].view(B, S, R).copy_(t) for t in (a, x))
+    dh = _randn(rng, (B, S, R), torch.float32, dev)
+    code = KERNEL_DTYPES[dtype]
+    for backward in (False, True):
+        plan = kernel.scan_plan(B, S, R, dtype, backward, not misaligned)
+        assert kernel.library_plan(S, R, code, backward, not misaligned) == \
+            tuple(plan[:5])
+        if misaligned:
+            assert plan.route == "cp_async"
+    leaves = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+    if misaligned:
+        leaves[:2] = [t.detach().requires_grad_(True) for t in (a, x)]
+    before = _scan_route_counts(rglru_scan_op)
+    h = rglru_scan_op(*leaves)
+    got = torch.autograd.grad(h, leaves, dh)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in
+             _scan_route_counts(rglru_scan_op).items()}
+    fwd = kernel.scan_plan(B, S, R, dtype, False, not misaligned).route
+    bwd = kernel.plan_for(a, h, dh, backward=True).route
+    assert moved == {k: int(k in (f"launches_{fwd}", f"launches_bwd_{bwd}"))
+                     for k in moved}
+    h = h.detach()
+    assert torch.equal(h, rglru_scan_ref(a, x, h0))
+    ref = rglru_scan_bwd_ref(a, h0, h, dh)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    for tma_store in (False, True):
+        assert torch.equal(kernel.launch(a, x, h0, code, tma_store), h)
+        assert all(torch.equal(g, r) for g, r in zip(
+            kernel.launch_bwd(a, h0, h, dh, code, tma_store), ref))
 
 
 @pytest.mark.cuda
@@ -1127,7 +1199,9 @@ def test_tensor_core_backward_is_the_first_work_of_autograds_thread():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,R", [
     (2, 256, 128), (1, 512, 100), (3, 100, 256),
-    (2, 17, 33),       # S not a multiple of the 16-step unroll, R ragged
+    (2, 17, 33),       # S shorter than a tile, R ragged (cp.async)
+    (2, 20, 64),       # S shorter than a tile on the TMA route
+    (3, 1001, 1000),   # S not a multiple of the tile, the last block ragged
     (1, 1, 8),         # one step: dh0 = a_0 dh_0
     (1, 4096, 2560),   # RecurrentGemma-2B's train microbatch
 ])
