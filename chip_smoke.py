@@ -16,8 +16,8 @@ line each:
 2. ``kernels``: each kernel against its plain version (the attention
    kernels element by element in bf16, and at 1e-5 on the same inputs in
    fp32; see ``attention_kernels`` and ``gmm_kernels``; rglru_scan bit for
-   bit, ``scan_kernels``, with its plan, route and the other store
-   variant's time, and no ptxas spill in ``rglru_scan.cu``),
+   bit, ``scan_kernels``, with its plan and the route its C launcher
+   reported, and no ptxas spill in ``rglru_scan.cu``),
    with its time per call (CUDA events around back-to-back calls, so at
    small shapes the wrapper's host overhead is part of it), the plain
    version's time, the least time the card could take (``bound_ms``) and
@@ -700,21 +700,14 @@ def scan_route(B, S, R, dtype, backward) -> str:
     return scan_plan(B, S, R, dtype, backward).route
 
 
-def scan_fields(torch, a, backward, other_store) -> dict:
-    """rglru_scan's plan at a's shape (route, CH, T, D, shared bytes) and the
-    time of the store variant its C entry does not keep (``other_store``,
-    which the TMA route only has)."""
-    from repro_torch.kernels.rglru_scan.kernel import TMA_STORE, plan_for
+def scan_fields(a, backward) -> dict:
+    """rglru_scan's plan at a's shape (route, CH, T, D, shared bytes); the
+    callers have checked that the C launcher took that route."""
+    from repro_torch.kernels.rglru_scan.kernel import plan_for
 
     plan = plan_for(a, backward=backward)
-    row = dict(route=plan.route, CH=plan.ch, T=plan.t, D=plan.d,
-               smem_bytes=plan.smem_bytes, blocks=plan.blocks,
-               store=("tma" if TMA_STORE else "per step"))
-    if plan.route == "tma":
-        row.update(other_store="per step" if TMA_STORE else "tma",
-                   other_store_ms=time_ms(torch, other_store),
-                   other_store_graph_ms=graph_ms(torch, other_store))
-    return row
+    return dict(route=plan.route, CH=plan.ch, T=plan.t, D=plan.d,
+                smem_bytes=plan.smem_bytes, blocks=plan.blocks)
 
 
 def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
@@ -723,12 +716,11 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
     model feeds it fp32 decays and inputs), the served prefill in bf16, and
     a ragged shape: bit-equal to the plain loop (both run the same fp32
     recurrence in the same order, rounding the product and the sum apart),
-    with the launch on the route ``kernel.scan_plan`` names.  Each row logs
-    the plan (route, CH, T, D) and the other store variant's time.  No
-    single PyTorch call computes the recurrence, so there is no library
-    time.  Returns the train row, the shape of most of its launches."""
-    from repro_torch.kernels.common import KERNEL_DTYPES
-    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
+    with the launch on the route ``kernel.scan_plan`` names (the route
+    counter the C launcher's report moves).  Each row logs the plan (route,
+    CH, T, D).  No single PyTorch call computes the recurrence, so there is
+    no library time.  Returns the train row, the shape of most of its
+    launches."""
     from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -761,9 +753,7 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
         call = lambda: rglru_scan_op(a, x, h0)
         ms, dev_ms = time_ms(torch, call), graph_ms(torch, call)
         plain = time_ms(torch, lambda: rglru_scan_ref(a, x, h0), 3, 2)
-        code = KERNEL_DTYPES[dt]
-        plan = scan_fields(torch, a, False, lambda: scan_kernel.launch(
-            a, x, h0, code, not scan_kernel.TMA_STORE))
+        plan = scan_fields(a, False)
         # a and x read once, h0 read, every state written in fp32
         b_ms, b_by = bound(bw, fp32, B * S * R * (2 * a.element_size() + 4)
                            + 4 * B * R, 2 * B * S * R)
@@ -2104,9 +2094,9 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
     and inputs, as the model feeds them), the same in bf16, and a ragged
     shape, with a non-zero h0: da, dx and dh0 bit-equal to the plain
     version through the autograd Function (its counter must move, on the
-    route ``kernel.scan_plan`` names), and two calls bit-equal; the plan
-    and the other store variant's time are logged.  No PyTorch call
-    computes it.  Bound: a, dh and h read
+    route ``kernel.scan_plan`` names, as the C launcher reports it), and
+    two calls bit-equal; the plan is logged.  No PyTorch call computes
+    it.  Bound: a, dh and h read
     once, da and dx written once (20 bytes an element in fp32), h0 read and
     dh0 written.  Returns the train row."""
     from repro_torch.kernels.common import KERNEL_DTYPES
@@ -2152,8 +2142,7 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
         del got, again, ref, leaves
         ms, dev_ms = time_ms(torch, bwd), graph_ms(torch, bwd)
         plain = time_ms(torch, lambda: rglru_scan_bwd_ref(a, h0, h, dh), 2, 1)
-        plan = scan_fields(torch, a, True, lambda: scan_kernel.launch_bwd(
-            a, h0, h, dh, code, not scan_kernel.TMA_STORE))
+        plan = scan_fields(a, True)
         size = a.element_size()
         b_ms, b_by = bound(bw, fp32, B * S * R * (3 * size + 8) + 8 * B * R,
                            3 * B * S * R)

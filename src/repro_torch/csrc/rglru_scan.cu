@@ -53,16 +53,16 @@
 //   cover it (the first may start up to 3 bytes early, the last is cut at
 //   the row's end) into a row one word wider, and arrive on the full barrier
 //   through cp.async.mbarrier.arrive.noinc once their copies land.
-// Outputs (forward: h in fp32; backward: da and dx in a's dtype), on the
-// TMA route: each tile staged in shared memory (two staging tiles an
+// Outputs (forward: h in fp32; backward: da and dx in a's dtype): on the
+// TMA route each tile is staged in shared memory (two staging tiles an
 // output) and written by one TMA store, as moe_gmm's persistent backward
-// does.  The other store variant, one coalesced store a step from the
-// consumer (the cp.async route's only one), stays callable through the
-// *_store_launch entries for comparison: on the H100 it took 2.4x as long
-// at the train shape (PERF.md).  What is left between the kernels and their
-// bound is the consumer's serial work a step, its shared-memory traffic and
-// the store path, not the bytes in flight: a deeper ring does not move the
-// forward, and probes that dropped the stores halved it (PERF.md, PR 23).
+// does; the cp.async route stores every step from the consumer, coalesced
+// over the lanes.  Per-step stores on the TMA route took 2.4x as long at
+// the train shape on the H100 (PERF.md).  What is left between the kernels
+// and their bound is the consumer's serial work a step, its shared-memory
+// traffic and the store path, not the bytes in flight: a deeper ring does
+// not move the forward, and probes that dropped the stores halved it
+// (PERF.md).
 //
 // Bit-equality: every step rounds the product and then the sum
 // (__fmul_rn, __fadd_rn, no fused multiply-add) in the plain loops' order
@@ -73,7 +73,9 @@
 // the sums, and loses that.
 //
 // The launchers return cudaGetLastError() after their launch (0 on
-// success), or a tensor map's error (hopper.cuh: kMapError, kNoEncoder).
+// success), or a tensor map's error (hopper.cuh: kMapError, kNoEncoder);
+// rglru_scan_last_route reports the producer the calling thread's last
+// launch took.
 #include "hopper.cuh"
 
 #include <algorithm>
@@ -83,31 +85,17 @@
 namespace repro_torch {
 namespace {
 
-// The plan's constants (kernels/rglru_scan/kernel.py mirrors them; the -D
-// switches let tools/scan_bench.py build other ones for comparison).
-#ifndef RGLRU_CH
-#define RGLRU_CH 32
-#endif
-#ifndef RGLRU_T
-#define RGLRU_T 64
-#endif
-#ifndef RGLRU_DEPTH_FWD
-#define RGLRU_DEPTH_FWD 256
-#endif
-#ifndef RGLRU_DEPTH_BWD
-#define RGLRU_DEPTH_BWD 192
-#endif
-constexpr int kCH = RGLRU_CH;       // channels a block owns
-constexpr int kStepsTma = RGLRU_T;  // time steps a TMA ring tile holds
+// The plan's constants (kernels/rglru_scan/kernel.py mirrors them)
+constexpr int kCH = 32;        // channels a block owns
+constexpr int kStepsTma = 64;  // time steps a TMA ring tile holds
 // a cp.async tile's steps: its rows' word shifts cost registers, and the
 // consumer holds a whole tile of every input in registers
 constexpr int kStepsCp = 32;
-constexpr int kDepthFwd = RGLRU_DEPTH_FWD;  // steps the ring holds ahead
-constexpr int kDepthBwd = RGLRU_DEPTH_BWD;
-constexpr bool kStoreTma = true;  // the entries' store variant
-constexpr int kStaging = 2;       // staging tiles of each output
+constexpr int kDepthFwd = 256;  // steps the ring holds ahead
+constexpr int kDepthBwd = 192;
+constexpr int kStaging = 2;  // staging tiles of each output (TMA route)
 constexpr int kThreads = 64;  // warp 0 the consumer, warp 1 the producer
-static_assert(kCH == 16 || kCH == 32, "one consumer lane a channel");
+static_assert(kCH <= 32, "one consumer lane a channel");
 static_assert(kStepsTma % 8 == 0 && kStepsTma <= 256,
               "a TMA box holds <= 256 rows");
 
@@ -135,7 +123,7 @@ struct Plan {
 
 // es: bytes of an element of a (and x, da, dx); dh and h are fp32.
 // aligned: every tensor TMA would read or write starts on 16 bytes.
-Plan make_plan(int S, int R, int es, bool bwd, bool aligned, bool store_tma) {
+Plan make_plan(int S, int R, int es, bool bwd, bool aligned) {
   Plan p{};
   p.tma = aligned && (static_cast<long long>(R) * es) % 16 == 0;
   p.t = tile_steps(p.tma);
@@ -144,10 +132,10 @@ Plan make_plan(int S, int R, int es, bool bwd, bool aligned, bool store_tma) {
   p.d = std::max(1, std::min(want, tiles));
   const int stage = bwd ? tile_bytes(es, p.tma) + 2 * tile_bytes(4, p.tma)
                         : 2 * tile_bytes(es, p.tma);
-  const int staging = p.tma && store_tma
-                          ? kStaging * (bwd ? 2 * round128(p.t * kCH * es)
-                                            : round128(p.t * kCH * 4))
-                          : 0;
+  const int staging =
+      p.tma ? kStaging * (bwd ? 2 * round128(p.t * kCH * es)
+                              : round128(p.t * kCH * 4))
+            : 0;
   // 128 bytes of slack to align the base, the barriers, the ring, staging
   p.smem = 128 + round128(16 * p.d) + p.d * stage + staging;
   return p;
@@ -216,7 +204,7 @@ __device__ __forceinline__ void copy_tile(uint8_t* tile, const E* src,
 
 // grid (ceil(R / kCH), B), kThreads threads: block (rb, b) owns channels
 // rb * kCH .. + kCH - 1 of batch row b.  Ring stage: the a tile, the x tile.
-template <typename T, bool kTma, bool kStore>
+template <typename T, bool kTma>
 __global__ void __launch_bounds__(kThreads)
 rglru_scan_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap xmap,
@@ -289,14 +277,14 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap amap,
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // the tile is in registers
     float* so = staging + (k % kStaging) * kT * kCH;
-    if constexpr (kStore) {
+    if constexpr (kTma) {
       // the store kStaging tiles back has read its staging tile
       if (lane == 0) bulk_wait_read<kStaging - 1>();
       __syncwarp();
     }
     auto step = [&](int u) {
       h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-      if constexpr (kStore) {
+      if constexpr (kTma) {
         if (lane < kCH) so[u * kCH + lane] = h;
       } else if (live) {
         out[(row0 + t0 + u) * R + r] = h;
@@ -310,7 +298,7 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap amap,
       for (int u = 0; u < kT; ++u)
         if (u < n) step(u);
     }
-    if constexpr (kStore) {
+    if constexpr (kTma) {
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) {
@@ -319,7 +307,7 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap amap,
       }
     }
   }
-  if constexpr (kStore) {
+  if constexpr (kTma) {
     if (lane == 0) bulk_wait<0>();
   }
 }
@@ -327,7 +315,7 @@ rglru_scan_kernel(const __grid_constant__ CUtensorMap amap,
 // grid (ceil(R / kCH), B), as the forward.  Ring stage: the a tile, the dh
 // tile, the h tile one step back; walked from the last tile.  g carries
 // a_{t+1} g_{t+1} down the time steps.
-template <typename T, bool kTma, bool kStore>
+template <typename T, bool kTma>
 __global__ void __launch_bounds__(kThreads)
 rglru_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
                       const __grid_constant__ CUtensorMap dhmap,
@@ -408,7 +396,7 @@ rglru_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
     if (lane == 0) mbar_arrive(&empty[s]);
     T* sda = staging + (j % kStaging) * 2 * kT * kCH;
     T* sdx = sda + kT * kCH;
-    if constexpr (kStore) {
+    if constexpr (kTma) {
       if (lane == 0) bulk_wait_read<kStaging - 1>();
       __syncwarp();
     }
@@ -416,7 +404,7 @@ rglru_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
       g = __fadd_rn(dv[u], __fmul_rn(a_next, g));
       const float hp = t0 + u > 0 ? hv[u] : h_init;
       const T gx = from_f<T>(g), ga = from_f<T>(__fmul_rn(g, hp));
-      if constexpr (kStore) {
+      if constexpr (kTma) {
         if (lane < kCH) {
           sdx[u * kCH + lane] = gx;
           sda[u * kCH + lane] = ga;
@@ -436,7 +424,7 @@ rglru_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
       for (int u = kT - 1; u >= 0; --u)
         if (u < n) step(u);
     }
-    if constexpr (kStore) {
+    if constexpr (kTma) {
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) {
@@ -447,7 +435,7 @@ rglru_scan_bwd_kernel(const __grid_constant__ CUtensorMap amap,
     }
   }
   if (live) dh0[static_cast<size_t>(b) * R + r] = __fmul_rn(a_next, g);
-  if constexpr (kStore) {
+  if constexpr (kTma) {
     if (lane == 0) bulk_wait<0>();
   }
 }
@@ -476,40 +464,46 @@ int scan_map(CUtensorMap* map, const void* p, int B, int S, int R) {
 }
 
 // the shared-memory sizes already allowed, per device, for each kernel
-template <typename T, bool kTma, bool kStore>
+template <typename T, bool kTma>
 std::atomic<size_t> fwd_ready[hopper::kMaxDevices];
-template <typename T, bool kTma, bool kStore>
+template <typename T, bool kTma>
 std::atomic<size_t> bwd_ready[hopper::kMaxDevices];
 
-// one launch of `kernel`, its shared-memory limit raised first where needed
+// the producer of the calling thread's last launch: 1 TMA, 0 cp.async, -1
+// none (no launch yet, or the last one failed)
+thread_local int last_route = -1;
+
+// one launch of `kernel` on the plan's route, its shared-memory limit
+// raised first where needed
 template <typename K, typename... Args>
-int run(K* kernel, std::atomic<size_t>* ready, dim3 grid, int smem,
+int run(K* kernel, std::atomic<size_t>* ready, const Plan& p, dim3 grid,
         cudaStream_t stream, Args... args) {
-  const cudaError_t err = hopper::allow_smem(kernel, smem, ready);
+  last_route = -1;
+  const cudaError_t err = hopper::allow_smem(kernel, p.smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, kThreads, p.smem, stream>>>(args...);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) last_route = p.tma ? 1 : 0;
+  return static_cast<int>(launched);
 }
 
 template <typename T>
 int launch_scan(const void* a, const void* x, const float* h0, float* out,
-                int B, int S, int R, bool store_tma, cudaStream_t stream) {
+                int B, int S, int R, cudaStream_t stream) {
   const Plan p = make_plan(S, R, sizeof(T), false,
-                           aligned16(a) && aligned16(x) && aligned16(out),
-                           store_tma);
+                           aligned16(a) && aligned16(x) && aligned16(out));
   CUtensorMap amap{}, xmap{}, omap{};  // unread by the cp.async producer
-  auto* kernel = rglru_scan_kernel<T, false, false>;
-  std::atomic<size_t>* ready = fwd_ready<T, false, false>;
+  auto* kernel = rglru_scan_kernel<T, false>;
+  std::atomic<size_t>* ready = fwd_ready<T, false>;
   if (p.tma) {
     int err = scan_map<T>(&amap, a, B, S, R);
     if (!err) err = scan_map<T>(&xmap, x, B, S, R);
     if (!err) err = scan_map<float>(&omap, out, B, S, R);
     if (err) return err;
-    kernel = store_tma ? rglru_scan_kernel<T, true, true>
-                       : rglru_scan_kernel<T, true, false>;
-    ready = store_tma ? fwd_ready<T, true, true> : fwd_ready<T, true, false>;
+    kernel = rglru_scan_kernel<T, true>;
+    ready = fwd_ready<T, true>;
   }
-  return run(kernel, ready, dim3((R + kCH - 1) / kCH, B), p.smem, stream,
+  return run(kernel, ready, p, dim3((R + kCH - 1) / kCH, B), stream,
              amap, xmap, omap, static_cast<const T*>(a),
              static_cast<const T*>(x), h0, out, S, R, p.d);
 }
@@ -517,13 +511,13 @@ int launch_scan(const void* a, const void* x, const float* h0, float* out,
 template <typename T>
 int launch_scan_bwd(const void* a, const float* h0, const float* h,
                     const float* dh, void* da, void* dx, float* dh0, int B,
-                    int S, int R, bool store_tma, cudaStream_t stream) {
+                    int S, int R, cudaStream_t stream) {
   const bool aligned = aligned16(a) && aligned16(h) && aligned16(dh) &&
                        aligned16(da) && aligned16(dx);
-  const Plan p = make_plan(S, R, sizeof(T), true, aligned, store_tma);
+  const Plan p = make_plan(S, R, sizeof(T), true, aligned);
   CUtensorMap amap{}, dhmap{}, hmap{}, damap{}, dxmap{};
-  auto* kernel = rglru_scan_bwd_kernel<T, false, false>;
-  std::atomic<size_t>* ready = bwd_ready<T, false, false>;
+  auto* kernel = rglru_scan_bwd_kernel<T, false>;
+  std::atomic<size_t>* ready = bwd_ready<T, false>;
   if (p.tma) {
     int err = scan_map<T>(&amap, a, B, S, R);
     if (!err) err = scan_map<float>(&dhmap, dh, B, S, R);
@@ -531,32 +525,29 @@ int launch_scan_bwd(const void* a, const float* h0, const float* h,
     if (!err) err = scan_map<T>(&damap, da, B, S, R);
     if (!err) err = scan_map<T>(&dxmap, dx, B, S, R);
     if (err) return err;
-    kernel = store_tma ? rglru_scan_bwd_kernel<T, true, true>
-                       : rglru_scan_bwd_kernel<T, true, false>;
-    ready = store_tma ? bwd_ready<T, true, true> : bwd_ready<T, true, false>;
+    kernel = rglru_scan_bwd_kernel<T, true>;
+    ready = bwd_ready<T, true>;
   }
-  return run(kernel, ready, dim3((R + kCH - 1) / kCH, B), p.smem, stream,
+  return run(kernel, ready, p, dim3((R + kCH - 1) / kCH, B), stream,
              amap, dhmap, hmap, damap, dxmap, static_cast<const T*>(a), h0,
              h, dh, static_cast<T*>(da), static_cast<T*>(dx), dh0, S, R, p.d);
 }
 
 int scan(const void* a, const void* x, const float* h0, float* out, int dtype,
-         int B, int S, int R, bool store_tma, void* stream) {
+         int B, int S, int R, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_scan<float>(a, x, h0, out, B, S, R, store_tma, s);
-  return launch_scan<__nv_bfloat16>(a, x, h0, out, B, S, R, store_tma, s);
+  if (dtype == 0) return launch_scan<float>(a, x, h0, out, B, S, R, s);
+  return launch_scan<__nv_bfloat16>(a, x, h0, out, B, S, R, s);
 }
 
 int scan_bwd(const void* a, const float* h0, const float* h, const float* dh,
              void* da, void* dx, float* dh0, int dtype, int B, int S, int R,
-             bool store_tma, void* stream) {
+             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_scan_bwd<float>(a, h0, h, dh, da, dx, dh0, B, S, R,
-                                  store_tma, s);
+    return launch_scan_bwd<float>(a, h0, h, dh, da, dx, dh0, B, S, R, s);
   return launch_scan_bwd<__nv_bfloat16>(a, h0, h, dh, da, dx, dh0, B, S, R,
-                                        store_tma, s);
+                                        s);
 }
 
 }  // namespace
@@ -566,8 +557,7 @@ int scan_bwd(const void* a, const float* h0, const float* h, const float* dh,
 extern "C" int rglru_scan_launch(const void* a, const void* x, const float* h0,
                                  float* out, int dtype, int B, int S, int R,
                                  void* stream) {
-  return repro_torch::scan(a, x, h0, out, dtype, B, S, R,
-                           repro_torch::kStoreTma, stream);
+  return repro_torch::scan(a, x, h0, out, dtype, B, S, R, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (of a, da and dx; h0, h, dh and dh0 are
@@ -577,36 +567,19 @@ extern "C" int rglru_scan_bwd_launch(const void* a, const float* h0,
                                      void* dx, float* dh0, int dtype, int B,
                                      int S, int R, void* stream) {
   return repro_torch::scan_bwd(a, h0, h, dh, da, dx, dh0, dtype, B, S, R,
-                               repro_torch::kStoreTma, stream);
+                               stream);
 }
 
-// The same with the store variant named: store_tma 1 stages each output tile
-// in shared memory for a TMA store, 0 stores every step from the consumer
-// (the TMA route only; the cp.async route always stores per step).
-extern "C" int rglru_scan_store_launch(const void* a, const void* x,
-                                       const float* h0, float* out, int dtype,
-                                       int B, int S, int R, int store_tma,
-                                       void* stream) {
-  return repro_torch::scan(a, x, h0, out, dtype, B, S, R, store_tma != 0,
-                           stream);
-}
-
-extern "C" int rglru_scan_bwd_store_launch(const void* a, const float* h0,
-                                           const float* h, const float* dh,
-                                           void* da, void* dx, float* dh0,
-                                           int dtype, int B, int S, int R,
-                                           int store_tma, void* stream) {
-  return repro_torch::scan_bwd(a, h0, h, dh, da, dx, dh0, dtype, B, S, R,
-                               store_tma != 0, stream);
-}
+// The producer the calling thread's last launch of either kernel took: 1
+// TMA, 0 cp.async, -1 none (no launch yet, or it failed).
+extern "C" int rglru_scan_last_route() { return repro_torch::last_route; }
 
 // The plan the launchers apply (kernels/rglru_scan/kernel.py: scan_plan is
 // the same rule): out = {route (1 TMA, 0 cp.async), CH, T, D, shared bytes}.
 extern "C" int rglru_scan_plan(int S, int R, int dtype, int backward,
                                int aligned, int* out) {
   const repro_torch::Plan p = repro_torch::make_plan(
-      S, R, dtype == 0 ? 4 : 2, backward != 0, aligned != 0,
-      repro_torch::kStoreTma);
+      S, R, dtype == 0 ? 4 : 2, backward != 0, aligned != 0);
   out[0] = p.tma;
   out[1] = repro_torch::kCH;
   out[2] = p.t;

@@ -127,8 +127,7 @@ def _build() -> KernelLibrary:
             ("moe_gmm_bwd_tc_launch", [P] * 5 + [I] * 4 + [P], I),
             ("rglru_scan_launch", [P] * 4 + [I] * 4 + [P], I),
             ("rglru_scan_bwd_launch", [P] * 7 + [I] * 4 + [P], I),
-            ("rglru_scan_store_launch", [P] * 4 + [I] * 5 + [P], I),
-            ("rglru_scan_bwd_store_launch", [P] * 7 + [I] * 5 + [P], I),
+            ("rglru_scan_last_route", [], I),
             ("rglru_scan_plan", [I] * 5 + [P], I)):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -13,7 +13,10 @@ layout, from the saved states.
 ``scan_plan`` is the rule both launchers apply before launch (the C side
 applies the same rule, ``make_plan``; ``rglru_scan_plan`` reports it):
 the ``"tma"`` producer where every row stride and base takes TMA, else the
-``"cp_async"`` producer; the ring's depth and its shared memory.
+``"cp_async"`` producer; the ring's depth and its shared memory.  The TMA
+route stages each output tile in shared memory and stores it through TMA;
+the cp.async route stores every step.  ``last_route`` reads the producer
+the C side actually launched.
 """
 from __future__ import annotations
 
@@ -35,7 +38,6 @@ T = {"tma": 64, "cp_async": 32}
 # step in fp32) and ~5.9 MB (backward, 12) in flight over the 80 blocks of
 # B 1, R 2560, more than 3.35 TB/s needs over ~1 us of memory latency
 DEPTH = {False: 256, True: 192}
-TMA_STORE = True  # outputs staged, one TMA store a tile (False: per step)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -61,7 +63,7 @@ def _tile_bytes(es: int, tma: bool) -> int:
 
 @functools.lru_cache(maxsize=256)
 def scan_plan(B: int, S: int, R: int, dtype: torch.dtype, backward: bool,
-              aligned: bool = True, tma_store: bool = TMA_STORE) -> ScanPlan:
+              aligned: bool = True) -> ScanPlan:
     """The launch plan of the forward (``backward=False``) or the backward
     on (B, S, R) of ``dtype`` (a's; h0, h and dh are fp32).
 
@@ -73,8 +75,8 @@ def scan_plan(B: int, S: int, R: int, dtype: torch.dtype, backward: bool,
     whole sequence when it is shorter, never more stages than tiles.
     Shared memory: 128 bytes of alignment slack, the D full and D empty
     mbarriers rounded to 128, D stages (forward: an a and an x tile;
-    backward: a, dh and h), and with ``tma_store`` on the TMA route two
-    staging tiles of every output.
+    backward: a, dh and h), and on the TMA route two staging tiles of every
+    output.
     """
     if dtype not in _ELEMENT_BYTES:
         raise TypeError(f"rglru_scan takes float32 or bfloat16, got {dtype}")
@@ -89,7 +91,7 @@ def scan_plan(B: int, S: int, R: int, dtype: torch.dtype, backward: bool,
     stage = (_tile_bytes(es, tma) + 2 * _tile_bytes(4, tma) if backward
              else 2 * _tile_bytes(es, tma))
     staging = 0
-    if tma and tma_store:
+    if tma:
         staging = 2 * (2 * _round128(t * CH * es) if backward
                        else _round128(t * CH * 4))
     smem = 128 + _round128(16 * d) + d * stage + staging
@@ -116,34 +118,36 @@ def library_plan(S: int, R: int, dtype_code: int, backward: bool,
     return (ROUTES[0] if out[0] else ROUTES[1], *out[1:])
 
 
+def last_route() -> str:
+    """The producer route (``"tma"`` or ``"cp_async"``) of this thread's
+    last launch of either scan kernel, as the C launcher took it."""
+    code = kernel_library().lib.rglru_scan_last_route()
+    if code < 0:
+        raise RuntimeError("rglru_scan: no launch to report a route of")
+    return ROUTES[0] if code else ROUTES[1]
+
+
 def launch(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
-           dtype_code: int, tma_store: bool | None = None) -> torch.Tensor:
+           dtype_code: int) -> torch.Tensor:
     """(B, S, R) fp32; the caller has validated the inputs and made h0 a
-    contiguous fp32 (B, R) tensor.  ``tma_store`` names the store variant
-    (None: the one the C entry keeps, ``TMA_STORE``)."""
+    contiguous fp32 (B, R) tensor."""
     B, S, R = a.shape
     out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
     lib = kernel_library().lib
     args = (a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(),
             dtype_code, B, S, R)
     with on_device(a.device):
-        stream = raw_stream(a.device)
-        if tma_store is None:
-            err = lib.rglru_scan_launch(*args, stream)
-        else:
-            err = lib.rglru_scan_store_launch(*args, int(tma_store), stream)
+        err = lib.rglru_scan_launch(*args, raw_stream(a.device))
     if err != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {err}")
     return out
 
 
 def launch_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
-               dh: torch.Tensor, dtype_code: int,
-               tma_store: bool | None = None):
+               dh: torch.Tensor, dtype_code: int):
     """(da, dx) (B, S, R) in a's dtype and dh0 (B, R) fp32 from the saved
     states h and their gradient dh; the caller has validated the inputs
-    (a contiguous, h0, h and dh contiguous fp32).  ``tma_store`` as in
-    ``launch``."""
+    (a contiguous, h0, h and dh contiguous fp32)."""
     B, S, R = a.shape
     da = torch.empty_like(a)
     dx = torch.empty_like(a)
@@ -152,12 +156,7 @@ def launch_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
     args = (a.data_ptr(), h0.data_ptr(), h.data_ptr(), dh.data_ptr(),
             da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dtype_code, B, S, R)
     with on_device(a.device):
-        stream = raw_stream(a.device)
-        if tma_store is None:
-            err = lib.rglru_scan_bwd_launch(*args, stream)
-        else:
-            err = lib.rglru_scan_bwd_store_launch(*args, int(tma_store),
-                                                  stream)
+        err = lib.rglru_scan_bwd_launch(*args, raw_stream(a.device))
     if err != 0:
         raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "
                            f"{err}")

@@ -39,10 +39,9 @@ def _forward(a: torch.Tensor, x: torch.Tensor,
         raise ValueError("rglru_scan: a and x must be contiguous")
     if a.numel() == 0:
         return torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    route = kernel.plan_for(a, x, backward=False).route
     out = kernel.launch(a, x, h0.float().contiguous(), KERNEL_DTYPES[a.dtype])
     rglru_scan_op.launches += 1
-    if route == "tma":
+    if kernel.last_route() == "tma":
         rglru_scan_op.launches_tma += 1
     else:
         rglru_scan_op.launches_cp_async += 1
@@ -69,11 +68,10 @@ class RglruScan(torch.autograd.Function):
             dh0 = torch.zeros(h0.shape, dtype=torch.float32, device=a.device)
         else:
             dh = dh.float().contiguous()
-            route = kernel.plan_for(a, h, dh, backward=True).route
             da, dx, dh0 = kernel.launch_bwd(
                 a, h0.float().contiguous(), h, dh, KERNEL_DTYPES[a.dtype])
             rglru_scan_op.launches_bwd += 1
-            if route == "tma":
+            if kernel.last_route() == "tma":
                 rglru_scan_op.launches_bwd_tma += 1
             else:
                 rglru_scan_op.launches_bwd_cp_async += 1
@@ -91,8 +89,8 @@ def rglru_scan_op(a: torch.Tensor, x: torch.Tensor,
     kernel's launches (training's too, again under
     ``torch.utils.checkpoint``), ``launches_bwd`` the backward kernel's;
     ``launches_tma`` / ``launches_cp_async`` and ``launches_bwd_tma`` /
-    ``launches_bwd_cp_async`` count them by the producer route that
-    ``kernel.scan_plan`` names.
+    ``launches_bwd_cp_async`` count them by the producer route the C
+    launcher took (``kernel.last_route``).
     """
     if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad
                                     or h0.requires_grad):

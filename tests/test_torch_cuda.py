@@ -959,9 +959,10 @@ def _scan_route_counts(op):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,R", _SCAN_SHAPES)
 def test_rglru_scan_takes_the_planned_route(B, S, R, dtype, misaligned):
-    """Forward and backward land on the route ``scan_plan`` names (its
-    counter moves by 1, no other), the C side's plan equals the Python one,
-    both store variants and two calls are bit-equal to the plain loops.
+    """Forward and backward land on the route ``scan_plan`` names (the
+    counter of the route the C launcher reports moves by 1, no other), the
+    C side's plan equals the Python one, and two calls are bit-equal to the
+    plain loops.
     ``misaligned``: a and x start 4 bytes past a 16-byte boundary, which
     TMA cannot take."""
     from repro_torch.kernels.common import KERNEL_DTYPES
@@ -1002,10 +1003,11 @@ def test_rglru_scan_takes_the_planned_route(B, S, R, dtype, misaligned):
     assert torch.equal(h, rglru_scan_ref(a, x, h0))
     ref = rglru_scan_bwd_ref(a, h0, h, dh)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    for tma_store in (False, True):
-        assert torch.equal(kernel.launch(a, x, h0, code, tma_store), h)
-        assert all(torch.equal(g, r) for g, r in zip(
-            kernel.launch_bwd(a, h0, h, dh, code, tma_store), ref))
+    assert torch.equal(kernel.launch(a, x, h0, code), h)
+    assert kernel.last_route() == fwd
+    assert all(torch.equal(g, r) for g, r in zip(
+        kernel.launch_bwd(a, h0, h, dh, code), ref))
+    assert kernel.last_route() == bwd
 
 
 @pytest.mark.cuda

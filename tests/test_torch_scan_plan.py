@@ -2,7 +2,8 @@
 scan_plan``), on the CPU: which producer a shape takes, the ring's depth and
 its shared memory.  The C side applies the same rule (``csrc/rglru_scan.cu:
 make_plan``); its constants are read from the source here, and the card
-tests hold the two plans equal at every tested shape."""
+tests hold the two plans, and the route each launch took, equal at every
+tested shape."""
 import re
 from pathlib import Path
 
@@ -54,14 +55,13 @@ def test_scan_plan_unaligned_base_takes_cp_async(B, S, R, backward):
                          aligned=False).route == "cp_async"
 
 
-@pytest.mark.parametrize("tma_store", [False, True])
+@pytest.mark.parametrize("aligned", [False, True])
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("B,S,R", SHAPES)
-def test_scan_plan_fits_shared_memory(B, S, R, backward, tma_store):
+def test_scan_plan_fits_shared_memory(B, S, R, backward, aligned):
     for dtype in (F32, BF16):
-        for aligned in (True, False):
-            plan = scan_plan(B, S, R, dtype, backward, aligned, tma_store)
-            assert 0 < plan.smem_bytes <= kernel.SMEM_LIMIT
+        plan = scan_plan(B, S, R, dtype, backward, aligned)
+        assert 0 < plan.smem_bytes <= kernel.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -92,42 +92,39 @@ def test_scan_plan_short_sequences(S, backward):
         assert plan.d == min(-(-S // t), -(-kernel.DEPTH[backward] // t))
 
 
-@pytest.mark.parametrize("B,S,R,dtype,backward,aligned,tma_store,want", [
-    # 128 slack + 128 barriers + D stages of 64-step tiles (+ two staging
-    # tiles an output)
-    (1, 4096, 2560, F32, False, True, False, 128 + 128 + 4 * 2 * 8192),
-    (1, 4096, 2560, F32, True, True, False, 128 + 128 + 3 * 3 * 8192),
-    (1, 4096, 2560, F32, False, True, True,
-     128 + 128 + 4 * 2 * 8192 + 2 * 8192),
-    (1, 4096, 2560, F32, True, True, True,
+@pytest.mark.parametrize("B,S,R,dtype,backward,aligned,want", [
+    # TMA: 128 slack + 128 barriers + D stages of 64-step tiles + two
+    # staging tiles of every output
+    (1, 4096, 2560, F32, False, True, 128 + 128 + 4 * 2 * 8192 + 2 * 8192),
+    (1, 4096, 2560, F32, True, True,
      128 + 128 + 3 * 3 * 8192 + 2 * 2 * 8192),
-    (4, 3072, 2560, BF16, False, True, False, 128 + 128 + 4 * 2 * 4096),
-    (4, 3072, 2560, BF16, True, True, True,
+    (4, 3072, 2560, BF16, False, True, 128 + 128 + 4 * 2 * 4096 + 2 * 8192),
+    (4, 3072, 2560, BF16, True, True,
      128 + 128 + 3 * (4096 + 2 * 8192) + 2 * 2 * 4096),
+    # S shorter than one tile: one stage, staging tiles still 64 steps
+    (2, 20, 64, F32, False, True, 128 + 128 + 2 * 8192 + 2 * 8192),
+    (2, 20, 64, BF16, True, True,
+     128 + 128 + (4096 + 2 * 8192) + 2 * 2 * 4096),
     # cp.async: 32-step tiles, rows one word wider (68 bytes in bf16, 132
     # in fp32), no staging
-    (2, 4096, 100, BF16, False, True, False, 128 + 128 + 8 * 2 * 2176),
-    (2, 4096, 33, F32, True, True, True, 128 + 128 + 6 * 3 * 4224),
-    (1, 4096, 2560, F32, True, False, False, 128 + 128 + 6 * 3 * 4224),
+    (2, 4096, 100, BF16, False, True, 128 + 128 + 8 * 2 * 2176),
+    (2, 4096, 33, F32, True, True, 128 + 128 + 6 * 3 * 4224),
+    (1, 4096, 2560, F32, True, False, 128 + 128 + 6 * 3 * 4224),
 ])
-def test_scan_plan_shared_bytes(B, S, R, dtype, backward, aligned, tma_store,
-                                want):
-    assert scan_plan(B, S, R, dtype, backward, aligned,
-                     tma_store).smem_bytes == want
+def test_scan_plan_shared_bytes(B, S, R, dtype, backward, aligned, want):
+    assert scan_plan(B, S, R, dtype, backward, aligned).smem_bytes == want
 
 
 def test_scan_plan_constants_match_the_cuda_source():
     """The constants the C side builds with are the Python plan's."""
     src = SOURCE.read_text()
-    defines = dict(re.findall(r"#define (RGLRU_\w+) (\d+)", src))
-    assert int(defines["RGLRU_CH"]) == kernel.CH
-    assert int(defines["RGLRU_T"]) == kernel.T["tma"]
-    assert int(defines["RGLRU_DEPTH_FWD"]) == kernel.DEPTH[False]
-    assert int(defines["RGLRU_DEPTH_BWD"]) == kernel.DEPTH[True]
-    steps_cp = re.search(r"constexpr int kStepsCp = (\d+);", src)
-    assert int(steps_cp.group(1)) == kernel.T["cp_async"]
-    store = re.search(r"constexpr bool kStoreTma = (true|false);", src)
-    assert (store.group(1) == "true") == kernel.TMA_STORE
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kCH"]) == kernel.CH
+    assert int(consts["kStepsTma"]) == kernel.T["tma"]
+    assert int(consts["kStepsCp"]) == kernel.T["cp_async"]
+    assert int(consts["kDepthFwd"]) == kernel.DEPTH[False]
+    assert int(consts["kDepthBwd"]) == kernel.DEPTH[True]
+    assert int(consts["kStaging"]) == 2
 
 
 @pytest.mark.parametrize("args,exc", [
