@@ -116,14 +116,22 @@ line each:
    1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
    from a checkpoint against an uninterrupted run.
-13. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
+13. ``train_tp``: the same training on an explicit (1, 1) ``DeviceMesh``
+   over a one-rank ``nccl`` world (``train_tp_phase``): parameters and
+   AdamW state DTensors placed by ``ShardingPolicy``, the flash kernels on
+   each rank's shard; 3 steps whose losses match ``train_model``'s within
+   rel 1e-5 (bit equality logged), the same exact launches, step ms beside
+   ``train_model``'s, one profiled step; ``compressed_psum`` on the last
+   step's gradients bit-equal to ``decompress_tree(compress_tree(g))``;
+   ``reshard_restore`` of a 2-layer step-2 checkpoint bit-equal.
+14. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
    trained through ``launch.steps.build_train_step`` with the uncut model's
    Adafactor and 4 microbatches (``train_moe_phase``): B 4 x S 4096, 3
    steps; exact per-step moe_gmm forward and backward and flash launches,
    all tensor-core; moe_gmm's backward against its plain version
    (``gmm_bwd_kernels``), an fp32 1-layer twin's loss and grads against the
    plain moe_gmm and attention, and two loss-and-grad passes bit-equal.
-14. ``train_hybrid``: RecurrentGemma-2B uncut trained through
+15. ``train_hybrid``: RecurrentGemma-2B uncut trained through
    ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
    microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
    backward launches, every one on the producer route ``scan_plan`` names,
@@ -132,10 +140,10 @@ line each:
    the scan's backward bit-equal to its plain version
    (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
    checkpoint.
-15. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+16. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-16. ``split``: the split-inference draft's ``DraftState.attend`` through the
+17. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
@@ -897,6 +905,16 @@ def prefill_decode_rel(torch, params, cfg, prompts, run,
     return rels
 
 
+def roofline_fields(cfg, B: int, S: int, kind: str, ms: float) -> dict:
+    """A measured step or prefill of ``cfg`` at B x S beside its one-card
+    roofline on the H100's terms (``perf/roofline.py: step_share``, the
+    analytic cost model): its bound and model-FLOP share."""
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.perf.roofline import step_share
+
+    return step_share(cfg, ShapeSpec("run", S, B, kind), ms / 1e3)
+
+
 def served_fields(torch, cfg, params, run, out_tokens, init_s) -> dict:
     """The served run's log fields, with a profiled window of decode
     steps."""
@@ -910,6 +928,8 @@ def served_fields(torch, cfg, params, run, out_tokens, init_s) -> dict:
         head_dim=cfg.head_dim, params=cfg.param_count(), batch=B,
         prompt_tokens=S, decode_steps=out_tokens, capacity=S + out_tokens,
         init_s=init_s, prefill_ms=1e3 * run["prefill_s"],
+        prefill_roofline=roofline_fields(cfg, B, S, "prefill",
+                                         1e3 * run["prefill_s"]),
         prefill_tokens_per_s=B * S / run["prefill_s"],
         decode_ms_per_step=1e3 * run["decode_s"] / out_tokens,
         decode_tokens_per_s=B * out_tokens / run["decode_s"],
@@ -1970,17 +1990,223 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     restart = restart_check(torch, "internlm2-1.8b", TWIN_TRAIN_LAYERS)
 
     tokens = TRAIN_B * TRAIN_S
+    summary["train_model"] = dict(losses=steps["losses"],
+                                  step_ms_by_step=steps["step_ms_by_step"])
     log("train_model", arch=cfg.name, dtype=cfg.dtype, layers=L,
         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=cfg.param_count(),
         batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB, steps=TRAIN_STEPS,
         optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
         run_s=run_s, **steps,
+        roofline=roofline_fields(cfg, TRAIN_B, TRAIN_S, "train",
+                                 steps["step_ms"]),
         tokens_per_s=tokens / (steps["step_ms"] / 1e3),
         peak_memory_gb=peak_gb,
         launches_per_step={k: v for k, v in want.items() if v},
         launches={k: v for k, v in total.items() if v}, **prof,
         fp32_twin=twin, restart=restart)
+    return ({"flash_attention": total["flash_attention.launches_lse"],
+             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+            {"flash_attention": {
+                "lse_tc": total["flash_attention.launches_lse_tc"],
+                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
+             "flash_attention_bwd": {
+                 "tc": total["flash_attention.launches_bwd_tc"],
+                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+
+
+TP_STEPS = 3  # the train_tp run: steps 0-1 timed against train_model
+TP_LOSS_REL = 1e-5  # train_tp losses against train_model's (same weights)
+
+
+@contextlib.contextmanager
+def recorded_updates(keep: int):
+    """``launch.train``'s optimizer keeps the gradients, and the params and
+    state it returns, of its update at step ``keep`` (0-based) while the
+    block runs (only that one: an earlier step's gradients kept through the
+    next step would raise its peak memory)."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.optim.optimizers import Optimizer
+
+    orig, seen = train_mod.default_optimizer, {}
+
+    def recording(cfg):
+        opt = orig(cfg)
+
+        def update(grads, state, params, step):
+            new = opt.update(grads, state, params, step)
+            if step == keep:
+                seen["grads"], (seen["params"], seen["state"]) = grads, new
+            return new
+
+        return Optimizer(opt.name, opt.init, update)
+
+    with patched(train_mod, "default_optimizer", recording):
+        yield seen
+
+
+def compressed_psum_check(torch, grads) -> dict:
+    """``compressed_psum`` over the world of one, leaf by leaf, on a train
+    step's gradients (DTensors: their local shards) against the reference's
+    result at n = 1, ``decompress_tree(compress_tree(g))`` in fp32: every
+    leaf and its new error feedback bit-equal."""
+    from repro_torch.optim.grad_compression import (compress_tree,
+                                                    compressed_psum,
+                                                    decompress_tree)
+    from repro_torch.optim.optimizers import tree_leaves
+
+    leaves = [g.to_local() for g in tree_leaves(grads)]
+    ms, n, nbytes = 0.0, 0, 0
+    for g in leaves:
+        zero = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        red, err = compressed_psum(g, zero)
+        torch.cuda.synchronize()
+        ms += 1e3 * (time.perf_counter() - t0)
+        comp, want_err = compress_tree(g, zero)
+        want = decompress_tree(comp, g.float())
+        if not (torch.equal(red, want) and torch.equal(err, want_err)):
+            raise AssertionError(f"compressed_psum differs from "
+                                 f"decompress(compress(g)) on a leaf of "
+                                 f"{tuple(g.shape)}")
+        n += g.numel()
+        nbytes += comp["q"].numel() + 4 * comp["s"].numel()
+        del red, err, comp, want_err, want, zero
+    return dict(leaves=len(leaves), values=n, wire_bytes=nbytes,
+                bit_equal=True, ms=ms)
+
+
+def reshard_check(torch, mesh, arch: str, layers: int) -> dict:
+    """``reshard_restore``: ``arch`` at full width cut to ``layers`` layers,
+    2 steps of B 2 x S 1024 on ``mesh`` with a checkpoint at step 2 (every
+    DTensor gathered whole by the save), restored onto the mesh's
+    placements from ``meta`` stand-ins: every leaf bit-equal to the params
+    and AdamW state the second update returned, and on the policy's
+    placements.  The checkpoint directory under ``build/`` is removed."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault_tolerance import reshard_restore
+    from repro_torch.launch.steps import params_sds
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.optim.optimizers import tree_leaves
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_reshard"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        with cut_layers(layers), recorded_updates(keep=1) as seen:
+            train(arch, reduced=False, steps=2, batch=2, seq=1024,
+                  log_every=100, device="cuda", ckpt_dir=str(ckpt_dir),
+                  ckpt_every=2, mesh=mesh)
+        cfg = get_config(arch).with_overrides(num_layers=layers)
+        p_like = params_sds(cfg)
+        o_like = adamw(constant_schedule(0.0)).init(p_like)
+        t0 = time.perf_counter()
+        step, params, state, policy = reshard_restore(
+            Checkpointer(ckpt_dir), (p_like, o_like), mesh, cfg, "adamw")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    got = tree_leaves(params) + tree_leaves(state)
+    want = tree_leaves(seen["params"]) + tree_leaves(seen["state"])
+    unequal = sum(not torch.equal(a.full_tensor(), b.full_tensor())
+                  for a, b in zip(got, want))
+    misplaced = sum(a.placements != b.placements for a, b in zip(got, want))
+    if step != 2 or unequal or misplaced or len(got) != len(want):
+        raise AssertionError(f"reshard_restore: step {step}, {unequal} "
+                             f"leaves unequal, {misplaced} misplaced")
+    del params, state, seen
+    torch.cuda.empty_cache()
+    return dict(layers=layers, batch=2, seq=1024, step=step,
+                leaves=len(got), bit_equal=True, restore_s=restore_s)
+
+
+def train_tp_phase(torch, dev, summary) -> tuple:
+    """InternLM2-1.8B trained at full width through ``launch.train.train``
+    on an explicit (1, 1) ``DeviceMesh`` over a one-rank ``nccl`` world:
+    parameters and AdamW state are DTensors placed by ``ShardingPolicy``,
+    the step runs under its activation policy, and each flash launch runs on
+    the rank's shard (``distributed/api.py: local_attention``).  B 4 x S
+    4096 in 2 microbatches, seed 0, the weights of ``train_model``: its
+    first losses within TP_LOSS_REL (bit equality logged); per step 96
+    lse-twin flash forwards and 48 backwards, all tensor-core, and no other
+    launch; step ms beside ``train_model``'s (step 1 of both runs is
+    timed), step 2 profiled (device busy against wall: DTensor's host
+    dispatch), peak memory.  Then ``compressed_psum`` on the last step's
+    gradients (``compressed_psum_check``) and ``reshard_restore`` of a
+    2-layer step-2 checkpoint (``reshard_check``).  The process group is
+    destroyed before the next phase."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_config("internlm2-1.8b")
+    base = summary["train_model"]
+    init_world("cuda")
+    backend = dist.get_backend()
+    try:
+        mesh = make_host_mesh(1, device="cuda")
+        watch = StepWatch(torch, profiled=2)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        watch.start()
+        t0 = time.perf_counter()
+        with recorded_updates(keep=TP_STEPS - 1) as seen:
+            train("internlm2-1.8b", reduced=False, steps=TP_STEPS,
+                  batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB,
+                  log_every=TP_STEPS, device="cuda", mesh=mesh,
+                  on_step=watch)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        L = cfg.num_layers
+        lse, bwd = 2 * TRAIN_MB * L, TRAIN_MB * L
+        want = want_counts({
+            "flash_attention.launches_lse": lse,
+            "flash_attention.launches_lse_tc": lse,
+            "flash_attention.launches_bwd": bwd,
+            "flash_attention.launches_bwd_tc": bwd})
+        total = watch.check("train_tp", want)
+        prof = watch.profiled_fields(lambda key: None)
+        steps = watch.step_fields(timed=(1,))
+        losses, ref = steps["losses"], base["losses"][:TP_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        if not max(rel) <= TP_LOSS_REL:
+            raise AssertionError(f"train_tp losses {losses}, train_model's "
+                                 f"{ref}")
+        placed = {type(g).__name__ for g in tree_leaves(seen["grads"])}
+        if placed != {"DTensor"}:
+            raise AssertionError(f"train_tp gradients are {placed}")
+        psum = compressed_psum_check(torch, seen["grads"])
+        del seen
+        torch.cuda.empty_cache()
+        reshard = reshard_check(torch, mesh, "internlm2-1.8b",
+                                TWIN_TRAIN_LAYERS)
+    finally:
+        dist.destroy_process_group()
+    log("train_tp", arch=cfg.name, mesh={"shape": [1, 1],
+                                          "axes": ["data", "model"]},
+        backend=backend, batch=TRAIN_B, seq=TRAIN_S,
+        microbatches=TRAIN_MB,
+        steps=TP_STEPS, run_s=run_s, **steps,
+        roofline=roofline_fields(cfg, TRAIN_B, TRAIN_S, "train",
+                                 steps["step_ms"]),
+        train_model_step_ms=base["step_ms_by_step"][1],
+        step_ms_over_train_model=steps["step_ms"]
+        / base["step_ms_by_step"][1],
+        train_model_losses=ref, loss_rel=rel,
+        losses_bit_equal=losses == ref, peak_memory_gb=peak_gb,
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v}, **prof,
+        compressed_psum=psum, reshard_restore=reshard)
     return ({"flash_attention": total["flash_attention.launches_lse"],
              "flash_attention_bwd": total["flash_attention.launches_bwd"]},
             {"flash_attention": {
@@ -2276,6 +2502,8 @@ def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         steps=MOE_HYBRID_STEPS, optimizer=(
             f"{opt.name} (the published config's), warmup_cosine(3e-4, 2000, "
             "100000)"), init_s=init_s, run_s=run_s, **steps,
+        roofline=roofline_fields(cfg, SCOUT_TRAIN_B, SCOUT_TRAIN_S, "train",
+                                 steps["step_ms"]),
         tokens_per_s=tokens / (steps["step_ms"] / 1e3),
         peak_memory_gb=peak_gb,
         launches_per_step={k: v for k, v in want.items() if v},
@@ -2385,6 +2613,8 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         steps=MOE_HYBRID_STEPS,
         optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
         run_s=run_s, **steps, tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        roofline=roofline_fields(cfg, HYBRID_TRAIN_B, HYBRID_TRAIN_S, "train",
+                                 steps["step_ms"]),
         peak_memory_gb=peak_gb,
         launches_per_step={k: v for k, v in want.items() if v},
         launches={k: v for k, v in total.items() if v}, **prof,
@@ -3176,17 +3406,19 @@ def main() -> int:
     launches["retrieval_topk"] += runtime_launches
     variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 7-15. the served models, then training: a kernel on several paths
+    # -- 7-16. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
     # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
     # largest model last, once every earlier phase's tensors are freed
     train = lambda torch, dev: train_phase(torch, dev, gen, bw, bf16, summary)
+    train_tp = lambda torch, dev: train_tp_phase(torch, dev, summary)
     train_moe = lambda torch, dev: train_moe_phase(torch, dev, gen, bw, bf16,
                                                    summary)
     train_hybrid = lambda torch, dev: train_hybrid_phase(torch, dev, gen, bw,
                                                          fp32, summary)
     for phase in (model_phase, moe_phase, hybrid_phase, xlstm_phase,
-                  encdec_phase, train, train_moe, train_hybrid, vlm_phase):
+                  encdec_phase, train, train_tp, train_moe, train_hybrid,
+                  vlm_phase):
         counts, by_variant = phase(torch, dev)
         for op, n in counts.items():
             launches[op] = launches.get(op, 0) + n
@@ -3195,7 +3427,7 @@ def main() -> int:
             for v, n in by.items():
                 acc[v] = acc.get(v, 0) + n
 
-    # -- 16. split -------------------------------------------------------
+    # -- 17. split -------------------------------------------------------
     split_phase(torch)
     log("done", total_s=time.perf_counter() - t_start)
 

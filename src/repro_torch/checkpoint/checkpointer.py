@@ -75,9 +75,12 @@ def _unflatten(like: Tree, leaves) -> Tree:
 
 def _to_host(t) -> np.ndarray:
     """A leaf as the numpy array the JAX package would save: bf16 as raw
-    2-byte records."""
+    2-byte records.  A DTensor is gathered whole first (a collective: every
+    rank of its mesh saves)."""
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if _is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()  # the bits; saved as <V2
@@ -118,6 +121,34 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _writes() -> bool:
+    """Rank 0 of an initialized world writes (every rank gathers); a
+    single process always writes."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _placement_leaves(tree) -> list:
+    """The placement tuples of a tree that mirrors a checkpointed tree, in
+    ``_flatten_with_names`` order (a tuple of ``Placement`` objects is a
+    leaf, any other tuple a container)."""
+    from torch.distributed.tensor import Placement
+
+    if isinstance(tree, tuple) and all(isinstance(p, Placement)
+                                       for p in tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _placement_leaves(tree[k])]
+    return [x for t in tree for x in _placement_leaves(t)]
+
+
 class Checkpointer:
     def __init__(self, directory: str | Path, keep: int = 3):
         self.dir = Path(directory)
@@ -127,13 +158,16 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Tree) -> Path:
+    def save(self, step: int, tree: Tree) -> Optional[Path]:
         self.wait()
-        return self._write(step, *_host(tree))
+        host = _host(tree)
+        return self._write(step, *host) if _writes() else None
 
     def save_async(self, step: int, tree: Tree) -> None:
         self.wait()
         host = _host(tree)  # device -> host now
+        if not _writes():
+            return
         self._thread = threading.Thread(target=self._write,
                                         args=(step, *host), daemon=True)
         self._thread.start()
@@ -180,10 +214,14 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, like: Tree, step: Optional[int] = None,
-                device=None) -> tuple[int, Tree]:
+                device=None, placements: Optional[Tree] = None,
+                mesh=None) -> tuple[int, Tree]:
         """Restore into the structure of ``like`` (tensors): each leaf takes
         ``like``'s dtype and ``like``'s device, or ``device`` when given.
-        Returns (step, tree)."""
+        With ``placements`` (a tree of DTensor placement tuples mirroring
+        ``like``) and ``mesh`` each leaf is placed on ``mesh`` (the JAX
+        ``shardings=``); a DTensor leaf of ``like`` takes its own mesh and
+        placements.  Every rank reads the files.  Returns (step, tree)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -193,14 +231,34 @@ class Checkpointer:
         data = np.load(d / "shards.npz")
         by_name = {m["name"]: (m["key"], m["dtype"])
                    for m in manifest["leaves"]}
+        named = _flatten_with_names(like)
+        pls = [None] * len(named) if placements is None \
+            else _placement_leaves(placements)
+        if len(pls) != len(named):
+            raise ValueError("placements do not mirror the restored tree")
         restored = []
-        for name, ref in _flatten_with_names(like):
+        for (name, ref), pl in zip(named, pls):
             key, dtype = by_name[name]
             t = _from_host(data[key], dtype)
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"checkpoint leaf {name}: shape "
                                  f"{tuple(t.shape)}, expected "
                                  f"{tuple(ref.shape)}")
-            restored.append(t.to(device=ref.device if device is None
-                                 else device, dtype=ref.dtype))
+            restored.append(_place(t, ref, device, pl, mesh))
         return manifest["step"], _unflatten(like, iter(restored))
+
+
+def _place(t: torch.Tensor, ref, device, pl, mesh) -> torch.Tensor:
+    """A restored leaf in ``ref``'s dtype on its device, or as a DTensor on
+    ``mesh`` by ``pl`` (or on ``ref``'s own mesh and placements)."""
+    if pl is None and _is_dtensor(ref):
+        pl, mesh = ref.placements, ref.device_mesh
+    if pl is None:
+        return t.to(device=ref.device if device is None else device,
+                    dtype=ref.dtype)
+    from torch.distributed.tensor import distribute_tensor
+
+    if mesh is None:
+        raise ValueError("restore: placements need a mesh")
+    return distribute_tensor(t.to(device=mesh.device_type, dtype=ref.dtype),
+                             mesh, pl)

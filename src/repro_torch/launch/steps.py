@@ -1,28 +1,49 @@
-"""Step functions of the model substrate on one device: train, prefill and
-decode.
+"""Step builders: train_step / prefill_step / decode_step per (arch, mesh).
 
 The JAX package's ``build_train_step`` / ``build_prefill_step`` /
 ``build_decode_step`` (``src/repro/launch/steps.py:69, 135, 180``) bind a
 config, an optimizer and a shape to ``lm.train_loss`` / ``lm.prefill`` /
-``lm.decode_step`` and attach a sharding policy for a mesh.  Here a step is
-a closure over the config (and the optimizer, or the cache capacity) on one
-device; sharding waits for ROADMAP.md queue 1, item 12.  The serving
-signatures follow the family as the JAX steps do: an encoder-decoder's
-prefill takes the source frames and returns the encoder output beside the
-cache, and its decode step takes that output back; a VLM's prefill takes
-the patch embeddings.
+``lm.decode_step``.  Here a step is a closure over the config (and the
+optimizer, or the cache capacity).  With ``policy=None`` it runs on plain
+tensors on one device; with a ``ShardingPolicy`` it takes DTensors placed
+by the policy (a plain batch is placed on ``data_pspec``) and runs under
+its activation policy.  ``build_step`` returns a ``StepBundle``: the
+function, ``meta`` stand-ins of its inputs, and the placements of each
+input and output.  The serving signatures follow the family as the JAX
+steps do: an encoder-decoder's prefill takes the source frames and returns
+the encoder output beside the cache, and its decode step takes that output
+back; a VLM's prefill takes the patch embeddings.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import configs as cfglib
 from repro_torch.configs import resolve_shape
+from repro_torch.distributed.api import activation_policy
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.optim import Optimizer, pick_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import _global_norm, tree_leaves, tree_map
+
+
+@dataclass
+class StepBundle:
+    name: str
+    fn: Callable
+    args_sds: tuple  # meta stand-ins of the inputs
+    in_placements: tuple  # per input: a tree of DTensor placements
+    out_placements: Any  # per output, or None where DTensor propagates them
+    static_meta: dict
+
+
+def params_sds(cfg: ModelConfig):
+    """The parameter tree as ``meta`` tensors (no allocation)."""
+    return lm.init_params(None, cfg, device="meta")
 
 
 def default_optimizer(cfg: ModelConfig) -> Optimizer:
@@ -56,7 +77,8 @@ def _grads(cfg: ModelConfig, params, batch):
 
 def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                      shape: Optional[ShapeSpec] = None,
-                     microbatches: Optional[int] = None) -> Callable:
+                     microbatches: Optional[int] = None,
+                     policy=None) -> Callable:
     """``train_step(params, opt_state, step, batch) -> (params, opt_state,
     step + 1, metrics)``, as the JAX step: the gradient of ``lm.train_loss``
     and one optimizer update.  ``batch`` is a dict of (B, ...) tensors; with
@@ -65,12 +87,25 @@ def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     whose metrics are averaged.  Metrics: loss, nll, z_loss, aux_loss (fp32
     0-d tensors on the device) and, beyond the JAX step's, grad_norm, the
     global norm of the gradient the optimizer receives.  ``step`` is an int.
-    The returned params do not require grad."""
+    The returned params do not require grad.  With a ``policy`` the step
+    takes params and optimizer state as DTensors on the policy's placements
+    (``ShardingPolicy.distribute``), places a plain batch on
+    ``data_pspec`` and runs under the activation policy (``sharded``);
+    the metrics come back as plain tensors."""
     optimizer = optimizer or default_optimizer(cfg)
     if microbatches is None:
         microbatches = default_microbatches(cfg, shape)
 
     def train_step(params, opt_state, step, batch):
+        if policy is None:
+            return plain_step(params, opt_state, step, batch)
+        with sharded(policy):
+            params, opt_state, step, metrics = plain_step(
+                params, opt_state, step, place_batch(policy, batch))
+        return params, opt_state, step, {k: full(v)
+                                         for k, v in metrics.items()}
+
+    def plain_step(params, opt_state, step, batch):
         if microbatches > 1:
             gacc, ms = None, []
             for i in range(microbatches):
@@ -100,7 +135,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     return train_step
 
 
-def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec | str) -> Callable:
+def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec | str,
+                       policy=None) -> Callable:
     """``prefill_step(params, tokens) -> (logits, cache)`` with the cache
     sized to the shape's sequence length; ``prefill_step(params, tokens,
     frontend)`` for a VLM, and ``-> (logits, cache, encoder_out)`` for an
@@ -121,10 +157,11 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec | str) -> Callable:
         def prefill_step(params, tokens):
             return lm.prefill(params, cfg, tokens, capacity=capacity)
 
-    return prefill_step
+    return _under(policy, prefill_step)
 
 
-def build_decode_step(cfg: ModelConfig, shape: ShapeSpec | str) -> Callable:
+def build_decode_step(cfg: ModelConfig, shape: ShapeSpec | str,
+                      policy=None) -> Callable:
     """``decode_step(params, token, cache, cache_len) -> (logits, cache)``
     for a cache of the shape's sequence length, updated in place (the JAX
     step donates it); an encoder-decoder's step also takes
@@ -140,4 +177,96 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec | str) -> Callable:
             return lm.decode_step(params, cfg, token, cache, cache_len,
                                   capacity=capacity)
 
-    return decode_step
+    return _under(policy, decode_step)
+
+
+@contextlib.contextmanager
+def sharded(policy):
+    """The activation policy, with plain tensors taken as replicated where
+    they meet DTensors (positions, masks, the zero aux of a block)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with activation_policy(policy.activation_policy()), implicit_replication():
+        yield
+
+
+def full(t):
+    """A DTensor as its full value on this rank; a plain tensor as is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def place_batch(policy, batch: dict) -> dict:
+    """A batch of plain (B, ...) tensors, the same on every rank, as
+    DTensors on ``policy.data_pspec`` (DTensors pass through)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    return {k: v if isinstance(v, DTensor) else distribute_tensor(
+        v, policy.mesh, policy.data_sharding(v)) for k, v in batch.items()}
+
+
+def _under(policy, fn: Callable) -> Callable:
+    """``fn`` itself without a policy; else ``fn`` under ``sharded``."""
+    if policy is None:
+        return fn
+
+    def step(*args):
+        with sharded(policy):
+            return fn(*args)
+
+    return step
+
+
+def build_step(cfg: ModelConfig, policy, shape: ShapeSpec | str,
+               optimizer: Optional[Optimizer] = None) -> StepBundle:
+    """The step of ``shape.kind`` with its ``meta`` inputs and the
+    placements the policy gives them (the JAX ``build_step``).  The policy
+    may sit on a stand-in mesh: placements need only its axis names."""
+    shape = resolve_shape(shape)
+    specs = cfglib.input_specs(cfg, shape)
+    p_sds = params_sds(cfg)
+    p_spec = policy.param_pspecs(cfg, p_sds)
+    p_pl = policy.shardings_of(p_spec)
+    rep, data = policy.replicated(), policy.data_sharding
+    if shape.kind == "train":
+        optimizer = optimizer or default_optimizer(cfg)
+        o_sds = optimizer.init(p_sds)
+        o_pl = policy.shardings_of(policy.opt_pspecs(optimizer.name, p_spec,
+                                                     p_sds))
+        batch = specs["batch"]
+        metrics = {k: rep for k in ("nll", "z_loss", "aux_loss", "loss",
+                                    "grad_norm")}
+        return StepBundle(
+            name=f"train:{cfg.name}",
+            fn=build_train_step(cfg, optimizer=optimizer, shape=shape,
+                                policy=policy),
+            args_sds=(p_sds, o_sds, 0, batch),
+            in_placements=(p_pl, o_pl, rep, tree_map(data, batch)),
+            out_placements=(p_pl, o_pl, rep, metrics),
+            static_meta={"optimizer": optimizer.name, "shape": shape.name})
+    if shape.kind == "prefill":
+        names = ("tokens", "frontend") if cfg.frontend or \
+            cfg.num_encoder_layers else ("tokens",)
+        args = tuple(specs[n] for n in names)
+        return StepBundle(
+            name=f"prefill:{cfg.name}",
+            fn=build_prefill_step(cfg, shape, policy=policy),
+            args_sds=(p_sds,) + args,
+            in_placements=(p_pl,) + tuple(data(a) for a in args),
+            out_placements=None,  # logits data-sharded, cache per policy
+            static_meta={"shape": shape.name, "capacity": shape.seq_len})
+    if shape.kind == "decode":
+        cache_pl = policy.shardings_of(policy.cache_pspecs(specs["cache"]))
+        args = (p_sds, specs["token"], specs["cache"], specs["cache_len"])
+        in_pl = (p_pl, data(specs["token"]), cache_pl, rep)
+        if cfg.num_encoder_layers:
+            args += (specs["encoder_out"],)
+            in_pl += (data(specs["encoder_out"]),)
+        logits_pl = policy.placements(policy.data_pspec(
+            (shape.global_batch, cfg.vocab_size)))
+        return StepBundle(
+            name=f"decode:{cfg.name}",
+            fn=build_decode_step(cfg, shape, policy=policy),
+            args_sds=args, in_placements=in_pl,
+            out_placements=(logits_pl, cache_pl),
+            static_meta={"shape": shape.name, "capacity": shape.seq_len})
+    raise ValueError(shape.kind)

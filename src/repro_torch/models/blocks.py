@@ -27,6 +27,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import api
+from repro_torch.distributed.api import constrain
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
 from repro_torch.models import layers as L
@@ -114,8 +116,16 @@ def _self_attention(params: Params, x: torch.Tensor, ctx: BlockCtx,
             if cap < S:
                 # ring buffer: last `cap` positions land at slots pos % cap
                 slots = torch.arange(S - cap, S, device=x.device) % cap
-                new_cache["k"][:, slots] = k[:, -cap:].to(new_cache["k"].dtype)
-                new_cache["v"][:, slots] = v[:, -cap:].to(new_cache["v"].dtype)
+                if api.is_dtensor(new_cache["k"]):  # each rank's shard
+                    api.local_index_copy(new_cache["k"], 1, slots,
+                                         k[:, -cap:])
+                    api.local_index_copy(new_cache["v"], 1, slots,
+                                         v[:, -cap:])
+                else:
+                    new_cache["k"][:, slots] = k[:, -cap:].to(
+                        new_cache["k"].dtype)
+                    new_cache["v"][:, slots] = v[:, -cap:].to(
+                        new_cache["v"].dtype)
             else:
                 L.kv_cache_update(new_cache, k, v, 0)
     return L.attention_out(params, out), new_cache
@@ -365,6 +375,14 @@ def moe_unpermute(hw: torch.Tensor, gather_idx: torch.Tensor,
     return _MoeUnpermute.apply(hw, gather_idx, slot_table)
 
 
+def _gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``moe_gmm``; on DTensors on each rank's experts
+    (``api.local_moe_gmm``)."""
+    if api.is_dtensor(x, w):
+        return api.local_moe_gmm(moe_gmm, x, w)
+    return moe_gmm(x, w)
+
+
 def moe_expert_ffn(x_disp: torch.Tensor, params: Params,
                    activation: str) -> torch.Tensor:
     """Batched per-expert GLU FFN: x_disp (G, E, C, D) -> (G, E, C, D).
@@ -375,8 +393,20 @@ def moe_expert_ffn(x_disp: torch.Tensor, params: Params,
     G, E, C, D = x_disp.shape
     xe = x_disp.transpose(0, 1).reshape(E, G * C, D)
     act = L._ACTS[activation]
-    h = act(moe_gmm(xe, params["w_gate"])) * moe_gmm(xe, params["w_up"])
-    return moe_gmm(h, params["w_down"]).reshape(E, G, C, D).transpose(0, 1)
+    h = act(_gmm(xe, params["w_gate"])) * _gmm(xe, params["w_up"])
+    if api.is_dtensor(h):  # the JAX package's (G, E, C, F) layout
+        h = constrain(h.reshape(E, G, C, -1).transpose(0, 1), "moe_hidden")
+        h = h.transpose(0, 1).reshape(E, G * C, -1)
+    return _gmm(h, params["w_down"]).reshape(E, G, C, D).transpose(0, 1)
+
+
+def _per_group(fn, *args, **kw):
+    """``fn(*args, **kw)``; on DTensors on each rank's dispatch groups
+    (``api.local_groups``): DTensor has no rules for the plan's sorts and
+    scatters or the permutes' custom backwards."""
+    if api.is_dtensor(*args):
+        return api.local_groups(lambda *a: fn(*a, **kw), *args)
+    return fn(*args, **kw)
 
 
 def moe_apply(params: Params, x: torch.Tensor,
@@ -403,15 +433,18 @@ def moe_apply(params: Params, x: torch.Tensor,
         xg, pg = x, probs
     G, T = xg.shape[0], xg.shape[1]
     cap = moe_capacity(T, cfg)
-    idx, cw, slots = moe_dispatch_indices(pg, top_k=k, capacity=cap)
-    idx = idx.reshape(G, E * cap)
-    x_disp = moe_permute(xg, idx, slots).reshape(G, E, cap, D)
+    idx, cw, slots = _per_group(moe_dispatch_indices, pg, top_k=k,
+                                capacity=cap)
+    idx = constrain(idx, "moe_idx").reshape(G, E * cap)
+    x_disp = _per_group(moe_permute, xg, idx, slots).reshape(G, E, cap, D)
+    x_disp = constrain(x_disp, "moe_dispatch")
     h = moe_expert_ffn(x_disp, params, cfg.activation)
+    h = constrain(h, "moe_dispatch")
     hw = h.reshape(G, E * cap, D) * cw.reshape(G, E * cap, 1).to(h.dtype)
-    out = moe_unpermute(hw, idx, slots).reshape(B, S, D)
+    out = _per_group(moe_unpermute, hw, idx, slots).reshape(B, S, D)
     if "shared" in params:
         out = out + L.mlp_apply(params["shared"], x, cfg.activation)
-    return out, aux
+    return constrain(out, "act_btd"), aux
 
 
 # ===========================================================================
@@ -480,6 +513,8 @@ def rglru_scan(y: torch.Tensor, a_log: torch.Tensor, gated_in: torch.Tensor,
     a = torch.exp(a_log)
     if h0 is None:
         h0 = a.new_zeros((a.shape[0], a.shape[2]), dtype=torch.float32)
+    if api.is_dtensor(a, gated_in, h0):  # each rank's channels
+        return api.local_scan(rglru_scan_op, a, gated_in, h0)
     return rglru_scan_op(a.contiguous(), gated_in.contiguous(), h0)
 
 
@@ -501,7 +536,7 @@ def apply_rglru_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
     fills it in place when one is given, else a new one."""
     xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     gate = F.gelu(xin @ params["w_gate_in"], approximate="tanh")
-    y = xin @ params["w_x"]
+    y = constrain(xin @ params["w_x"], "act_btr")
 
     if ctx.decoding and cache is None:
         raise ValueError("decode needs a recurrent cache")
@@ -681,7 +716,8 @@ def apply_mlstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
     v = (up @ params["wv"]).reshape(B, S, NH, dh)
     up32 = up.float()
     li = up32 @ params["w_i"] + params["b_i"]
-    lf = F.logsigmoid(up32 @ params["w_f"] + params["b_f"])
+    lf = api.local_pointwise(F.logsigmoid,
+                             up32 @ params["w_f"] + params["b_f"])
 
     new_cache = None
     if ctx.decoding:
@@ -754,7 +790,7 @@ def _slstm_cell(params: Params, xt: Params, state: Params, NH: int) -> Params:
     o = torch.sigmoid(xt["o"] + rec("o"))
     i_tilde = xt["i"] + rec("i")
     f_tilde = xt["f"] + rec("f")
-    lf = F.logsigmoid(f_tilde)
+    lf = api.local_pointwise(F.logsigmoid, f_tilde)
     m_new = torch.maximum(lf + state["m"], i_tilde)
     i_p = torch.exp(i_tilde - m_new)
     f_p = torch.exp(lf + state["m"] - m_new)

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import api
+from repro_torch.distributed.api import constrain
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -118,6 +120,8 @@ def attention_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_bshd")
+    k = constrain(k, "act_bskd")
     return q, k, v
 
 
@@ -131,8 +135,17 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The JAX function keeps its P.V accumulator in v's dtype; the kernel,
     like the Pallas kernel, keeps it in fp32.  Differentiable: the GQA sum
     of dK and dV over each group happens in the backward kernel.
+
+    On DTensors the op runs on each rank's shard (``api.local_attention``)
+    with q, k and v on the placements of the ``attn_bhsd`` rule, the JAX
+    function's constraints (``layers.py:143-145``); the kernel's backward
+    runs on the same shards, so dq, dk, dv and dout keep those placements
+    (``layers.py:198-201, 233-235``).
     """
     del softcap  # reserved (no assigned arch softcaps attention scores)
+    if api.is_dtensor(q, k, v):
+        return api.local_attention(flash_attention, q, k, v, causal=causal,
+                                   window=window, chunk_attn=chunk_attn)
     return flash_attention(q, k, v, causal=causal, window=window,
                            chunk_attn=chunk_attn)
 
@@ -146,14 +159,19 @@ def decode_attention_xla(q: torch.Tensor, k_cache: torch.Tensor,
 
     q (B, 1, H, hd), caches (B, W, Kv, hd); ``cache_len`` counts the tokens
     processed including this one.  Ring semantics: slot j holds position
-    ``qpos - ((qpos - j) mod W)``.
+    ``qpos - ((qpos - j) mod W)``.  On DTensors it runs on each rank's
+    shard (``api.local_decode``).
     """
+    if api.is_dtensor(q, k_cache, v_cache):
+        return api.local_decode(decode_attention, q, k_cache, v_cache,
+                                cache_len, ring=ring, chunk_attn=chunk_attn)
     return decode_attention(q, k_cache, v_cache, cache_len, ring=ring,
                             chunk_attn=chunk_attn)
 
 
 def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", attn, params["wo"])
+    out = torch.einsum("bshk,hkd->bsd", attn, params["wo"])
+    return constrain(out, "act_btd")
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +200,8 @@ def mlp_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     act = _ACTS[activation]
     up = x @ params["w_up"]
     h = act(x @ params["w_gate"]) * up if "w_gate" in params else act(up)
-    return h @ params["w_down"]
+    h = constrain(h, "act_btf")
+    return constrain(h @ params["w_down"], "act_btd")
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +221,7 @@ def _ce_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
     vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
     if valid_vocab and valid_vocab < logits.shape[-1]:
         logits = logits.masked_fill(vocab_iota >= valid_vocab, -1e30)
+    logits = constrain(logits, "act_btv")
     lse = torch.logsumexp(logits, dim=-1)
     # the gold logit as the JAX package takes it: a masked max over the vocab
     gold = torch.where(vocab_iota == lc[..., None], logits, -1e30).amax(-1)
@@ -237,7 +257,8 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         w = torch.ones(lc.shape, dtype=torch.float32, device=x.device) \
             if mask is None else mask[:, c0:c0 + chunk].float()
         nll, zl, ws = checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head, lc, w,
-                                 logit_cap, valid_vocab, use_reentrant=False)
+                                 logit_cap, valid_vocab, use_reentrant=False,
+                                 context_fn=api.checkpoint_context)
         tot_nll, tot_z, tot_w = tot_nll + nll, tot_z + zl, tot_w + ws
     wsum = torch.clamp_min(tot_w, 1.0)
     return tot_nll / wsum, z_loss * tot_z / wsum
@@ -261,6 +282,10 @@ def kv_cache_update(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
     function returns a new one.  A tensor ``pos`` keeps a decode loop free
     of host syncs."""
     idx = torch.arange(k_new.shape[1], device=cache["k"].device) + pos
+    if api.is_dtensor(cache["k"]):  # each rank writes its shard
+        api.local_index_copy(cache["k"], 1, idx, k_new)
+        api.local_index_copy(cache["v"], 1, idx, v_new)
+        return cache
     cache["k"].index_copy_(1, idx, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(1, idx, v_new.to(cache["v"].dtype))
     return cache

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import api
+from repro_torch.distributed.api import constrain
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -130,6 +132,8 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
     if want_cache and cache is None:
         cache = init_stack_cache(cfg, x.shape[0], ctx.capacity or x.shape[1],
                                  x.device)
+        if api.is_dtensor(x):  # placed by the policy's cache rules
+            cache = api.place_cache(cache)
     remat = cfg.scan_layers and cfg.remat and ctx.mode == "train" and \
         torch.is_grad_enabled()
 
@@ -157,7 +161,8 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
             if want_cache else None
         if remat:  # the backward recomputes the unit from x
             x, aux = checkpoint(run_unit, x, unit_params, None,
-                                use_reentrant=False)
+                                use_reentrant=False,
+                                context_fn=api.checkpoint_context)
         else:
             x, aux = run_unit(x, unit_params, unit_cache)
         aux_total = aux_total + aux
@@ -209,11 +214,14 @@ def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed_tokens(params: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    if api.is_dtensor(params["embed"], tokens):  # each rank's batch rows
+        x = api.local_embed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         # the scale rounded to the activation dtype, as the JAX package has it
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
-    return x
+    return constrain(x, "act_btd")
 
 
 def _merge_frontend(params: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -6,8 +6,9 @@ gradient to int8 with a max-abs scale per block of 256 values (rounding half
 to even, as ``jnp.round``), the all-reduce moves a quarter of the fp32 bytes,
 and the quantization residual is carried into the next step's gradient.
 
-``compressed_psum``, the collective around it, waits for a
-``torch.distributed`` mesh (ROADMAP.md queue 1, item 12).
+``compressed_psum`` is the collective around it: each rank quantizes its
+gradient, the int8 codes are summed as int32 over the group, the scales
+averaged, and the sum dequantized and divided by the group's size.
 """
 from __future__ import annotations
 
@@ -64,3 +65,33 @@ def decompress_tree(comp: Tree, like: Tree) -> Tree:
 def init_error(params: Tree) -> Tree:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def compressed_psum(grads: Tree, error: Tree,
+                    group=None) -> tuple[Tree, Tree]:
+    """The mean of ``grads`` over the ranks of ``group`` (a
+    ``torch.distributed`` process group, default the world) through int8
+    codes, in the JAX function's order (``compressed_psum``): quantize
+    locally, all-reduce the codes as int32 sums, average the scales (a
+    shared-scale approximation), dequantize, divide by n.  Returns (the
+    reduced tree in fp32, the new error feedback).  A DTensor leaf is
+    taken as its local shard (what a data-parallel rank holds)."""
+    import torch.distributed as dist
+
+    local = tree_map(lambda t: t.to_local() if hasattr(t, "to_local")
+                     else t, grads)
+    comp, new_err = compress_tree(local, tree_map(
+        lambda t: t.to_local() if hasattr(t, "to_local") else t, error))
+    n = dist.get_world_size(group)
+
+    def reduce_leaf(g, c):
+        q32 = c["q"].to(torch.int32)
+        dist.all_reduce(q32, group=group)
+        s = c["s"].clone()
+        dist.all_reduce(s, group=group)
+        s = s / n  # pmean
+        return (q32.to(torch.float32) * s[:, None]).reshape(-1)[
+            :g.numel()].reshape(g.shape)
+
+    reduced = tree_map(reduce_leaf, local, comp)
+    return tree_map(lambda g: g / n, reduced), new_err

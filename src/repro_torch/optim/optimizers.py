@@ -148,8 +148,10 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
             g32 = g.to(torch.float32)
             g2 = torch.square(g32).add_(eps)
             if _factored(p):
-                row = beta * s["row"] + (1 - beta) * g2.mean(dim=-1)
-                col = beta * s["col"] + (1 - beta) * g2.mean(dim=-2)
+                row = _placed_like(beta * s["row"]
+                                   + (1 - beta) * g2.mean(dim=-1), s["row"])
+                col = _placed_like(beta * s["col"]
+                                   + (1 - beta) * g2.mean(dim=-2), s["col"])
                 del g2
                 row_mean = row.mean(dim=-1, keepdim=True)
                 den = (row / torch.clamp_min(row_mean, eps))[..., None] \
@@ -188,6 +190,15 @@ def adafactor(lr: Schedule, decay: float = 0.8, eps: float = 1e-30,
         return new_params, new_state
 
     return Optimizer("adafactor", init, update)
+
+
+def _placed_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``ref``'s DTensor placements; a plain tensor as is.  A
+    mean over a sharded dim leaves a ``Partial`` DTensor, which the
+    in-place ops after it cannot take; the state keeps its placements."""
+    if hasattr(ref, "placements") and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 def _map_with_state(fn, grads, state, params):

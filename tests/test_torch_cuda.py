@@ -1606,3 +1606,65 @@ def test_train_on_the_card_tracks_the_cpu(dtype):
                 1e-4 * float(b.abs().max())
     else:
         np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_train_step_on_a_one_rank_mesh_matches_the_plain_step():
+    """The (1, 1) ``DeviceMesh`` twin of ``chip_smoke.py``'s ``train_tp``:
+    reduced InternLM2 in fp32 (stacked units, remat), one
+    ``build_train_step`` step in 2 microbatches with params and AdamW state
+    as DTensors placed by ``ShardingPolicy`` over a one-rank ``nccl``
+    world, against the plain step on the card from the same weights: loss
+    rel 1e-5, params within 1e-4 of each leaf's max, the same flash
+    launches (lse twin and backward) on the FFMA variants."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy, \
+        to_local_tree
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    dev = _cuda()
+    cfg = get_config("internlm2-1.8b").reduced().with_overrides(
+        scan_layers=True, remat=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                                device=dev) for k in ("tokens", "labels")}
+    opt = adamw(constant_schedule(1e-3))
+    counts = lambda: (flash_attention.launches_lse_ffma,
+                      flash_attention.launches_bwd_ffma)
+    before = counts()
+    ref_p, _, _, ref_m = build_train_step(cfg, optimizer=opt,
+                                          microbatches=2)(
+        tree_map(lambda t: t.clone(), params), opt.init(params), 3, batch)
+    torch.cuda.synchronize()
+    plain = tuple(a - b for a, b in zip(counts(), before))
+    init_world("cuda")
+    try:
+        policy = ShardingPolicy(make_host_mesh(1, device="cuda"))
+        spec = policy.param_pspecs(cfg, params)
+        state = policy.distribute(opt.init(params),
+                                  policy.opt_pspecs("adamw", spec, params))
+        placed = policy.distribute(params, spec)
+        before = counts()
+        new_p, _, _, m = build_train_step(cfg, optimizer=opt, microbatches=2,
+                                          policy=policy)(placed, state, 3,
+                                                         batch)
+        torch.cuda.synchronize()
+        sharded = tuple(a - b for a, b in zip(counts(), before))
+        got = to_local_tree(new_p)
+    finally:
+        dist.destroy_process_group()
+    assert plain == sharded == (2 * 2 * 2, 2 * 2)
+    assert abs(float(m["loss"]) - float(ref_m["loss"])) <= \
+        1e-5 * abs(float(ref_m["loss"]))
+    for a, b in zip(tree_leaves(got), tree_leaves(ref_p)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

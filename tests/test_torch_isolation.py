@@ -35,7 +35,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.perf", "repro_torch.perf.cost_model",
               "repro_torch.runtime", "repro_torch.runtime.placement",
               "repro_torch.runtime.router",
-              "repro_torch.runtime.adaptation"):
+              "repro_torch.runtime.adaptation",
+              "repro_torch.distributed", "repro_torch.distributed.api",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.fault_tolerance",
+              "repro_torch.launch.mesh", "repro_torch.perf.roofline",
+              "repro_torch.optim.grad_compression"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -345,11 +345,14 @@ def test_train_restart_is_bit_equal(tmp_path):
 
 
 def test_train_refuses_what_waits_for_later_items():
-    """Tensor parallelism waits for a DeviceMesh (item 12); every arch's
-    train path has its backward kernels, so nothing else is refused."""
+    """Nothing waits any more: tensor parallelism runs on a DeviceMesh
+    (``tests/test_torch_distributed.py`` drives ``train(..., tp=2)`` on two
+    ranks), so without a world of ranks to build the mesh over, ``tp=2``
+    raises for the missing process group, not as work left for later; and
+    every arch's train path has its backward kernels."""
     from repro_torch.launch import train as train_mod
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="no process group"):
         train_mod.train(ARCH, steps=1, tp=2, device="cpu")
     assert not hasattr(train_mod, "kernels_without_backward")
 
