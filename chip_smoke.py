@@ -41,7 +41,12 @@ line each:
    kernel is timed beside them on the same inputs where it takes them (its
    explicit route).  The selection and decode_attention rows also log their
    grid (query tile and splits) and ``graph_ms``, device time per call
-   replayed from a CUDA graph, beside the library's.
+   replayed from a CUDA graph, beside the library's.  decode_attention's
+   lse twin (``decode_attention_lse``) runs on caches cut into 2 or 16
+   slices by ``slot0``, as each rank of a cache sharded along its slots
+   runs it: every slice against the plain twin, a slice past cache_len
+   exactly 0 with lse NEG_INF, and the slices merged by lse against the
+   whole-cache kernel (``split_row``).
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
@@ -145,13 +150,21 @@ line each:
    decode launch counts, prefill -> decode.
 17. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
+18. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
+   InternLM2-1.8B and RecurrentGemma-2B ``decode_32k`` (their caches sharded
+   along the slots over 16 model ranks) and InternLM2-1.8B ``train_4k``, on
+   the host's CPU in processes of their own (``dryrun_phase``): each must
+   report ``ok``; trace seconds, rank-0 bytes, FLOPs and collectives are
+   logged (host counts of a fake 256-rank world).
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
 kernel's launches on the served and trained runs, by variant where it has
 two: retrieval_topk's are summed over phases 3-6, flash_attention's
 training forwards are its ``lse_tc`` variant; the three backwards stand as
 ``*_bwd`` entries, the flash backward at hd 256 apart as
-``flash_attention_bwd_wide``), and
+``flash_attention_bwd_wide``; decode_attention's lse twin as
+``decode_attention_lse``, its count read on every served and trained run
+and held at 0 there: no one-card path runs it), and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without the result lines.  It needs a CUDA device and
 the rest of the repository beside it.
@@ -178,6 +191,7 @@ PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 66.9e12, 989e12)}
 TIE = 1e-5  # values this close may order either way under fp32 rounding
 VARIANTS = ("tc", "ffma")  # the kernels with two variants count each apart
 SCAN_ROUTES = ("tma", "cp_async")  # rglru_scan's producers, counted apart
+DECODE_LSE = "decode_attention_lse"  # decode's lse twin in the kernels line
 
 
 def op_variants(op) -> tuple:
@@ -419,6 +433,13 @@ def bound(bw, flops_rate, nbytes, flops):
                                        else "operations")
 
 
+def cost_bound(bw, flops_rate, cost):
+    """``bound`` of a kernel module's ``cost(...)``, (FLOPs, bytes): the
+    count the dry run reads too."""
+    flops, nbytes = cost
+    return bound(bw, flops_rate, nbytes, flops)
+
+
 def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
     """Both attention kernels against their plain versions at the served
     and long shapes of InternLM2-1.8B (H = 16, Kv = 8, hd = 128), on the same
@@ -505,8 +526,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=masks["causal"], enable_gqa=True))
         pairs = visible_pairs(S, Skv, **masks)
-        nbytes = 2 * (2 * B * S * H * hd + 2 * B * Skv * Kv * hd)
-        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * hd * pairs)
+        b_ms, b_by = cost_bound(bw, bf16, flash_kernel.cost(
+            B, S, Skv, H, Kv, hd, 2, **masks))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
         log("kernels", kernel="flash_attention", shape=where, B=B, S=S,
@@ -567,8 +588,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         lib_ms, lib_dev_ms = time_ms(torch, sdpa), graph_ms(torch, sdpa)
         live = int(visible.sum())
-        nbytes = 2 * (2 * B * H * hd + 2 * B * live * Kv * hd)
-        b_ms, b_by = bound(bw, bf16, nbytes, 4 * B * H * live * hd)
+        b_ms, b_by = cost_bound(bw, bf16, decode_kernel.cost(
+            B, H, Kv, hd, live, 2))
         split, n_splits = decode_kernel.tc_splits(B, Kv, W, sms, hd)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
@@ -622,6 +643,106 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
               loops=(3, 5))
     decode_row("llava-next-34b served decode", 4, 1024 + OUT_TOKENS, 1024 + 75,
                56, 8, 128, dense)
+    torch.cuda.empty_cache()
+
+    def split_row(where, B, W, clen, H, Kv, hd, masks, ways):
+        """decode_attention's lse twin on a cache cut into ``ways`` slices of
+        W / ways slots by ``slot0``, as each rank of a cache sharded along
+        its slots runs it (``api.local_decode``): every slice against the
+        plain twin (out under the bf16 limit, lse within LSE_ATOL; widened to
+        fp32, the FFMA twin: out within ATTN_F32_ATOL, lse within
+        LSE_ATOL); a dense slice wholly past cache_len must give out 0 and
+        lse NEG_INF; the slices merged in fp32 (the max lse m, weights
+        e^(lse - m)) against the whole-cache kernel under the bf16 limit.
+        Times: the first slice's launch per call and from a CUDA graph, and
+        the plain twin's.  Bound: ``kernel.cost`` over that slice's visible
+        slots.  No single PyTorch call returns attention with its lse."""
+        from repro_torch.kernels.common import NEG_INF
+        from repro_torch.kernels.decode_attention.ref import \
+            decode_attention_lse_ref
+
+        q = randn(B, 1, H, hd)
+        kc, vc = randn(B, W, Kv, hd), randn(B, W, Kv, hd)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        w = W // ways
+        whole = decode_attention(q, kc, vc, cl, **masks)
+        outs, lses, err, ratio, lse_err, err32, past = [], [], 0., 0., 0., \
+            0., 0
+        for r in range(ways):
+            ks, vs = (t[:, r * w:(r + 1) * w].contiguous() for t in (kc, vc))
+            twin = dict(masks, slot0=r * w, slots=W)
+            before = decode_attention.launches_lse_tc
+            out, lse = decode_attention(q, ks, vs, cl, return_lse=True,
+                                        **twin)
+            if decode_attention.launches_lse_tc != before + 1:
+                raise AssertionError(f"{where}: the twin did not take the "
+                                     "tensor-core variant")
+            ref, ref_lse = decode_attention_lse_ref(q, ks, vs, clen, **twin)
+            if not masks["ring"] and r * w >= clen:  # the limit is 0 there
+                past += 1
+                if out.abs().max() != 0 or not bool((lse == NEG_INF).all()):
+                    raise AssertionError(f"{where} slice {r}: past cache_len "
+                                         "but not 0 with lse NEG_INF")
+                e, rt = 0.0, 0.0
+            else:
+                e, rt = check_bf16(out, ref, decode_attention_lse_ref(
+                    q, ks, vs.abs(), clen, **twin)[0], f"{where} slice {r}")
+            le = float((lse - ref_lse).abs().max())
+            if not le <= LSE_ATOL:
+                raise AssertionError(f"{where} slice {r}: lse differs from "
+                                     f"the plain twin by {le}")
+            f32 = (q.float(), ks.float(), vs.float())
+            o32, l32 = decode_attention(*f32, cl, return_lse=True, **twin)
+            r32, rl32 = decode_attention_lse_ref(*f32, clen, **twin)
+            e32 = check_f32(o32, r32, f"{where} slice {r} fp32")
+            le32 = float((l32 - rl32).abs().max())
+            if not le32 <= LSE_ATOL:
+                raise AssertionError(f"{where} slice {r} fp32: lse differs "
+                                     f"from the plain twin by {le32}")
+            err, ratio, err32 = max(err, e), max(ratio, rt), max(err32, e32)
+            lse_err = max(lse_err, le, le32)
+            outs.append(out)
+            lses.append(lse)
+        lse_all = torch.stack(lses)
+        wts = torch.exp(lse_all - lse_all.max(0).values)[..., None]
+        merged = sum(wt[:, None] * o.float() for wt, o in
+                     zip(wts, outs)) / wts.sum(0)[:, None]
+        merge_err, merge_ratio = check_bf16(
+            merged.to(q.dtype), whole,
+            decode_attention_ref(q, kc, vc.abs(), clen, **masks),
+            f"{where} merged")
+        ks, vs = kc[:, :w].contiguous(), vc[:, :w].contiguous()
+        shard = dict(masks, slot0=0, slots=W)
+        op = lambda: decode_attention(q, ks, vs, cl, return_lse=True, **shard)
+        ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
+        plain = time_ms(torch, lambda: decode_attention_lse_ref(
+            q, ks, vs, clen, **shard))
+        live = int(slot_visible(w, clen, device=dev, **shard).sum())
+        b_ms, b_by = cost_bound(bw, bf16, decode_kernel.cost(
+            B, H, Kv, hd, live, 2, with_lse=True))
+        row = dict(max_abs_err=max(err, merge_err), ms=ms, plain_ms=plain,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log("kernels", kernel="decode_attention_lse", shape=where, B=B, W=W,
+            slice_slots=w, slices=ways, cache_len=clen, H=H, Kv=Kv, hd=hd,
+            dtype="bf16", **masks, variant="tc", slices_past_cache_len=past,
+            timed_slice_visible_slots=live, bf16_limit_ratio=ratio,
+            merged_max_abs_err=merge_err, merged_limit_ratio=merge_ratio,
+            lse_max_abs_err=lse_err, fp32_max_abs_err=err32, graph_ms=dev_ms,
+            launches_lse=decode_attention.launches_lse,
+            launches_lse_by_variant={v: getattr(
+                decode_attention, f"launches_lse_{v}") for v in VARIANTS},
+            **row)
+        return row
+
+    # decode on a cache sharded along its slots (tp > 1 with Kv % tp != 0:
+    # InternLM2's 8 KV heads over 16 ranks, RecurrentGemma-2B's one)
+    split_row("internlm2-1.8b decode, 2 slices", 8, 2048, 1174, H, Kv, hd,
+              dense, 2)
+    summary["decode_attention_lse"] = split_row(
+        "internlm2-1.8b decode, 16 slices", 8, 2048, 1174, H, Kv, hd, dense,
+        16)
+    split_row("recurrentgemma-2b ring decode, 16 slices", 4, 2048, 3072, 10,
+              1, 256, dict(ring=True, chunk_attn=0), 16)
     torch.cuda.empty_cache()
     return summary
 
@@ -687,8 +808,7 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
                           *loops)
         plain = time_ms(torch, lambda: moe_gmm_ref(x, w), *loops)
         lib_ms = time_ms(torch, lambda: torch.bmm(x, w))
-        b_ms, b_by = bound(bw, bf16, 2 * (E * C * K + E * K * N + E * C * N),
-                           2 * E * C * K * N)
+        b_ms, b_by = cost_bound(bw, bf16, gmm_kernel.cost(E, C, K, N, 2))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
         log("kernels", kernel="moe_gmm", shape=shape, E=E, C=C, D=K, F=N,
@@ -729,6 +849,7 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
     CH, T, D).  No single PyTorch call computes the recurrence, so there is
     no library time.  Returns the train row, the shape of most of its
     launches."""
+    from repro_torch.kernels.rglru_scan import kernel as scan_kernel
     from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -763,8 +884,8 @@ def scan_kernels(torch, dev, gen, bw, fp32) -> dict:
         plain = time_ms(torch, lambda: rglru_scan_ref(a, x, h0), 3, 2)
         plan = scan_fields(a, False)
         # a and x read once, h0 read, every state written in fp32
-        b_ms, b_by = bound(bw, fp32, B * S * R * (2 * a.element_size() + 4)
-                           + 4 * B * R, 2 * B * S * R)
+        b_ms, b_by = cost_bound(bw, fp32, scan_kernel.cost(
+            B, S, R, a.element_size()))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None, graph_ms=dev_ms)
         log("kernels", kernel="rglru_scan", shape=shape, B=B, S=S, R=R,
@@ -781,12 +902,12 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
     """Serve ``prompts`` through ``launch.steps``: a warm-up prefill and
     decode step (one-time costs: cuBLAS handles, lazy module loads), then a
     timed prefill and ``out_tokens`` greedy decode steps.  Every launch
-    counter in ``ops`` (and the per-variant counters of moe_gmm and
-    flash_attention) is set to 0 just before the prefill and just before
-    the decode loop, and read just after each; every launch of a kernel with
-    two variants must have gone to its tensor-core variant.  The logits of
-    the decode steps in ``watch`` are kept; none may be NaN or infinite.
-    ``frontend`` (stub frames of an encoder-decoder, patch embeddings of a
+    counter of the ops in ``ops`` is set to 0 just before the prefill and
+    just before the decode loop; each op's ``launches`` (and decode's lse
+    twin's, as ``DECODE_LSE``) and its per-variant counters are read just
+    after each; every launch of a kernel with two variants must have gone
+    to its tensor-core variant.  The logits of the decode steps in
+    ``watch`` are kept; none may be NaN or infinite.  ``frontend`` (stub frames of an encoder-decoder, patch embeddings of a
     VLM) goes to the prefill step; an encoder-decoder's prefill returns the
     encoder output, which every decode step takes back."""
     from repro_torch.launch.steps import build_decode_step, build_prefill_step
@@ -806,9 +927,14 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
 
     def zero():
         for op in ops.values():
-            op.launches = 0
-            for v in op_variants(op):
-                setattr(op, f"launches_{v}", 0)
+            for c in [c for c in vars(op) if c.startswith("launches")]:
+                setattr(op, c, 0)
+
+    def counts():
+        got = {name: op.launches for name, op in ops.items()}
+        if "decode_attention" in ops:
+            got[DECODE_LSE] = ops["decode_attention"].launches_lse
+        return got
 
     def variants():
         return {name: {v: getattr(op, f"launches_{v}")
@@ -820,7 +946,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
     logits, cache, *extra = prefill_step(params, prompts, *step_in)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = {name: op.launches for name, op in ops.items()}
+    prefill_launches = counts()
     prefill_variants = variants()
 
     kept, generated = {}, []
@@ -837,7 +963,7 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
         cache_len += 1  # on the device: no host sync in the loop
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    decode_launches = {name: op.launches for name, op in ops.items()}
+    decode_launches = counts()
     decode_variants = variants()
     for t, lg in [*kept.items(), ("last", logits)]:
         if not torch.isfinite(lg).all():
@@ -863,6 +989,13 @@ def serve_lm(torch, dev, cfg, params, prompts, out_tokens, ops, watch,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def lse_launches(run) -> int:
+    """Launches of decode's lse twin in a served run, prefill and decode
+    (``check_launches`` holds each at 0)."""
+    return run["prefill_launches"][DECODE_LSE] + \
+        run["decode_launches"][DECODE_LSE]
+
+
 def variant_totals(run) -> dict:
     """Launches by variant of a served run, prefill and decode summed."""
     out = {}
@@ -875,6 +1008,11 @@ def variant_totals(run) -> dict:
 
 
 def check_launches(cfg, what, got, want):
+    """``got`` (``serve_lm``'s counts) must be ``want``; where ``want``
+    counts decode_attention, decode's lse twin must have launched no time
+    (no one-card path runs it)."""
+    if "decode_attention" in want:
+        want = {DECODE_LSE: 0, **want}
     if got != want:
         raise AssertionError(f"{cfg.name} {what} launched {got}, want {want}")
 
@@ -983,11 +1121,11 @@ def model_phase(torch, dev) -> dict:
     rels = prefill_decode_rel(torch, params, cfg, prompts, run)
     log("model", **served_fields(torch, cfg, params, run, OUT, init_s),
         prefill_to_decode_rel=rels)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del params, run
     torch.cuda.empty_cache()
-    return ({"flash_attention": n_layers, "decode_attention": n_layers * OUT},
-            by_variant)
+    return ({"flash_attention": n_layers, "decode_attention": n_layers * OUT,
+             DECODE_LSE: lse}, by_variant)
 
 
 @contextlib.contextmanager
@@ -1113,7 +1251,7 @@ def moe_phase(torch, dev) -> dict:
                    {"moe_gmm": 3 * L * OUT, "flash_attention": 0,
                     "decode_attention": L * OUT})
     fields = served_fields(torch, cfg, params, run, OUT, init_s)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del run
 
     t_B, t_S, t_OUT = 2, 256, 16
@@ -1154,7 +1292,7 @@ def moe_phase(torch, dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return ({"moe_gmm": 3 * L * (1 + OUT), "flash_attention": L,
-             "decode_attention": L * OUT}, by_variant)
+             "decode_attention": L * OUT, DECODE_LSE: lse}, by_variant)
 
 
 def hybrid_phase(torch, dev) -> dict:
@@ -1197,11 +1335,11 @@ def hybrid_phase(torch, dev) -> dict:
         rglru_layers=n_rec, attention_layers=n_attn,
         window=cfg.window_size, rnn_state_dim=cfg.rnn_state_dim,
         prefill_to_decode_rel=rels)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del params, run
     torch.cuda.empty_cache()
     return ({"rglru_scan": n_rec, "flash_attention": n_attn,
-             "decode_attention": n_attn * OUT}, by_variant)
+             "decode_attention": n_attn * OUT, DECODE_LSE: lse}, by_variant)
 
 
 def stub_frontend(torch, dev, cfg, B, n, seed):
@@ -1296,7 +1434,7 @@ def xlstm_phase(torch, dev) -> dict:
     check_launches(cfg, "prefill", run["prefill_launches"], none)
     check_launches(cfg, "decode", run["decode_launches"], none)
     fields = served_fields(torch, cfg, params, run, OUT, init_s)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del run
     lengths = (2 * MLSTM_CHUNK, 3 * MLSTM_CHUNK, S)
     t0 = time.perf_counter()
@@ -1331,7 +1469,7 @@ def xlstm_phase(torch, dev) -> dict:
                             fp32_prefill_to_decode_rel=rels))
     del params, x
     torch.cuda.empty_cache()
-    return none, by_variant
+    return {**none, DECODE_LSE: lse}, by_variant
 
 
 def encdec_phase(torch, dev) -> dict:
@@ -1370,11 +1508,11 @@ def encdec_phase(torch, dev) -> dict:
         encoder_layers=Le, source_frames=T,
         source_frames_per_s=B * T / run["prefill_s"],
         prefill_to_decode_rel=rels)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del params, run, frames
     torch.cuda.empty_cache()
     return ({"flash_attention": Le + 2 * L + L * OUT,
-             "decode_attention": L * OUT}, by_variant)
+             "decode_attention": L * OUT, DECODE_LSE: lse}, by_variant)
 
 
 def vlm_phase(torch, dev) -> dict:
@@ -1416,7 +1554,7 @@ def vlm_phase(torch, dev) -> dict:
     bf16_rels = prefill_decode_rel(torch, params, cfg, prompts, run,
                                    limit=None)
     fields = served_fields(torch, cfg, params, run, OUT, init_s)
-    by_variant = variant_totals(run)
+    by_variant, lse = variant_totals(run), lse_launches(run)
     del run
 
     # the fp32 twin: slice the first layers out, free the rest, widen
@@ -1439,7 +1577,8 @@ def vlm_phase(torch, dev) -> dict:
         fp32_twin=dict(layers=n, prefill_to_decode_rel=rels))
     del params, twin_run, patches
     torch.cuda.empty_cache()
-    return ({"flash_attention": L, "decode_attention": L * OUT}, by_variant)
+    return ({"flash_attention": L, "decode_attention": L * OUT,
+             DECODE_LSE: lse}, by_variant)
 
 
 # -- training ------------------------------------------------------------------
@@ -1576,7 +1715,8 @@ TRAIN_COUNTERS = {
     "rglru_scan_op": ("launches", "launches_tma", "launches_cp_async",
                       "launches_bwd", "launches_bwd_tma",
                       "launches_bwd_cp_async"),
-    "decode_attention": ("launches",),
+    "decode_attention": ("launches", "launches_lse", "launches_lse_tc",
+                         "launches_lse_ffma"),
 }
 
 
@@ -1916,10 +2056,9 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
                              lambda *_, n=n: n):
                     splits_ms[n] = graph_ms(torch, bwd, 3, 3)
         pairs = visible_pairs(S, S, **masks)
-        nbytes = 2 * (3 * B * S * H * hd + 2 * B * S * Kv * hd) \
-            + 4 * B * H * S + 2 * (B * S * H * hd + 2 * B * S * Kv * hd)
-        flops10 = 10 * hd * B * H * pairs
-        b_ms, b_by = bound(bw, bf16, nbytes, flops10)
+        flops10, _ = cost = flash_kernel.cost_bwd(B, S, S, H, Kv, hd, 2,
+                                                   **masks)
+        b_ms, b_by = cost_bound(bw, bf16, cost)
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
         log("kernels", kernel="flash_attention_bwd", shape=where, B=B, S=S,
@@ -2006,7 +2145,8 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         launches={k: v for k, v in total.items() if v}, **prof,
         fp32_twin=twin, restart=restart)
     return ({"flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+             "flash_attention_bwd": total["flash_attention.launches_bwd"],
+             DECODE_LSE: total["decode_attention.launches_lse"]},
             {"flash_attention": {
                 "lse_tc": total["flash_attention.launches_lse_tc"],
                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
@@ -2208,7 +2348,8 @@ def train_tp_phase(torch, dev, summary) -> tuple:
         launches={k: v for k, v in total.items() if v}, **prof,
         compressed_psum=psum, reshard_restore=reshard)
     return ({"flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+             "flash_attention_bwd": total["flash_attention.launches_bwd"],
+             DECODE_LSE: total["decode_attention.launches_lse"]},
             {"flash_attention": {
                 "lse_tc": total["flash_attention.launches_lse_tc"],
                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
@@ -2294,9 +2435,7 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
                                          torch.bmm(xt, dy)), *loops)
         lib_dx_ms = time_ms(torch, lambda: torch.bmm(dy, wt), *loops)
         lib_dw_ms = time_ms(torch, lambda: torch.bmm(xt, dy), *loops)
-        b_ms, b_by = bound(bw, bf16,
-                           2 * (2 * E * C * K + 2 * E * K * N + E * C * N),
-                           4 * E * C * K * N)
+        b_ms, b_by = cost_bound(bw, bf16, gmm_kernel.cost_bwd(E, C, K, N, 2))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms)
         tiles = gmm_kernel.bwd_tc_tiles(E, C, K, N)
@@ -2369,9 +2508,8 @@ def scan_bwd_kernels(torch, dev, gen, bw, fp32) -> dict:
         ms, dev_ms = time_ms(torch, bwd), graph_ms(torch, bwd)
         plain = time_ms(torch, lambda: rglru_scan_bwd_ref(a, h0, h, dh), 2, 1)
         plan = scan_fields(a, True)
-        size = a.element_size()
-        b_ms, b_by = bound(bw, fp32, B * S * R * (3 * size + 8) + 8 * B * R,
-                           3 * B * S * R)
+        b_ms, b_by = cost_bound(bw, fp32, scan_kernel.cost_bwd(
+            B, S, R, a.element_size()))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None, graph_ms=dev_ms)
         log("kernels", kernel="rglru_scan_bwd", shape=shape, B=B, S=S, R=R,
@@ -2512,7 +2650,8 @@ def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     return ({"moe_gmm": total["moe_gmm.launches"],
              "moe_gmm_bwd": total["moe_gmm.launches_bwd"],
              "flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"]},
+             "flash_attention_bwd": total["flash_attention.launches_bwd"],
+             DECODE_LSE: total["decode_attention.launches_lse"]},
             {"moe_gmm": {"tc": total["moe_gmm.launches_tc"],
                          "ffma": total["moe_gmm.launches_ffma"]},
              "moe_gmm_bwd": {"tc": total["moe_gmm.launches_bwd_tc"],
@@ -2628,7 +2767,8 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     return ({"rglru_scan": total["rglru_scan_op.launches"],
              "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
              "flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd_wide": total["flash_attention.launches_bwd"]},
+             "flash_attention_bwd_wide": total["flash_attention.launches_bwd"],
+             DECODE_LSE: total["decode_attention.launches_lse"]},
             {"rglru_scan": {r: total[f"rglru_scan_op.launches_{r}"]
                             for r in SCAN_ROUTES},
              "rglru_scan_bwd": {r: total[f"rglru_scan_op.launches_bwd_{r}"]
@@ -2695,6 +2835,60 @@ def split_phase(torch) -> None:
         raise AssertionError(f"split draft: kernel readout differs by {err}")
     log("split", steps=5, head_dim=draft.hd, max_abs_err=err,
         decode_attention_launches=decode_attention.launches - before)
+
+
+# the dry run's cells on the single-pod mesh: decode on a cache sharded along
+# its slots (InternLM2's 8 KV heads and RecurrentGemma-2B's one over 16
+# model ranks) and a train step
+DRYRUN_CELLS = (("internlm2-1.8b", "decode_32k"),
+                ("recurrentgemma-2b", "decode_32k"),
+                ("internlm2-1.8b", "train_4k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_phase() -> None:
+    """``python -m repro_torch.launch.dryrun --mesh single`` on each of
+    ``DRYRUN_CELLS``, each in a process of its own (a fake world of 256
+    ranks needs the default process group, which ``train_tp``'s ``nccl``
+    world took in this one), all at once, on the host's CPU: every cell
+    must report ``ok``; its ``trace_s``, rank-0 bytes, per-device FLOPs and
+    bytes, the kernels' shape-route counts and the collectives by kind are
+    logged.  These are host counts of a traced step, not card
+    measurements."""
+    import os
+    import shutil
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        report = out_dir / f"{arch}_{shape}.json"
+        procs.append((arch, shape, report, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+             "single", "--arch", arch, "--shape", shape, "--report",
+             str(report)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env, cwd=ROOT)))
+    try:
+        for arch, shape, report, proc in procs:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {arch} x {shape}: exit "
+                                     f"{proc.returncode}: {out[-3000:]}")
+            rec = json.loads(report.read_text())[0]
+            if rec["status"] != "ok":
+                raise AssertionError(f"dryrun {arch} x {shape}: {rec}")
+            log("dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+                step=rec["step"], trace_s=rec["trace_s"],
+                memory=rec["memory"], cost=rec["cost"],
+                kernels=rec["kernels"], collectives=rec["collectives"],
+                counts="host counts of a fake 256-rank world")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 SHED_REASONS = {"quota", "queue_full", "deadline", "shutdown", "stale_loop"}
@@ -3427,8 +3621,15 @@ def main() -> int:
             for v, n in by.items():
                 acc[v] = acc.get(v, 0) + n
 
+    if launches[DECODE_LSE]:
+        raise AssertionError(f"decode's lse twin launched "
+                             f"{launches[DECODE_LSE]} times on the main path")
+
     # -- 17. split -------------------------------------------------------
     split_phase(torch)
+
+    # -- 18. dryrun ------------------------------------------------------
+    dryrun_phase()
     log("done", total_s=time.perf_counter() - t_start)
 
     csrc = "src/repro_torch/csrc/"
@@ -3445,6 +3646,16 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": csrc + "decode_attention_tc.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:77"},
+        # #3's lse twin on a slice of a cache sharded along its slots (a
+        # rank of tp > 1 serving, api.local_decode): its main-path count is
+        # read on every served and trained run and is 0 (no one-card path
+        # launches it); the kernels phase holds it against its plain twin
+        # and the merge against the whole cache
+        {"name": "decode_attention_lse", "route": "cuda",
+         "source": csrc + "decode_attention_tc.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:77",
+         "kernels": ["decode_attention_tc_kernel<kTwin>",
+                     "decode_tc_combine_kernel<kTwin>"]},
         {"name": "moe_gmm", "route": "cuda", "source": csrc + "moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:39"},
         {"name": "rglru_scan", "route": "cuda",

@@ -379,14 +379,18 @@ size_t decode_smem_bytes(int hd, int G) {
 // grid (n_splits, Kv, B).  Block (s, kvh, b) folds slots
 // [s * split, (s + 1) * split) of sequence b into (m, l, acc) for the G query
 // heads kvh * G .. kvh * G + G - 1, written to part_* at [b, head, s].
-template <typename T>
+// kTwin: the lse twin, on a slice of a cache sharded along its slots (the
+// local slots are global slots slot0 .. slot0 + W - 1 of `slots`; the mask
+// reads global slot numbers), as in decode_attention_tc.cu.
+template <typename T, bool kTwin>
 __global__ void __launch_bounds__(kDecodeThreads)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc,
                       const int* __restrict__ cache_len_ptr,
                       float* __restrict__ part_m, float* __restrict__ part_l,
                       float* __restrict__ part_acc, int W, int H, int Kv,
-                      int hd, int split, float scale, int ring, int chunk) {
+                      int hd, int split, float scale, int ring, int chunk,
+                      int slot0, int slots) {
   extern __shared__ float smem[];
   const int G = H / Kv;
   const int ld = hd + 1;
@@ -403,9 +407,12 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int n_splits = gridDim.x;
   const int cache_len = *cache_len_ptr;
   const int qpos = cache_len - 1;
+  const int base = kTwin ? slot0 : 0;  // global number of local slot 0
+  const int width = kTwin ? slots : W;  // the ring's width
   const int lo = si * split;
   int hi = min(lo + split, W);
-  if (!ring) hi = min(hi, cache_len);  // never read a slot past the cache
+  // never read a slot past the cache (a slice wholly past it: hi < lo)
+  if (!ring) hi = min(hi, cache_len - base);
 
   const T* qb = q + (static_cast<size_t>(b) * H + kvh * G) * hd;
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
@@ -433,7 +440,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const int g = i / kTK, j = i % kTK, slot = t0 + j;
       bool ok = j < n;
       if (ring) {
-        const int abs_pos = qpos - (((qpos - slot) % W) + W) % W;
+        const int gslot = base + slot;
+        const int abs_pos =
+            qpos - (((qpos - gslot) % width) + width) % width;
         ok = ok && abs_pos >= 0;
         if (chunk) ok = ok && abs_pos >= chunk_start;
       }
@@ -491,12 +500,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 }
 
 // grid (B * H): out[b, 0, h] = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s
-template <typename T>
+// (the twin also writes lse[b, h] = m + ln sum_s e^(m_s - m) l_s, kNegInf
+// where no slot was visible)
+template <typename T, bool kTwin>
 __global__ void __launch_bounds__(kDecodeThreads)
 decode_combine_kernel(const float* __restrict__ part_m,
                       const float* __restrict__ part_l,
                       const float* __restrict__ part_acc, T* __restrict__ out,
-                      int n_splits, int hd) {
+                      int n_splits, int hd, float* __restrict__ lse) {
   const size_t bh = blockIdx.x;
   const float* pm = part_m + bh * n_splits;
   const float* pl = part_l + bh * n_splits;
@@ -511,28 +522,32 @@ decode_combine_kernel(const float* __restrict__ part_m,
       a = fmaf(pa[static_cast<size_t>(s) * hd + d], w, a);
     }
     out[bh * hd + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+    if constexpr (kTwin) {
+      if (d == 0) lse[bh] = l > 0.f ? m + logf(l) : kNegInf;
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kTwin>
 int launch_decode(const void* q, const void* kc, const void* vc,
                   const int* cache_len, float* part_m, float* part_l,
                   float* part_acc, void* out, int B, int W, int H, int Kv,
                   int hd, int split, int n_splits, int ring, int chunk,
-                  cudaStream_t stream) {
+                  int slot0, int slots, float* lse, cudaStream_t stream) {
   static std::atomic<size_t> ready[hopper::kMaxDevices];
-  auto* fn = decode_partial_kernel<T>;
+  auto* fn = decode_partial_kernel<T, kTwin>;
   const size_t smem = decode_smem_bytes(hd, H / Kv);
   cudaError_t err = hopper::allow_smem(fn, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   fn<<<dim3(n_splits, Kv, B), kDecodeThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), cache_len, part_m, part_l, part_acc, W, H,
-      Kv, hd, split, 1.f / sqrtf(static_cast<float>(hd)), ring, chunk);
+      Kv, hd, split, 1.f / sqrtf(static_cast<float>(hd)), ring, chunk, slot0,
+      slots);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<B * H, kDecodeThreads, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), n_splits, hd);
+  decode_combine_kernel<T, kTwin><<<B * H, kDecodeThreads, 0, stream>>>(
+      part_m, part_l, part_acc, static_cast<T*>(out), n_splits, hd, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,10 +582,28 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro_torch::launch_decode<float>(
+    return repro_torch::launch_decode<float, false>(
         q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, out, B, W,
-        H, Kv, hd, split, n_splits, ring, chunk, s);
-  return repro_torch::launch_decode<__nv_bfloat16>(
+        H, Kv, hd, split, n_splits, ring, chunk, 0, W, nullptr, s);
+  return repro_torch::launch_decode<__nv_bfloat16, false>(
       q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, out, B, W, H,
-      Kv, hd, split, n_splits, ring, chunk, s);
+      Kv, hd, split, n_splits, ring, chunk, 0, W, nullptr, s);
+}
+
+// decode_attention_launch's lse twin: the caches are global slots slot0 ..
+// slot0 + W - 1 of a cache of `slots` slots; lse (B, H) fp32.
+extern "C" int decode_attention_lse_launch(
+    const void* q, const void* k_cache, const void* v_cache,
+    const int* cache_len, float* part_m, float* part_l, float* part_acc,
+    void* out, int dtype, int B, int W, int H, int Kv, int hd, int split,
+    int n_splits, int ring, int chunk, int slot0, int slots, float* lse,
+    void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return repro_torch::launch_decode<float, true>(
+        q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, out, B, W,
+        H, Kv, hd, split, n_splits, ring, chunk, slot0, slots, lse, s);
+  return repro_torch::launch_decode<__nv_bfloat16, true>(
+      q, k_cache, v_cache, cache_len, part_m, part_l, part_acc, out, B, W, H,
+      Kv, hd, split, n_splits, ring, chunk, slot0, slots, lse, s);
 }

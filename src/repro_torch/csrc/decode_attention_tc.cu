@@ -54,6 +54,16 @@
 // Softmax state in base 2: scores are scaled by log2(e) / sqrt(hd), so
 // exp2 gives the natural exponent of the unscaled score.
 //
+// The lse twin (decode_attention_tc_lse_launch; kTwin, a template flag, so
+// the served kernel is compiled as before) runs on a slice of a cache
+// sharded along its slots: the local slots are the global slots slot0 ..
+// slot0 + W - 1 of a cache of `slots` slots, visible() and the dense clamp
+// read global slot numbers (a ring's arithmetic and a chunk's start work on
+// the global width), and lse = ln sum exp of the visible scaled scores is
+// written beside the output, (B, H) fp32.  A slice with no visible slot
+// (dense, wholly past cache_len) gives 0 and lse kNegInf, never NaN: its
+// blocks load no tile, and every split's state stays (kNegInf, 0, 0).
+//
 // The launcher returns cudaGetLastError() after its launches (0 on success).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +85,12 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 3;
 constexpr int kRows = 16;      // query heads, padded
 constexpr float kNegInf = -1e30f;  // running-max start, as attention.cu
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ln sum exp of a softmax state in base 2 (max m, sum l of 2^(s - m))
+__device__ __forceinline__ float state_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
+}
 
 // dynamic shared memory at head_dim hd: Q, then the K / V ring, each row
 // hd + 8 bf16 (kernels/decode_attention/kernel.py: tc_smem_bytes)
@@ -97,8 +113,9 @@ __device__ __forceinline__ bool visible(int slot, int cache_len, int W,
 
 // grid (n_splits, Kv, B).  Block (s, kvh, b) folds the visible slots of
 // [s * split, (s + 1) * split) for query heads kvh * G .. kvh * G + G - 1.
-// NT: n-tiles of 8 columns the accumulator holds (hd <= 8 NT).
-template <int NT>
+// NT: n-tiles of 8 columns the accumulator holds (hd <= 8 NT).  kTwin: the
+// lse twin (slot0, slots and lse are read only there).
+template <int NT, bool kTwin>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ kc,
@@ -108,7 +125,8 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
                            float* __restrict__ part_l,
                            float* __restrict__ part_acc, bf16* __restrict__ out,
                            int W, int H, int Kv, int hd, int split,
-                           float scale_log2, int ring, int chunk) {
+                           float scale_log2, int ring, int chunk, int slot0,
+                           int slots, float* __restrict__ lse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = hd + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][ld]
@@ -120,9 +138,12 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
   const int cache_len = *cache_len_ptr;
   const int qpos = cache_len - 1;
   const int chunk_start = chunk && qpos >= 0 ? (qpos / chunk) * chunk : 0;
+  const int base = kTwin ? slot0 : 0;  // global number of local slot 0
+  const int width = kTwin ? slots : W;  // the ring's width
   const int lo = si * split;
   int hi = min(lo + split, W);
-  if (!ring) hi = min(hi, cache_len);  // never read a slot past the cache
+  // never read a slot past the cache (a slice wholly past it: hi < lo)
+  if (!ring) hi = min(hi, cache_len - base);
   const int tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int per_row = hd / 8;  // 16-byte pieces of one row
@@ -145,8 +166,8 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
     for (int i = tid; i < kTile * per_row; i += kThreads) {
       const int r = i / per_row, c = (i % per_row) * 8;
       const int slot = t0 + r;
-      const bool ok =
-          slot < hi && visible(slot, cache_len, W, ring, chunk_start);
+      const bool ok = slot < hi && visible(base + slot, cache_len, width,
+                                           ring, chunk_start);
       const size_t off = static_cast<size_t>(ok ? slot : 0) * row_stride + c;
       hopper::cp_async16(Ks + r * ld + c, kb + off, ok ? 16 : 0);
       hopper::cp_async16(Vs + r * ld + c, vb + off, ok ? 16 : 0);
@@ -203,8 +224,8 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int slot = slot0 + n * 8 + (e & 1);
-        const bool ok =
-            slot < hi && visible(slot, cache_len, W, ring, chunk_start);
+        const bool ok = slot < hi && visible(base + slot, cache_len, width,
+                                             ring, chunk_start);
         s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
@@ -304,6 +325,9 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
     }
     if (n_splits == 1) {
       out[(head0 + r) * hd + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+      if constexpr (kTwin) {
+        if (d == 0) lse[head0 + r] = state_lse(m, l);
+      }
     } else {
       part_acc[((head0 + r) * n_splits + si) * hd + d] = a;
       if (d == 0) {
@@ -315,11 +339,14 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
 }
 
 // grid (B * H): out[b, 0, h] = sum_s 2^(m_s - m) acc_s / sum_s 2^(m_s - m) l_s
+// (and the twin's lse[b, h])
+template <bool kTwin>
 __global__ void __launch_bounds__(kThreads)
 decode_tc_combine_kernel(const float* __restrict__ part_m,
                          const float* __restrict__ part_l,
                          const float* __restrict__ part_acc,
-                         bf16* __restrict__ out, int n_splits, int hd) {
+                         bf16* __restrict__ out, int n_splits, int hd,
+                         float* __restrict__ lse) {
   const size_t bh = blockIdx.x;
   const float* pm = part_m + bh * n_splits;
   const float* pl = part_l + bh * n_splits;
@@ -334,27 +361,58 @@ decode_tc_combine_kernel(const float* __restrict__ part_m,
       a = fmaf(pa[static_cast<size_t>(s) * hd + d], w, a);
     }
     out[bh * hd + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+    if constexpr (kTwin) {
+      if (d == 0) lse[bh] = state_lse(m, l);
+    }
   }
 }
 
-template <int NT>
+template <int NT, bool kTwin>
 int launch(const bf16* q, const bf16* kc, const bf16* vc, const int* cache_len,
            float* part_m, float* part_l, float* part_acc, bf16* out, int B,
            int W, int H, int Kv, int hd, int split, int n_splits, int ring,
-           int chunk, cudaStream_t stream) {
+           int chunk, int slot0, int slots, float* lse, cudaStream_t stream) {
   static std::atomic<size_t> ready[hopper::kMaxDevices];
-  auto* fn = decode_attention_tc_kernel<NT>;
+  auto* fn = decode_attention_tc_kernel<NT, kTwin>;
   cudaError_t err = hopper::allow_smem(fn, smem_bytes(8 * NT), ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(hd));
   fn<<<dim3(n_splits, Kv, B), kThreads, smem_bytes(hd), stream>>>(
       q, kc, vc, cache_len, part_m, part_l, part_acc, out, W, H, Kv, hd, split,
-      scale_log2, ring, chunk);
+      scale_log2, ring, chunk, slot0, slots, lse);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
-  decode_tc_combine_kernel<<<B * H, kThreads, 0, stream>>>(
-      part_m, part_l, part_acc, out, n_splits, hd);
+  decode_tc_combine_kernel<kTwin><<<B * H, kThreads, 0, stream>>>(
+      part_m, part_l, part_acc, out, n_splits, hd, lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTwin>
+int dispatch(const void* q, const void* k_cache, const void* v_cache,
+             const int* cache_len, float* part_m, float* part_l,
+             float* part_acc, void* out, int B, int W, int H, int Kv, int hd,
+             int split, int n_splits, int ring, int chunk, int slot0,
+             int slots, float* lse, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto qp = static_cast<const bf16*>(q);
+  auto kp = static_cast<const bf16*>(k_cache);
+  auto vp = static_cast<const bf16*>(v_cache);
+  auto op = static_cast<bf16*>(out);
+  if (hd <= 32)
+    return launch<4, kTwin>(qp, kp, vp, cache_len, part_m, part_l, part_acc,
+                            op, B, W, H, Kv, hd, split, n_splits, ring, chunk,
+                            slot0, slots, lse, s);
+  if (hd <= 64)
+    return launch<8, kTwin>(qp, kp, vp, cache_len, part_m, part_l, part_acc,
+                            op, B, W, H, Kv, hd, split, n_splits, ring, chunk,
+                            slot0, slots, lse, s);
+  if (hd <= 128)
+    return launch<16, kTwin>(qp, kp, vp, cache_len, part_m, part_l, part_acc,
+                             op, B, W, H, Kv, hd, split, n_splits, ring,
+                             chunk, slot0, slots, lse, s);
+  return launch<32, kTwin>(qp, kp, vp, cache_len, part_m, part_l, part_acc,
+                           op, B, W, H, Kv, hd, split, n_splits, ring, chunk,
+                           slot0, slots, lse, s);
 }
 
 }  // namespace
@@ -372,25 +430,21 @@ extern "C" int decode_attention_tc_launch(
     const int* cache_len, float* part_m, float* part_l, float* part_acc,
     void* out, int B, int W, int H, int Kv, int hd, int split, int n_splits,
     int ring, int chunk, void* stream) {
-  using repro_torch::bf16;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto qp = static_cast<const bf16*>(q);
-  auto kp = static_cast<const bf16*>(k_cache);
-  auto vp = static_cast<const bf16*>(v_cache);
-  auto op = static_cast<bf16*>(out);
-  if (hd <= 32)
-    return repro_torch::launch<4>(qp, kp, vp, cache_len, part_m, part_l,
-                                  part_acc, op, B, W, H, Kv, hd, split,
-                                  n_splits, ring, chunk, s);
-  if (hd <= 64)
-    return repro_torch::launch<8>(qp, kp, vp, cache_len, part_m, part_l,
-                                  part_acc, op, B, W, H, Kv, hd, split,
-                                  n_splits, ring, chunk, s);
-  if (hd <= 128)
-    return repro_torch::launch<16>(qp, kp, vp, cache_len, part_m, part_l,
-                                   part_acc, op, B, W, H, Kv, hd, split,
-                                   n_splits, ring, chunk, s);
-  return repro_torch::launch<32>(qp, kp, vp, cache_len, part_m, part_l,
-                                 part_acc, op, B, W, H, Kv, hd, split,
-                                 n_splits, ring, chunk, s);
+  return repro_torch::dispatch<false>(q, k_cache, v_cache, cache_len, part_m,
+                                      part_l, part_acc, out, B, W, H, Kv, hd,
+                                      split, n_splits, ring, chunk, 0, W,
+                                      nullptr, stream);
+}
+
+// The lse twin: the caches are global slots slot0 .. slot0 + W - 1 of a
+// cache of `slots` slots; lse (B, H) fp32.
+extern "C" int decode_attention_tc_lse_launch(
+    const void* q, const void* k_cache, const void* v_cache,
+    const int* cache_len, float* part_m, float* part_l, float* part_acc,
+    void* out, int B, int W, int H, int Kv, int hd, int split, int n_splits,
+    int ring, int chunk, int slot0, int slots, float* lse, void* stream) {
+  return repro_torch::dispatch<true>(q, k_cache, v_cache, cache_len, part_m,
+                                     part_l, part_acc, out, B, W, H, Kv, hd,
+                                     split, n_splits, ring, chunk, slot0,
+                                     slots, lse, stream);
 }

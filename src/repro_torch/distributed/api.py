@@ -20,7 +20,11 @@ under DTensor: each brings its inputs to the placements its kernel can run
 on a rank's shard alone, calls the op on the local shards, and wraps the
 result back; autograd goes through the boundary.  A layout the boundary
 cannot serve raises: no input is gathered to one rank and no plain
-version is taken in its place.  ``local_groups``, ``local_embed``,
+version is taken in its place.  A KV cache sharded along its slots (the
+policy's fallback where the KV heads do not split over the model axis) is
+read slice by slice: each rank runs decode's lse twin on its slots and the
+slices merge their softmax in fp32 over the axis (``local_decode``); a
+cache write lands on the rank that holds its slot (``local_index_copy``).  ``local_groups``, ``local_embed``,
 ``local_pointwise`` and ``local_index_copy`` do the same for the model's
 ops that DTensor has no rule for (the MoE dispatch plan and permutes, the
 embedding lookup's backward, ``logsigmoid``'s backward, cache writes).
@@ -109,7 +113,8 @@ class ActivationPolicy:
                  cache_placer: Optional[Callable] = None):
         self.mesh = mesh
         self.rules = rules
-        self.cache_placer = cache_placer  # serve cache tree -> DTensors
+        # (cache shapes, fills) -> a new serve cache as DTensors
+        self.cache_placer = cache_placer
         self._sizes = axis_sizes(mesh)
 
     def axis_size(self, axes) -> int:
@@ -159,14 +164,98 @@ def constrain(x, name: str):
     return p.constrain(x, name)
 
 
-def place_cache(cache):
-    """A new serve cache (plain tensors) placed by the installed policy
-    (``ShardingPolicy.cache_pspecs``); raises without one."""
+def place_cache(shapes, fills):
+    """A new serve cache as DTensors placed by the installed policy
+    (``ShardingPolicy.new_cache``): ``shapes`` the cache's tree of
+    ``meta`` tensors, ``fills`` the same tree at batch 1 and capacity 1
+    (each leaf one constant); raises without a policy."""
     p = _policy()
     if p is None or p.cache_placer is None:
         raise RuntimeError("a cache for DTensor activations needs a policy "
                            "that places caches")
-    return p.cache_placer(cache)
+    return p.cache_placer(shapes, fills)
+
+
+def gather_sequence(x):
+    """``x`` (B, S, ...) whole along its sequence (dim 1) where a policy is
+    installed and a DTensor ``x`` has it sharded (the ``act_btd`` rule under
+    sequence parallelism), its other placements kept; else ``x`` itself.
+    Without it, a product on a sequence-sharded input flattens (B, S) into
+    a strided shard, for which DTensor searches a redistribute plan over
+    every mesh dim: on the three-axis multi-pod mesh that search does not
+    finish."""
+    if _policy() is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x
+    pl = tuple(x.placements)
+    want = tuple(Replicate() if p == Shard(1) else p for p in pl)
+    return x if want == pl else x.redistribute(x.device_mesh, want)
+
+
+def split_heads(x, heads: int):
+    """``x`` (..., heads * dh) as (..., heads, dh).  A DTensor whose last dim
+    is sharded over axes that do not split ``heads`` (xLSTM's 4 heads over
+    16 model ranks) is first made whole along it: DTensor cannot unflatten
+    such a dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        last = x.dim() - 1
+        pl = tuple(x.placements)
+        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(pl)
+                      if p.is_shard(last))
+        if heads % n:
+            x = x.redistribute(x.device_mesh, tuple(
+                Replicate() if p.is_shard(last) else p for p in pl))
+    return x.reshape(*x.shape[:-1], heads, x.shape[-1] // heads)
+
+
+def merge_heads(x):
+    """``x`` (..., heads, dh) as (..., heads * dh).  On a DTensor the merged
+    tensor passes through a redistribute to its own placements, a no-op
+    forward whose backward brings the gradient to them first: the
+    reshape's backward cannot split a merged dim sharded where the heads
+    do not divide (xLSTM's 4 heads over 16 model ranks)."""
+    from torch.distributed.tensor import DTensor
+
+    y = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if isinstance(y, DTensor):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
+def fsdp_gather(tree):
+    """``tree``'s DTensor leaves whole over the data axes (the axes of the
+    ``act_btd`` rule's batch entry), their model-axis placements kept: the
+    FSDP all-gather of a layer's weights before it runs (their gradients
+    come back reduce-scattered).  Plain leaves, and everything without a
+    policy, pass through.  Without it DTensor may keep a weight's FSDP
+    shards and pick a product's output placement that the next view
+    cannot take (a KV projection's Kv * hd columns split 16 ways, then
+    unflattened into Kv = 8 heads)."""
+    p = _policy()
+    if p is None:
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.optim.optimizers import tree_map
+
+    data = set(_axes(p.rules["act_btd"][0]))
+    names = axis_names(p.mesh)
+
+    def gather(t):
+        if not isinstance(t, DTensor):
+            return t
+        want = tuple(Replicate() if n in data else pl
+                     for n, pl in zip(names, t.placements))
+        if want == tuple(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, want)
+
+    return tree_map(gather, tree)
 
 
 def current_mesh():
@@ -211,6 +300,22 @@ def _to(x, mesh, spec_: tuple):
     if tuple(x.placements) != want:
         x = x.redistribute(mesh, want)
     return x
+
+
+def local_shape(mesh, pls, shape) -> tuple[int, ...]:
+    """The shape of this rank's shard of a tensor of ``shape`` on
+    placements ``pls`` (``Shard`` and ``Replicate``): a dim sharded over a
+    mesh dim of n ranks is cut as ``torch.chunk`` cuts it, ceil(size / n) a
+    chunk, in mesh-dim order.  Pure integer arithmetic (DTensor's own helper
+    builds index tensors, which a fake tensor cannot read back)."""
+    out = list(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pls):
+        if p.is_shard():
+            n, size = mesh.size(i), out[p.dim]
+            full = -(-size // n)
+            out[p.dim] = max(0, min(full, size - coord[i] * full))
+    return tuple(out)
 
 
 def _shard_range(mesh, entry, size: int) -> tuple[int, int]:
@@ -296,19 +401,61 @@ def local_attention(op: Callable, q, k, v, *args, **kw):
 def local_decode(op: Callable, q, k_cache, v_cache, cache_len, **kw):
     """``op(q, k_cache, v_cache, cache_len, **kw)`` (``decode_attention``)
     on each rank's shard, as ``local_attention``: batch over data, heads
-    over model, a replicated cache's KV heads sliced per rank.  A cache
-    sharded along its sequence (the policy's fallback for ``Kv % tp != 0``)
-    would need a softmax merge across the shards, which the kernel does not
-    do: it raises."""
+    over model, a replicated cache's KV heads sliced per rank.
+
+    A cache sharded along its sequence (the policy's fallback for ``Kv % tp
+    != 0``): each rank runs the op's lse twin on its slice, ``slot0`` the
+    slice's offset along the axes that shard the slots and ``slots`` the
+    global W, on every query head of its batch rows; then the slices merge
+    in fp32 over those axes, ``m = max lse``, ``w = e^(lse - m)``, ``out =
+    sum(w out) / sum(w)`` (two all-reduces: the max, and the two sums
+    packed in one), cast to q's dtype.  No rank gathers the cache."""
     from torch.distributed.tensor import DTensor, Shard
 
-    if isinstance(k_cache, DTensor) and Shard(1) in k_cache.placements:
-        raise NotImplementedError("decode_attention under DTensor: a KV "
-                                  "cache sharded along its sequence needs a "
-                                  "cross-shard softmax merge")
     if isinstance(cache_len, DTensor):
         cache_len = cache_len.full_tensor()
+    if isinstance(k_cache, DTensor) and Shard(1) in k_cache.placements:
+        return _decode_slices(op, q, k_cache, v_cache, cache_len, **kw)
     return local_attention(op, q, k_cache, v_cache, cache_len, **kw)
+
+
+def _cache_axes(mesh, pl, dim: int) -> tuple[str, ...]:
+    """The mesh axes (in mesh order) whose placement is ``Shard(dim)``."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(n for n, p in zip(axis_names(mesh), pl) if p == Shard(dim))
+
+
+def _decode_slices(op: Callable, q, k_cache, v_cache, cache_len, **kw):
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    mesh = _mesh_of(q, k_cache, v_cache)
+    pl = tuple(k_cache.placements)
+    batch, seq = _cache_axes(mesh, pl, 0), _cache_axes(mesh, pl, 1)
+    if len(batch) + len(seq) != sum(p.is_shard() for p in pl):
+        raise NotImplementedError(f"decode_attention under DTensor: a cache "
+                                  f"sharded along its slots and more {pl}")
+    cache_spec = (norm_entry(batch), norm_entry(seq), None, None)
+    q_spec = (norm_entry(batch), None, None, None)
+    q = _to(q, mesh, q_spec)
+    k_cache, v_cache = _to(k_cache, mesh, cache_spec), \
+        _to(v_cache, mesh, cache_spec)
+    W = k_cache.shape[1]
+    lo, _ = _shard_range(mesh, norm_entry(seq), W)
+    out, lse = op(q.to_local(), k_cache.to_local(), v_cache.to_local(),
+                  cache_len, slot0=lo, slots=W, return_lse=True, **kw)
+    groups = [mesh.get_group(axis_names(mesh).index(a)) for a in seq]
+    m = lse
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    w = torch.exp(lse - m)[:, None, :, None]  # (B, 1, H, 1)
+    parts = torch.cat([w * out.float(), w], dim=-1)
+    for g in groups:
+        parts = funcol.all_reduce(parts, "sum", g)
+    merged = (parts[..., :-1] / parts[..., -1:]).to(q.dtype)
+    return DTensor.from_local(merged, mesh, placements(mesh, q_spec),
+                              run_check=False)
 
 
 def local_moe_gmm(op: Callable, x, w):
@@ -380,6 +527,36 @@ def local_groups(fn: Callable, *args):
         else wrap(out)
 
 
+def local_rows(fn: Callable, rows: dict, whole: dict, **kw) -> dict:
+    """``fn(rows, whole, **kw)`` on each rank's batch rows: every tensor of
+    ``rows`` (a dict tree of (B, ...) tensors) on the ``act_btd`` rule's
+    batch placements over its dim 0 and replicated otherwise, every tensor
+    of ``whole`` whole on every rank (its gradient ``Partial`` over the axes
+    that split the batch), every tensor of ``fn``'s dict tree of (B, ...)
+    outputs wrapped on the batch placements.  For a recurrence over time
+    that DTensor would dispatch op by op (the sLSTM cell's Python loop):
+    each rank runs it on plain local tensors.  Without a DTensor leaf,
+    ``fn(rows, whole, **kw)`` itself."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    leaves = (*tree_leaves(rows), *tree_leaves(whole))
+    if not is_dtensor(*leaves):
+        return fn(rows, whole, **kw)
+    mesh = _mesh_of(*leaves)
+    B = tree_leaves(rows)[0].shape[0]
+    lead = _fit_or_replicate("act_btd", (B, 1, 1))[0]
+    row_spec = lambda t: (lead,) + (None,) * (t.dim() - 1)
+    rows = tree_map(lambda t: _to(t, mesh, row_spec(t)).to_local(), rows)
+    whole = tree_map(lambda t: _to(t, mesh, (None,) * t.dim()).to_local(
+        grad_placements=_partial_over(mesh, (None,) * t.dim(), _axes(lead))),
+        whole)
+    return tree_map(lambda t: DTensor.from_local(
+        t, mesh, placements(mesh, row_spec(t)), run_check=False),
+        fn(rows, whole, **kw))
+
+
 def local_pointwise(fn: Callable, x):
     """``fn(x)`` for an elementwise ``fn`` that DTensor has no rule for
     (``logsigmoid``'s backward): on the local shard, same placements
@@ -419,22 +596,48 @@ def local_embed(table, tokens):
 
 def local_index_copy(dst, dim: int, index: torch.Tensor, src):
     """``dst.index_copy_(dim, index, src)`` in place on each rank's shard of
-    ``dst`` (a serve cache), ``src`` brought to ``dst``'s placements.  A
-    ``dst`` sharded along ``dim`` (the cache's sequence fallback) would
-    need the writes routed to their shards: it raises."""
+    ``dst`` (a serve cache), ``src`` brought to ``dst``'s placements.
+
+    A ``dst`` sharded along ``dim`` (the cache's sequence fallback): ``src``
+    stays whole along ``dim`` and each write lands on the rank that holds
+    its slot, at the local index, with no host sync (``index`` may depend
+    on a device ``cache_len``).  One slot (a decode step): the slot is
+    clamped into the rank's range and written with the new row where it
+    falls in it and with its own old row elsewhere.  Many distinct slots (a
+    prefill): the inverse of ``index`` names the entry each local slot
+    takes, if any."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    if any(p == Shard(dim) for p in dst.placements):
-        raise NotImplementedError("a cache write under DTensor into a "
-                                  "cache sharded along its sequence")
     mesh = dst.device_mesh
+    seq = _cache_axes(mesh, tuple(dst.placements), dim)
+    want = tuple(Replicate() if p == Shard(dim) else p
+                 for p in dst.placements)
     if not isinstance(src, DTensor):
         src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
                                  run_check=False)
-    if tuple(src.placements) != tuple(dst.placements):
-        src = src.redistribute(mesh, dst.placements)
+    if tuple(src.placements) != want:
+        src = src.redistribute(mesh, want)
     if isinstance(index, DTensor):
         index = index.full_tensor()
-    dst.to_local().index_copy_(dim, index,
-                               src.to_local().to(dst.dtype))
+    local, new = dst.to_local(), src.to_local().to(dst.dtype)
+    if not seq:
+        local.index_copy_(dim, index, new)
+        return dst
+    lo, hi = _shard_range(mesh, norm_entry(seq), dst.shape[dim])
+    shape = [1] * local.dim()
+    shape[dim] = hi - lo
+    if index.numel() == 1:
+        pos = index.reshape(1) - lo
+        inside = (pos >= 0) & (pos < hi - lo)
+        pos = pos.clamp(0, hi - lo - 1)
+        old = local.index_select(dim, pos)
+        local.index_copy_(dim, pos, torch.where(
+            inside.reshape([1] * local.dim()), new, old))
+        return dst
+    src_of = torch.full((dst.shape[dim],), -1, dtype=torch.long,
+                        device=local.device)
+    src_of[index] = torch.arange(index.numel(), device=local.device)
+    mine = src_of[lo:hi]
+    rows = new.index_select(dim, mine.clamp(min=0))
+    local.copy_(torch.where((mine >= 0).reshape(shape), rows, local))
     return dst

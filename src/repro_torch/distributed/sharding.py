@@ -197,7 +197,7 @@ class ShardingPolicy:
     def activation_policy(self) -> ActivationPolicy:
         return ActivationPolicy(
             self.mesh, self.activation_rules(),
-            cache_placer=lambda c: self.distribute(c, self.cache_pspecs(c)))
+            cache_placer=self.new_cache)
 
     # -- step inputs --------------------------------------------------------
     def data_pspec(self, shape: tuple[int, ...]) -> tuple:
@@ -253,6 +253,26 @@ class ShardingPolicy:
 
     def shardings_of(self, pspec_tree: Tree) -> Tree:
         return map_specs(self.placements, pspec_tree)
+
+    def new_cache(self, shapes: Tree, fills: Tree) -> Tree:
+        """A new serve cache as DTensors on ``cache_pspecs(shapes)``, each
+        rank making only its own shard: ``shapes`` is the cache's tree of
+        ``meta`` tensors, ``fills`` the same tree at batch 1 and capacity 1.
+        Every block's initial state fills each leaf with one constant, which
+        the shard takes from ``fills``; no rank holds the global cache."""
+        from torch.distributed.tensor import DTensor
+
+        def shard(spec_, meta, fill):
+            pl = self.placements(spec_)
+            local = api.local_shape(self.mesh, pl, meta.shape)
+            t = fill.reshape(-1)[:1].reshape((1,) * meta.dim())
+            return DTensor.from_local(t.expand(local).contiguous(), self.mesh,
+                                      pl, run_check=False, shape=meta.shape,
+                                      stride=meta.stride())
+
+        specs = self.cache_pspecs(shapes)
+        return map_specs(shard, specs, _leaves_like(specs, shapes),
+                         _leaves_like(specs, fills))
 
     def distribute(self, tree: Tree, pspec_tree: Tree) -> Tree:
         """``tree``'s tensors as DTensors on the placements of

@@ -119,8 +119,12 @@ def _build() -> KernelLibrary:
             ("flash_attention_tc_launch", [P] * 5 + [I] * 9 + [P], I),
             ("flash_attention_bwd_launch", [P] * 10 + [I] * 12 + [P, P], I),
             ("decode_attention_launch", [P] * 8 + [I] * 10 + [P], I),
+            ("decode_attention_lse_launch",
+             [P] * 8 + [I] * 10 + [I, I, P, P], I),
             ("decode_attention_tc_smem_bytes", [I], S),
             ("decode_attention_tc_launch", [P] * 8 + [I] * 9 + [P], I),
+            ("decode_attention_tc_lse_launch",
+             [P] * 8 + [I] * 9 + [I, I, P, P], I),
             ("moe_gmm_launch", [P] * 3 + [I] * 5 + [P], I),
             ("moe_gmm_tc_launch", [P] * 3 + [I] * 4 + [P], I),
             ("moe_gmm_bwd_launch", [P] * 5 + [I] * 5 + [P], I),

@@ -4,14 +4,20 @@ Dispatch rule (one for all ops): a tensor on the CPU goes to the op's plain
 torch version (``ref.py``); a CUDA tensor goes to the hand-written kernel,
 or the call raises.  There is no fallback from the card to the plain
 version: a kernel that fails to build or launch is an error, never a
-silent slow path.
+silent slow path.  A fake tensor (``FakeTensorMode``, the dry run's
+``launch/dryrun.py``) takes the kernel's *shape route*: the card kernel's
+input contract and route are checked as on the card, the outputs are
+``torch.empty`` of the kernel's shapes and dtypes, and the kernel's work
+(``kernel.cost``) goes to the installed counter (``kernel_costs``).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # Masked-score sentinel shared by the selection kernels and their refs.
 # Finite (not -inf) so masked lanes never poison reductions with NaNs via
@@ -68,9 +74,19 @@ def raw_stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-def use_kernel(*tensors: torch.Tensor) -> bool:
+SHAPE = "shape"  # use_kernel's answer for fake tensors: the shape route
+
+
+def use_kernel(*tensors: torch.Tensor):
     """The dispatch rule: True for CUDA tensors (launch the kernel), False
-    for CPU tensors (plain version).  Mixed devices raise."""
+    for CPU tensors (plain version), ``SHAPE`` for fake tensors (the
+    kernel's shape route; a real tensor never takes it).  Mixed devices,
+    or fake and real tensors together, raise."""
+    fake = [isinstance(t, FakeTensor) for t in tensors]
+    if any(fake):
+        if not all(fake):
+            raise ValueError("fake and real tensors in one kernel call")
+        return SHAPE
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return False
@@ -125,10 +141,43 @@ def check_attention_inputs(**tensors: torch.Tensor) -> int:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
-        if t.data_ptr() % 16:
+        if not aligned16(t):
             raise ValueError(f"{name}: must be 16-byte aligned")
         hd = t.shape[-1]
         if hd % 16 or not 16 <= hd <= 256:
             raise ValueError(f"{name}: head_dim must be a multiple of 16 in "
                              f"[16, 256], got {hd}")
     return KERNEL_DTYPES[next(iter(dtypes))]
+
+
+_costs = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_costs(sink):
+    """Install ``sink(name, flops, nbytes)``, which each shape route calls
+    with its kernel's work (``kernel.cost``), for the calls in this
+    thread."""
+    prev = getattr(_costs, "sink", None)
+    _costs.sink = sink
+    try:
+        yield
+    finally:
+        _costs.sink = prev
+
+
+def record_kernel(name: str, cost: tuple[int, int]) -> None:
+    """A shape route's report of one kernel launch, ``cost`` its (FLOPs,
+    bytes); nothing happens without an installed counter."""
+    sink = getattr(_costs, "sink", None)
+    if sink is not None:
+        sink(name, *cost)
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Does ``t`` start on 16 bytes?  A fake tensor has no address; its
+    storage is taken as a fresh allocation (256-byte aligned on the card),
+    so its offset into that storage decides."""
+    if isinstance(t, FakeTensor):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0

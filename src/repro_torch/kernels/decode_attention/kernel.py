@@ -18,13 +18,21 @@ partial softmax states are combined.  Decode is bound by bytes on the H100
 * ``"ffma"``, the rest (fp32): the first port's ``decode_partial_kernel``
   + ``decode_combine_kernel`` (``csrc/attention.cu``), fp32 tiles and
   FFMA, about ``BLOCKS_PER_SM`` blocks per SM (``splits``).
+
+Each variant has an lse twin (a template flag of the same kernels, so the
+served launch is untouched): the cache is the slice of global slots
+``slot0 .. slot0 + W - 1`` of a cache of ``slots`` slots, the mask reads
+global slot numbers, and lse (B, H) fp32 is written beside the output.
+A rank of a cache sharded along its slots runs it on its slice
+(``distributed/api.py: local_decode``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import on_device, raw_stream, sm_count
+from repro_torch.kernels.common import (on_device, raw_stream, record_kernel,
+                                        sm_count)
 
 VARIANTS = ("tc", "ffma")
 TILE = 64  # cache slots per tile of both variants (kTK, kTile)
@@ -82,12 +90,28 @@ def tc_splits(B: int, Kv: int, W: int, sms: int,
     return split, -(-W // split)
 
 
+def cost(B: int, H: int, Kv: int, hd: int, live: int, element_size: int,
+         with_lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one decode launch over ``live`` visible slots: 4 G
+    FLOPs per cached element pair (Q K^T and P V); q read, the live slots of
+    K and V read once, out (and the twin's lse) written once."""
+    flops = 4 * B * H * live * hd
+    nbytes = element_size * (2 * B * H * hd + 2 * B * live * Kv * hd)
+    return flops, nbytes + (4 * B * H if with_lse else 0)
+
+
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            cache_len: torch.Tensor, dtype_code: int, variant: str, *,
-           ring: bool, chunk_attn: int) -> torch.Tensor:
-    """(B, 1, H, hd) in q's dtype through ``variant``; the caller has
-    validated the inputs and made ``cache_len`` a (1,) int32 tensor on the
-    cache's device (and ``"tc"`` takes only what ``route`` sends it)."""
+           ring: bool, chunk_attn: int, slot0: int = 0,
+           slots: int | None = None, with_lse: bool = False,
+           shape_only: bool = False):
+    """(B, 1, H, hd) in q's dtype through ``variant``, and with
+    ``with_lse`` (the twin, on global slots ``slot0 ..`` of ``slots``) also
+    lse (B, H) fp32; the caller has validated the inputs and made
+    ``cache_len`` a (1,) int32 tensor on the cache's device (and ``"tc"``
+    takes only what ``route`` sends it).  ``shape_only`` (the shape route,
+    fake tensors): the outputs' shapes, and the work of a launch over every
+    slot (the dry run cannot read ``cache_len``)."""
     B, _, H, hd = q.shape
     W, Kv = k_cache.shape[1], k_cache.shape[2]
     if variant not in VARIANTS:
@@ -96,6 +120,20 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"decode_attention: the tensor-core variant takes "
                          f"bf16 with G <= {TC_ROWS}, got {q.dtype}, "
                          f"G = {H // Kv}")
+    slots = W if slots is None else slots
+    if not with_lse and (slot0, slots) != (0, W):
+        raise ValueError("decode_attention: a slice of a cache (slot0, "
+                         "slots) runs on the lse twin")
+    if not 0 <= slot0 <= slots - W:
+        raise ValueError(f"decode_attention: slots {slot0} .. {slot0 + W} "
+                         f"lie outside a cache of {slots}")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if shape_only:
+        record_kernel("decode_attention" + ("_lse" if with_lse else ""),
+                      cost(B, H, Kv, hd, W, q.element_size(), with_lse))
+        return (out, lse) if with_lse else out
     dev = q.device
     if variant == "tc":
         split, n_splits = tc_splits(B, Kv, W, sm_count(dev), hd)
@@ -109,13 +147,22 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         n = B * H * n_splits
         parts = (scratch.data_ptr(), scratch[n:].data_ptr(),
                  scratch[2 * n:].data_ptr())
-    out = torch.empty_like(q)
     args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), *parts, out.data_ptr())
     lib = kernel_library().lib
     with on_device(dev):
         stream = raw_stream(dev)
-        if variant == "tc":
+        if with_lse:
+            twin = (slot0, slots, lse.data_ptr(), stream)
+            if variant == "tc":
+                err = lib.decode_attention_tc_lse_launch(
+                    *args, B, W, H, Kv, hd, split, n_splits, int(ring),
+                    chunk_attn, *twin)
+            else:
+                err = lib.decode_attention_lse_launch(
+                    *args, dtype_code, B, W, H, Kv, hd, split, n_splits,
+                    int(ring), chunk_attn, *twin)
+        elif variant == "tc":
             err = lib.decode_attention_tc_launch(
                 *args, B, W, H, Kv, hd, split, n_splits, int(ring),
                 chunk_attn, stream)
@@ -126,4 +173,4 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention {variant} launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if with_lse else out

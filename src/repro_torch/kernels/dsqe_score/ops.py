@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_f32, refuse_grad, use_kernel
+from repro_torch.kernels.common import (SHAPE, check_f32, refuse_grad,
+                                        use_kernel)
 from repro_torch.kernels.dsqe_score import kernel
 from repro_torch.kernels.dsqe_score.ref import broadcast_slo, dsqe_score_ref
 from repro_torch.kernels.retrieval_topk.kernel import route
@@ -30,7 +31,11 @@ def dsqe_score(q, protos, train, path_weights, contains, lat, cost,
     """
     tensors = (q, protos, train, path_weights, contains, lat, cost, prior,
                valid)
-    if not use_kernel(*tensors):
+    dispatch = use_kernel(*tensors)
+    if dispatch == SHAPE:
+        raise NotImplementedError("dsqe_score has no shape route: no model "
+                                  "step reaches it")
+    if not dispatch:
         return dsqe_score_ref(q, protos, train, path_weights, contains, lat,
                               cost, prior, valid, slo, knn=knn)
     refuse_grad("dsqe_score", *tensors)

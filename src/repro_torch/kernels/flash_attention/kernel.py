@@ -27,6 +27,10 @@ rows, so that both load by bulk copy): one pair up to head_dim 128, a wide
 pair above it (up to 256), whose two consumer warpgroups split the head
 dimension of dK and dV, and whose dK/dV blocks may split a KV group's query
 heads (``bwd_head_splits``); ``"ffma"``, fp32, on the CUDA cores.
+
+With ``shape_only`` (the ops wrapper's shape route for fake tensors, the
+dry run) ``launch`` and ``launch_bwd`` check the same route and return
+their outputs' shapes without a launch, reporting ``cost`` / ``cost_bwd``.
 """
 from __future__ import annotations
 
@@ -34,10 +38,38 @@ import torch
 
 from repro_torch.kernels.build import kernel_library
 from repro_torch.kernels.common import (KERNEL_DTYPES, on_device, raw_stream,
-                                        sm_count)
+                                        record_kernel, sm_count)
+from repro_torch.kernels.flash_attention.ref import visible_pairs
 
 VARIANTS = ("tc", "ffma")
 WIDE_KEYS = 64  # keys of a block of the wide dK/dV kernel (head_dim > 128)
+
+
+def cost(B: int, Sq: int, Skv: int, H: int, Kv: int, hd: int,
+         element_size: int, *, causal: bool, window: int, chunk_attn: int,
+         with_lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch: 4 hd FLOPs per visible (query,
+    key) pair (``visible_pairs``); q, k and v read once, out (and the
+    twin's lse, fp32) written once."""
+    pairs = visible_pairs(Sq, Skv, causal=causal, window=window,
+                          chunk_attn=chunk_attn)
+    nbytes = element_size * (2 * B * Sq * H * hd + 2 * B * Skv * Kv * hd)
+    return 4 * B * H * hd * pairs, nbytes + (4 * B * H * Sq if with_lse
+                                              else 0)
+
+
+def cost_bwd(B: int, Sq: int, Skv: int, H: int, Kv: int, hd: int,
+             element_size: int, *, causal: bool, window: int,
+             chunk_attn: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward launch: 10 hd FLOPs per visible pair
+    (S and dP recomputed, dV, dK and dQ); q, out, dout, k, v and lse read
+    once, dq, dk and dv written once."""
+    pairs = visible_pairs(Sq, Skv, causal=causal, window=window,
+                          chunk_attn=chunk_attn)
+    nbytes = element_size * (3 * B * Sq * H * hd + 2 * B * Skv * Kv * hd) \
+        + 4 * B * H * Sq \
+        + element_size * (B * Sq * H * hd + 2 * B * Skv * Kv * hd)
+    return 10 * hd * B * H * pairs, nbytes
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -81,10 +113,12 @@ def bwd_head_splits(B: int, Skv: int, Kv: int, H: int, head_dim: int,
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
            *, causal: bool, window: int, chunk_attn: int,
-           with_lse: bool = False):
+           with_lse: bool = False, shape_only: bool = False):
     """(B, Sq, H, hd) in q's dtype through ``variant``, and with ``with_lse``
     also lse (B, H, Sq) fp32 (the training twin); the caller has validated
-    the inputs (and ``"tc"`` takes only what ``route`` sends it)."""
+    the inputs (and ``"tc"`` takes only what ``route`` sends it).
+    ``shape_only`` (the shape route, fake tensors): the outputs' shapes and
+    the launch's work, no launch."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     if variant not in VARIANTS:
@@ -95,6 +129,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if shape_only:
+        record_kernel("flash_attention" + ("_lse" if with_lse else ""), cost(
+            B, Sq, Skv, H, Kv, hd, q.element_size(), causal=causal,
+            window=window, chunk_attn=chunk_attn, with_lse=with_lse))
+        return (out, lse) if with_lse else out
     lib = kernel_library().lib
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
@@ -116,11 +155,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-               variant: str, *, causal: bool, window: int, chunk_attn: int):
+               variant: str, *, causal: bool, window: int, chunk_attn: int,
+               shape_only: bool = False):
     """(dq, dk, dv) in the inputs' dtype from ``csrc/flash_attention_bwd.cu``
     through ``variant``; the caller has validated q, k, v, out and dout (one
     dtype, contiguous) and lse (B, H, Sq) fp32 contiguous (and ``"tc"``
-    takes only what ``route_bwd`` sends it)."""
+    takes only what ``route_bwd`` sends it).  ``shape_only``: as in
+    ``launch``."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     if variant not in VARIANTS:
@@ -131,6 +172,11 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"takes bf16 with head_dim <= 256, got {q.dtype}, "
                          f"{hd}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if shape_only:
+        record_kernel("flash_attention_bwd", cost_bwd(
+            B, Sq, Skv, H, Kv, hd, q.element_size(), causal=causal,
+            window=window, chunk_attn=chunk_attn))
+        return dq, dk, dv
     # "tc": lse * log2(e) and delta side by side, rows padded to 64
     shape = (B, H, 2, -(-Sq // 64) * 64) if variant == "tc" else (B, H, Sq)
     delta = torch.empty(shape, dtype=torch.float32, device=q.device)

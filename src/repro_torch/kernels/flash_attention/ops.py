@@ -5,7 +5,9 @@ Dispatch (``kernels/common.py``): CPU tensors take the plain versions in
 Which forward kernel is one rule on dtype and shape (``kernel.route``): bf16
 (head dim a multiple of 16, so TMA's 16-byte global strides hold) runs on
 the tensor cores, fp32 on the first port's FFMA kernel.  Nothing is caught:
-a failed build or launch raises.
+a failed build or launch raises.  Fake tensors take the kernels' shape
+route (``kernels/common.py``): the same checks and routes, the outputs'
+shapes, the work reported, no launch and no count.
 
 On the H100 causal prefill is bound by operations (4 hd FLOPs per visible
 query-key pair): the tensor-core variant runs both products on wgmma from
@@ -25,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_attention_inputs, use_kernel
+from repro_torch.kernels.common import (SHAPE, check_attention_inputs,
+                                        use_kernel)
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_lse_ref,
@@ -60,15 +63,18 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, chunk_attn: int):
         masks = dict(causal=causal, window=window, chunk_attn=chunk_attn)
-        if use_kernel(q, k, v):
+        dispatch = use_kernel(q, k, v)
+        if dispatch:
             q, k, v = _checked(q, k, v)
             variant = kernel.route(q.dtype, q.shape[3])
-            out, lse = kernel.launch(q, k, v, variant, with_lse=True, **masks)
-            flash_attention.launches_lse += 1
-            if variant == "tc":
-                flash_attention.launches_lse_tc += 1
-            else:
-                flash_attention.launches_lse_ffma += 1
+            out, lse = kernel.launch(q, k, v, variant, with_lse=True,
+                                     shape_only=dispatch == SHAPE, **masks)
+            if dispatch != SHAPE:
+                flash_attention.launches_lse += 1
+                if variant == "tc":
+                    flash_attention.launches_lse_tc += 1
+                else:
+                    flash_attention.launches_lse_ffma += 1
         else:
             out, lse = flash_attention_lse_ref(q, k, v, **masks)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -79,7 +85,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        if not use_kernel(q, k, v, dout):
+        dispatch = use_kernel(q, k, v, dout)
+        if not dispatch:
             return (*flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                              **ctx.masks), None, None, None)
         dout = dout.contiguous()
@@ -90,7 +97,10 @@ class FlashAttention(torch.autograd.Function):
                              f"match q {tuple(q.shape)} {q.dtype}")
         variant = kernel.route_bwd(q.dtype, q.shape[3])
         dq, dk, dv = kernel.launch_bwd(q, k, v, out, lse, dout, variant,
+                                       shape_only=dispatch == SHAPE,
                                        **ctx.masks)
+        if dispatch == SHAPE:
+            return dq, dk, dv, None, None, None
         flash_attention.launches_bwd += 1
         if variant == "tc":
             flash_attention.launches_bwd_tc += 1
@@ -123,7 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         out, _ = FlashAttention.apply(q, k, v, causal, window, chunk_attn)
         return out
-    if not use_kernel(q, k, v):
+    dispatch = use_kernel(q, k, v)
+    if not dispatch:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    chunk_attn=chunk_attn)
     q, k, v = _checked(q, k, v)
@@ -131,8 +142,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.empty_like(q)
     variant = kernel.route(q.dtype, q.shape[3])
     out = kernel.launch(q, k, v, variant, causal=causal, window=window,
-                        chunk_attn=chunk_attn)
-    _count(variant)
+                        chunk_attn=chunk_attn, shape_only=dispatch == SHAPE)
+    if dispatch != SHAPE:
+        _count(variant)
     return out
 
 

@@ -21,15 +21,36 @@ tile) that computes dx as dx^T = w . dy^T in tiles of C fitted to 160 rows,
 and dw with x and dy read MN-major; ``"ffma"`` launches the FFMA kernel on
 the other operand layouts, loading each along its contiguous axis.  Both
 are deterministic (no split-K, no atomics).
+
+With ``shape_only`` (the ops wrapper's shape route for fake tensors, the
+dry run) ``launch`` and ``launch_bwd`` check the same route and return
+their outputs' shapes without a launch, reporting ``cost`` / ``cost_bwd``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import KERNEL_DTYPES, on_device, raw_stream
+from repro_torch.kernels.common import (KERNEL_DTYPES, aligned16, on_device,
+                                        raw_stream, record_kernel)
 
 VARIANTS = ("tc", "ffma")
+
+
+def cost(E: int, C: int, D: int, F: int,
+         element_size: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch: 2 FLOPs per multiply-add; x
+    and w read once, out written once."""
+    return 2 * E * C * D * F, element_size * (E * C * D + E * D * F
+                                              + E * C * F)
+
+
+def cost_bwd(E: int, C: int, D: int, F: int,
+             element_size: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward call (dx = dy . w^T, dw = x^T . dy):
+    x, w and dy read once, dx and dw written once."""
+    return 4 * E * C * D * F, element_size * (2 * E * C * D + 2 * E * D * F
+                                              + E * C * F)
 
 
 def route(dtype: torch.dtype, D: int, F: int) -> str:
@@ -39,9 +60,12 @@ def route(dtype: torch.dtype, D: int, F: int) -> str:
     return "ffma"
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
+def launch(x: torch.Tensor, w: torch.Tensor, variant: str, *,
+           shape_only: bool = False) -> torch.Tensor:
     """(E, C, F) in x's dtype through ``variant``; the caller has validated
-    the inputs (and ``"tc"`` takes only what ``route`` sends it)."""
+    the inputs (and ``"tc"`` takes only what ``route`` sends it).
+    ``shape_only`` (the shape route, fake tensors): the output's shape and
+    the launch's work, no launch."""
     E, C, D = x.shape
     F = w.shape[2]
     if variant not in VARIANTS:
@@ -49,10 +73,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     if variant == "tc" and route(x.dtype, D, F) != "tc":
         raise ValueError(f"moe_gmm: the tensor-core variant takes bf16 with "
                          f"D, F multiples of 8, got {x.dtype}, D {D}, F {F}")
-    if variant == "tc" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+    if variant == "tc" and not (aligned16(x) and aligned16(w)):
         raise ValueError("moe_gmm: the tensor-core variant reads x and w "
                          "through TMA, which needs 16-byte aligned bases")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if shape_only:
+        record_kernel("moe_gmm", cost(E, C, D, F, x.element_size()))
+        return out
     lib = kernel_library().lib
     ptrs = (x.data_ptr(), w.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
@@ -83,9 +110,11 @@ def route_bwd(dtype: torch.dtype, D: int, F: int) -> str:
 
 
 def launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-               variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+               variant: str, *, shape_only: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx (E, C, D), dw (E, D, F)) in x's dtype through ``variant``; the
-    caller has validated the inputs (one dtype, contiguous, C >= 1)."""
+    caller has validated the inputs (one dtype, contiguous, C >= 1).
+    ``shape_only``: as in ``launch``."""
     E, C, D = x.shape
     F = w.shape[2]
     if variant not in VARIANTS:
@@ -94,12 +123,15 @@ def launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"moe_gmm backward: the tensor-core variant takes "
                          f"bf16 with D, F multiples of 8, got {x.dtype}, D "
                          f"{D}, F {F}")
-    if variant == "tc" and any(t.data_ptr() % 16 for t in (x, w, dy)):
+    if variant == "tc" and not all(aligned16(t) for t in (x, w, dy)):
         raise ValueError("moe_gmm backward: the tensor-core variant reads x, "
                          "w and dy through TMA, which needs 16-byte aligned "
                          "bases")
     dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
     dw = torch.empty((E, D, F), dtype=x.dtype, device=x.device)
+    if shape_only:
+        record_kernel("moe_gmm_bwd", cost_bwd(E, C, D, F, x.element_size()))
+        return dx, dw
     lib = kernel_library().lib
     ptrs = (x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dw.data_ptr())

@@ -5,7 +5,9 @@ Dispatch (``kernels/common.py``): CPU tensors take the plain versions in
 Which kernel is one rule on dtype and shape (``kernel.route``): bf16 with D
 and F multiples of 8 (TMA's 16-byte global strides) runs on the tensor
 cores, the rest (fp32, other bf16 shapes) on the first port's fp32 FFMA
-kernel.  Nothing is caught: a failed build or launch raises.
+kernel.  Nothing is caught: a failed build or launch raises.  Fake tensors
+take the kernels' shape route (``kernels/common.py``): the same checks and
+routes, the outputs' shapes, the work reported, no launch and no count.
 
 On the H100 the op is bound by operations at prefill (~1000 FLOP per byte
 at C = 640 rows per expert) and by the bytes of w at decode (C = 8): the
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, use_kernel
+from repro_torch.kernels.common import KERNEL_DTYPES, SHAPE, use_kernel
 from repro_torch.kernels.moe_gmm import kernel
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
@@ -33,7 +35,8 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref, moe_gmm_ref
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The serving path: the plain version on the CPU, else the routed
     kernel, counted."""
-    if not use_kernel(x, w):
+    dispatch = use_kernel(x, w)
+    if not dispatch:
         return moe_gmm_ref(x, w)
     if x.dtype != w.dtype or x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"moe_gmm takes one dtype of float32 or bfloat16, "
@@ -49,7 +52,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0 or w.numel() == 0:
         return torch.zeros((E, C, F), dtype=x.dtype, device=x.device)
     variant = kernel.route(x.dtype, D, F)
-    out = kernel.launch(x, w, variant)
+    out = kernel.launch(x, w, variant, shape_only=dispatch == SHAPE)
+    if dispatch == SHAPE:
+        return out
     moe_gmm.launches += 1
     if variant == "tc":
         moe_gmm.launches_tc += 1
@@ -71,7 +76,8 @@ class MoeGmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        if not use_kernel(x, w, dy):
+        dispatch = use_kernel(x, w, dy)
+        if not dispatch:
             return moe_gmm_bwd_ref(x, w, dy)
         E, C, D = x.shape
         F = w.shape[2]
@@ -83,7 +89,10 @@ class MoeGmm(torch.autograd.Function):
         if dy.numel() == 0 or x.numel() == 0:  # empty sums: zero gradients
             return torch.zeros_like(x), torch.zeros_like(w)
         variant = kernel.route_bwd(x.dtype, D, F)
-        dx, dw = kernel.launch_bwd(x, w, dy, variant)
+        dx, dw = kernel.launch_bwd(x, w, dy, variant,
+                                   shape_only=dispatch == SHAPE)
+        if dispatch == SHAPE:
+            return dx, dw
         moe_gmm.launches_bwd += 1
         if variant == "tc":
             moe_gmm.launches_bwd_tc += 1

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import check_f32, refuse_grad, use_kernel
+from repro_torch.kernels.common import (SHAPE, check_f32, refuse_grad,
+                                        use_kernel)
 from repro_torch.kernels.retrieval_topk import kernel
 from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_ref
 
@@ -27,8 +28,12 @@ def retrieval_topk(q: torch.Tensor, corpus: torch.Tensor, *, k: int):
     those of each route.
     """
     k = min(k, corpus.shape[0])
-    if not use_kernel(q, corpus):
+    dispatch = use_kernel(q, corpus)
+    if not dispatch:
         return retrieval_topk_ref(q, corpus, k=k)
+    if dispatch == SHAPE:
+        raise NotImplementedError("retrieval_topk has no shape route: no "
+                                  "model step reaches it")
     refuse_grad("retrieval_topk", q, corpus)
     check_f32("q", q, (None, None))
     check_f32("corpus", corpus, (None, q.shape[1]))

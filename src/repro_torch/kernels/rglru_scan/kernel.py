@@ -17,6 +17,11 @@ the ``"tma"`` producer where every row stride and base takes TMA, else the
 route stages each output tile in shared memory and stores it through TMA;
 the cp.async route stores every step.  ``last_route`` reads the producer
 the C side actually launched.
+
+With ``shape_only`` (the ops wrapper's shape route for fake tensors, the
+dry run) ``launch`` and ``launch_bwd`` take the plan (``plan_for``) and
+return their outputs' shapes without a launch, reporting ``cost`` /
+``cost_bwd``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import kernel_library
-from repro_torch.kernels.common import on_device, raw_stream
+from repro_torch.kernels.common import (aligned16, on_device, raw_stream,
+                                        record_kernel)
 
 ROUTES = ("tma", "cp_async")
 CH = 32  # channels a block owns: 128-byte rows of fp32
@@ -40,6 +46,19 @@ T = {"tma": 64, "cp_async": 32}
 DEPTH = {False: 256, True: 192}
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def cost(B: int, S: int, R: int, element_size: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch: a multiply and an add per
+    element; a and x read once, h0 read and every state written in
+    fp32."""
+    return 2 * B * S * R, B * S * R * (2 * element_size + 4) + 4 * B * R
+
+
+def cost_bwd(B: int, S: int, R: int, element_size: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward launch: a, dh and h read once, da and
+    dx written once, h0 read and dh0 written (fp32 but a, da and dx)."""
+    return 3 * B * S * R, B * S * R * (3 * element_size + 8) + 8 * B * R
 
 
 class ScanPlan(NamedTuple):
@@ -104,7 +123,7 @@ def plan_for(a: torch.Tensor, *others: torch.Tensor,
     producer reads (x; or h and dh): the outputs are fresh allocations, on
     512 bytes."""
     B, S, R = a.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in (a, *others))
+    aligned = all(aligned16(t) for t in (a, *others))
     return scan_plan(B, S, R, a.dtype, backward, aligned)
 
 
@@ -128,11 +147,17 @@ def last_route() -> str:
 
 
 def launch(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
-           dtype_code: int) -> torch.Tensor:
+           dtype_code: int, *, shape_only: bool = False) -> torch.Tensor:
     """(B, S, R) fp32; the caller has validated the inputs and made h0 a
-    contiguous fp32 (B, R) tensor."""
+    contiguous fp32 (B, R) tensor.  ``shape_only`` (the shape route, fake
+    tensors): the plan checked, the output's shape and the launch's work,
+    no launch."""
     B, S, R = a.shape
     out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    if shape_only:
+        plan_for(a, x, backward=False)
+        record_kernel("rglru_scan", cost(B, S, R, a.element_size()))
+        return out
     lib = kernel_library().lib
     args = (a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(),
             dtype_code, B, S, R)
@@ -144,14 +169,20 @@ def launch(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
 
 
 def launch_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
-               dh: torch.Tensor, dtype_code: int):
+               dh: torch.Tensor, dtype_code: int, *,
+               shape_only: bool = False):
     """(da, dx) (B, S, R) in a's dtype and dh0 (B, R) fp32 from the saved
     states h and their gradient dh; the caller has validated the inputs
-    (a contiguous, h0, h and dh contiguous fp32)."""
+    (a contiguous, h0, h and dh contiguous fp32).  ``shape_only``: as in
+    ``launch``."""
     B, S, R = a.shape
     da = torch.empty_like(a)
     dx = torch.empty_like(a)
     dh0 = torch.empty((B, R), dtype=torch.float32, device=a.device)
+    if shape_only:
+        plan_for(a, h, dh, backward=True)
+        record_kernel("rglru_scan_bwd", cost_bwd(B, S, R, a.element_size()))
+        return da, dx, dh0
     lib = kernel_library().lib
     args = (a.data_ptr(), h0.data_ptr(), h.data_ptr(), dh.data_ptr(),
             da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), dtype_code, B, S, R)

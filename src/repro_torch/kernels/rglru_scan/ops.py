@@ -1,7 +1,9 @@
 """Public wrapper for the RG-LRU scan, with its gradient.
 
 Dispatch (``kernels/common.py``): CPU tensors take the plain versions in
-``ref.py``; CUDA tensors launch the Hopper kernels (``kernel.py``) or raise.
+``ref.py``; CUDA tensors launch the Hopper kernels (``kernel.py``) or raise;
+fake tensors take the kernels' shape route (the same checks and plan, the
+outputs' shapes, the work reported, no launch and no count).
 
 Gradients: when grad mode is on and an input requires grad, the call goes
 through ``RglruScan``, a ``torch.autograd.Function`` whose forward launches
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, use_kernel
+from repro_torch.kernels.common import KERNEL_DTYPES, SHAPE, use_kernel
 from repro_torch.kernels.rglru_scan import kernel
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                 rglru_scan_ref)
@@ -25,7 +27,8 @@ def _forward(a: torch.Tensor, x: torch.Tensor,
              h0: torch.Tensor) -> torch.Tensor:
     """The serving path: the plain version on the CPU, else the kernel,
     counted."""
-    if not use_kernel(a, x, h0):
+    dispatch = use_kernel(a, x, h0)
+    if not dispatch:
         return rglru_scan_ref(a, x, h0)
     if a.dtype != x.dtype or a.dtype not in KERNEL_DTYPES:
         raise TypeError(f"rglru_scan takes a and x of one dtype of float32 "
@@ -39,7 +42,10 @@ def _forward(a: torch.Tensor, x: torch.Tensor,
         raise ValueError("rglru_scan: a and x must be contiguous")
     if a.numel() == 0:
         return torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    out = kernel.launch(a, x, h0.float().contiguous(), KERNEL_DTYPES[a.dtype])
+    out = kernel.launch(a, x, h0.float().contiguous(), KERNEL_DTYPES[a.dtype],
+                        shape_only=dispatch == SHAPE)
+    if dispatch == SHAPE:
+        return out
     rglru_scan_op.launches += 1
     if kernel.last_route() == "tma":
         rglru_scan_op.launches_tma += 1
@@ -61,7 +67,8 @@ class RglruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h0, h = ctx.saved_tensors
-        if not use_kernel(a, h, dh):
+        dispatch = use_kernel(a, h, dh)
+        if not dispatch:
             da, dx, dh0 = rglru_scan_bwd_ref(a, h0, h, dh)
         elif a.numel() == 0:
             da, dx = torch.zeros_like(a), torch.zeros_like(a)
@@ -69,12 +76,14 @@ class RglruScan(torch.autograd.Function):
         else:
             dh = dh.float().contiguous()
             da, dx, dh0 = kernel.launch_bwd(
-                a, h0.float().contiguous(), h, dh, KERNEL_DTYPES[a.dtype])
-            rglru_scan_op.launches_bwd += 1
-            if kernel.last_route() == "tma":
-                rglru_scan_op.launches_bwd_tma += 1
-            else:
-                rglru_scan_op.launches_bwd_cp_async += 1
+                a, h0.float().contiguous(), h, dh, KERNEL_DTYPES[a.dtype],
+                shape_only=dispatch == SHAPE)
+            if dispatch != SHAPE:
+                rglru_scan_op.launches_bwd += 1
+                if kernel.last_route() == "tma":
+                    rglru_scan_op.launches_bwd_tma += 1
+                else:
+                    rglru_scan_op.launches_bwd_cp_async += 1
         return da, dx, dh0.to(h0.dtype)
 
 

@@ -109,8 +109,8 @@ def build_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
         if microbatches > 1:
             gacc, ms = None, []
             for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                   *v.shape[1:])[i] for k, v in batch.items()}
+                mb = {k: microbatch(v, microbatches, i)
+                      for k, v in batch.items()}
                 loss, metrics, grads = _grads(cfg, params, mb)
                 if gacc is None:
                     gacc = tree_map(lambda g: g.to(torch.float32), grads)
@@ -188,6 +188,24 @@ def sharded(policy):
 
     with activation_policy(policy.activation_policy()), implicit_replication():
         yield
+
+
+def microbatch(v, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of a (B, ...) batch tensor: rows [i B/n,
+    (i + 1) B/n) of a plain tensor, as the JAX step splits it.  A DTensor
+    batch is split rank by rank instead, the i-th of n runs of each rank's
+    local rows on the same placements: no row leaves its rank (the
+    contiguous split would put each microbatch on a few data ranks, which
+    DTensor cannot reshape to), and the microbatches' gradients still sum
+    to the whole batch's where the loss is a mean over rows."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        part = local.reshape(n, local.shape[0] // n, *local.shape[1:])[i]
+        return DTensor.from_local(part, v.device_mesh, v.placements,
+                                  run_check=False)
+    return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
 
 
 def full(t):

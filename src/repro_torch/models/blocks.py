@@ -692,6 +692,22 @@ def mlstm_step(q, k, v, li, lf, state: Params):
     return h.reshape(B, 1, NH * DH), {"C": C, "n": n, "m": m_new}
 
 
+def _mlstm_chunks(rows: Params, _whole: Params) -> Params:
+    """``mlstm_chunkwise`` on ``rows`` (fp32 q, k, v, li, lf and the
+    state): {"h", "state"}, the form ``api.local_rows`` takes."""
+    h, state = mlstm_chunkwise(rows["q"], rows["k"], rows["v"], rows["li"],
+                               rows["lf"], rows["state"])
+    return {"h": h, "state": state}
+
+
+def _mlstm_decode(rows: Params, _whole: Params) -> Params:
+    """``mlstm_step`` on ``rows`` (q, k, v, li, lf and the state):
+    {"h", "state"}, the form ``api.local_rows`` takes."""
+    h, state = mlstm_step(rows["q"], rows["k"], rows["v"], rows["li"],
+                          rows["lf"], rows["state"])
+    return {"h": h, "state": state}
+
+
 def _write_state(cache: Params, state: Params) -> Params:
     """Copy a recurrent state into ``cache`` in place (its entries may be
     views into a stacked cache) and return the cache."""
@@ -704,16 +720,15 @@ def apply_mlstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
                       cfg: ModelConfig, cache: Optional[Params] = None):
     """Returns (y, cache, aux).  Prefill starts from ``cache`` when one is
     given (a fresh one: zeros, m = -1e30) and writes the end state into it
-    in place; decode updates it in place."""
-    B, S, _ = x.shape
+    in place; decode updates it in place.  Under a policy both run on each
+    rank's rows (``api.local_rows``)."""
+    B = x.shape[0]
     NH = cfg.num_heads
-    inner, dh = _mlstm_dims(cfg)
     xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     up = xin @ params["w_up"]
     gate = xin @ params["w_gate"]
-    q = (up @ params["wq"]).reshape(B, S, NH, dh)
-    k = (up @ params["wk"]).reshape(B, S, NH, dh)
-    v = (up @ params["wv"]).reshape(B, S, NH, dh)
+    q, k, v = (api.split_heads(up @ params[w], NH)
+               for w in ("wq", "wk", "wv"))
     up32 = up.float()
     li = up32 @ params["w_i"] + params["b_i"]
     lf = api.local_pointwise(F.logsigmoid,
@@ -723,14 +738,16 @@ def apply_mlstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
     if ctx.decoding:
         if cache is None:
             raise ValueError("decode needs a recurrent cache")
-        h, state = mlstm_step(q, k, v, li, lf, cache)
-        new_cache = _write_state(cache, state)
+        rows = {"q": q, "k": k, "v": v, "li": li, "lf": lf, "state": cache}
+        out = api.local_rows(_mlstm_decode, rows, {})
+        h, new_cache = out["h"], _write_state(cache, out["state"])
     else:
         state = cache if cache is not None else init_mlstm_cache(cfg, B,
                                                                  x.device)
-        h, end_state = mlstm_chunkwise(q.float(), k.float(), v.float(), li,
-                                       lf, state)
-        h = h.reshape(B, S, inner)
+        rows = {"q": q.float(), "k": k.float(), "v": v.float(), "li": li,
+                "lf": lf, "state": state}
+        out = api.local_rows(_mlstm_chunks, rows, {})
+        h, end_state = api.merge_heads(out["h"]), out["state"]
         if ctx.mode == "prefill":
             new_cache = end_state if cache is None else _write_state(
                 cache, end_state)
@@ -800,35 +817,41 @@ def _slstm_cell(params: Params, xt: Params, state: Params, NH: int) -> Params:
     return {"h": h, "c": c, "n": n, "m": m_new}
 
 
+def _slstm_scan(rows: Params, cell: Params, NH: int) -> Params:
+    """The sLSTM cell over every position of ``rows["pre"]`` (per-gate
+    (B, S, D) preactivations) from ``rows["state"]``: {"h": (B, S, D) every
+    step's h, "state": the last state}."""
+    state, hs = rows["state"], []
+    pre = rows["pre"]
+    for t in range(pre["z"].shape[1]):
+        state = _slstm_cell(cell, {g: pre[g][:, t] for g in pre}, state, NH)
+        hs.append(state["h"])
+    return {"h": torch.stack(hs, dim=1), "state": state}
+
+
 def apply_slstm_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
                       cfg: ModelConfig, cache: Optional[Params] = None):
     """Returns (y, cache, aux), the cache handled as in the mLSTM block.
-    The prefill runs the cell once per position in a Python loop."""
-    B, S, _ = x.shape
+    The cell runs once per position in a Python loop (on each rank's rows
+    under a policy, ``api.local_rows``)."""
+    B = x.shape[0]
     NH = cfg.num_heads
     xin = L.rms_norm(x, params["ln1"], cfg.norm_eps)
     pre = {g: (xin @ params[f"w_{g}"]).float() + params[f"b_{g}"]
            for g in _SLSTM_GATES}
     # the recurrent weights widened once, not once per step
     cell = {f"r_{g}": params[f"r_{g}"].float() for g in _SLSTM_GATES}
+    if ctx.decoding and cache is None:
+        raise ValueError("decode needs a recurrent cache")
     new_cache = None
+    state = cache if cache is not None else init_slstm_cache(cfg, B, x.device)
+    rows = {"pre": pre, "state": state}
+    out = api.local_rows(_slstm_scan, rows, cell, NH=NH)
+    h_seq, state = out["h"], out["state"]
     if ctx.decoding:
-        if cache is None:
-            raise ValueError("decode needs a recurrent cache")
-        state = _slstm_cell(cell, {g: pre[g][:, 0] for g in pre}, cache, NH)
         new_cache = _write_state(cache, state)
-        h_seq = state["h"][:, None]
-    else:
-        state = cache if cache is not None else init_slstm_cache(cfg, B,
-                                                                 x.device)
-        hs = []
-        for t in range(S):
-            state = _slstm_cell(cell, {g: pre[g][:, t] for g in pre}, state,
-                                NH)
-            hs.append(state["h"])
-        h_seq = torch.stack(hs, dim=1)  # (B, S, D)
-        if ctx.mode == "prefill":
-            new_cache = state if cache is None else _write_state(cache, state)
+    elif ctx.mode == "prefill":
+        new_cache = state if cache is None else _write_state(cache, state)
     x = x + h_seq.to(x.dtype) @ params["w_out"]
     x = x + L.mlp_apply(params["mlp"], L.rms_norm(x, params["ln2"],
                                                   cfg.norm_eps), "geglu")

@@ -62,10 +62,14 @@ def init_rmsnorm(dim: int, dtype, device) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The norm over the last dim.  On DTensors the output comes back whole
+    along the sequence (``api.gather_sequence``): every norm here feeds a
+    projection, and that all-gather is sequence parallelism's before a
+    column-parallel product."""
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + w.float())).to(x.dtype)
+    return api.gather_sequence((y * (1.0 + w.float())).to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

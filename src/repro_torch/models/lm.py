@@ -130,14 +130,20 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
     pat, n_units, rest = _pattern(cfg)
     want_cache = ctx.mode in ("prefill", "decode")
     if want_cache and cache is None:
-        cache = init_stack_cache(cfg, x.shape[0], ctx.capacity or x.shape[1],
-                                 x.device)
-        if api.is_dtensor(x):  # placed by the policy's cache rules
-            cache = api.place_cache(cache)
+        capacity = ctx.capacity or x.shape[1]
+        if api.is_dtensor(x):  # each rank's shard, by the policy's rules
+            cache = api.place_cache(
+                init_stack_cache(cfg, x.shape[0], capacity, "meta"),
+                init_stack_cache(cfg, 1, 1, x.device))
+        else:
+            cache = init_stack_cache(cfg, x.shape[0], capacity, x.device)
     remat = cfg.scan_layers and cfg.remat and ctx.mode == "train" and \
         torch.is_grad_enabled()
 
     def run_unit(x, unit_params, unit_cache):
+        # under a policy: the unit's weights gathered over the data axes
+        # (inside the remat unit, so that the backward gathers them again)
+        unit_params = api.fsdp_gather(unit_params)
         aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, bt in enumerate(pat):
             c_j = None if unit_cache is None else unit_cache[f"b{j}"]
@@ -168,8 +174,8 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
         aux_total = aux_total + aux
     for i, bt in enumerate(rest):
         c_i = cache["rest"][i] if want_cache else None
-        x, _, aux = B.apply_block(bt, params["rest"][i], x, ctx, cfg, c_i,
-                                  encoder_out)
+        x, _, aux = B.apply_block(bt, api.fsdp_gather(params["rest"][i]), x,
+                                  ctx, cfg, c_i, encoder_out)
         aux_total = aux_total + aux
     return x, (cache if want_cache else None), aux_total
 
@@ -230,7 +236,7 @@ def _merge_frontend(params: Params, cfg: ModelConfig, x: torch.Tensor,
     replace the first P token slots."""
     if frontend is None or not cfg.frontend:
         return x
-    f = frontend.to(x.dtype) @ params["frontend_proj"]
+    f = frontend.to(x.dtype) @ api.fsdp_gather(params["frontend_proj"])
     f = L.rms_norm(f, params["frontend_norm"], cfg.norm_eps)
     P = f.shape[1]
     if x.shape[1] == P:
@@ -244,14 +250,15 @@ def encode(params: Params, cfg: ModelConfig,
     frames, projected and normed, then bidirectional blocks at positions
     [0..T_src)."""
     enc_cfg = _encoder_config(cfg)
-    f = frontend.to(cfg.activation_dtype) @ params["frontend_proj"]
+    f = frontend.to(cfg.activation_dtype) @ api.fsdp_gather(
+        params["frontend_proj"])
     x = L.rms_norm(f, params["frontend_norm"], cfg.norm_eps)
     S = x.shape[1]
     ctx = B.BlockCtx(mode="train",
                      positions=torch.arange(S, device=x.device)[None])
     units = params["encoder"]["stack"]["units"]
     for i in range(_pattern(enc_cfg)[1]):
-        unit = _unit(units, i, enc_cfg.scan_layers)
+        unit = api.fsdp_gather(_unit(units, i, enc_cfg.scan_layers))
         x, _, _ = B.apply_bidir_attn_block(unit["b0"], x, ctx, enc_cfg)
     return L.rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 

@@ -24,10 +24,11 @@ test reads.  Against the port's unsharded step (which
   a save of the DTensors (gathered whole) that restores bit-equal too.
 
 ``decode_attention`` on its rank's shard (``api.local_decode``) against
-the plain op; a prefill and a decode step of reduced InternLM2, Scout,
-LLaVA, SeamlessM4T and xLSTM with the policy against the plain steps
-(logits within 1e-5 of the largest), and RecurrentGemma's refusal (its one KV
-head puts the cache on the policy's sequence fallback).  In one process:
+the plain op, on a cache whose heads or whose slots are split over the
+ranks (the slices merged by their lse); a prefill and a decode step of
+reduced InternLM2, Scout, RecurrentGemma (its one KV head puts the cache
+on the policy's sequence fallback), LLaVA, SeamlessM4T and xLSTM with the
+policy against the plain steps (logits within 1e-5 of the largest).  In one process:
 ``PodMonitor``'s heartbeat sequence (the reference's,
 ``tests/test_fault_tolerance.py``); on fake process groups
 ``survivor_mesh`` of a (2, 2, 1) mesh, and the production meshes, which
@@ -199,8 +200,11 @@ def _family_case(arch: str) -> dict:
 def _decode_case() -> dict:
     """``decode_attention`` through ``api.local_decode`` on a (1, 2) mesh
     (heads over model; GQA with Kv 2 and MQA with a replicated cache
-    sliced per rank) against the op on plain tensors, and the refusal of
-    a cache sharded along its sequence."""
+    sliced per rank; and a cache sharded along its slots, dense with the
+    second slice partly and wholly past cache_len, a ring, a chunked ring,
+    each rank on its slice merged by lse) against the op on plain
+    tensors; and cache writes into the slot-sharded cache (one slot, then
+    a permutation of every slot) equal to ``index_copy_`` on the whole."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.distributed import api
@@ -211,7 +215,7 @@ def _decode_case() -> dict:
     policy = ShardingPolicy(make_host_mesh(2, device="cpu"))
     mesh = policy.mesh
     rng = np.random.default_rng(3)
-    worst, refused = 0.0, False
+    worst = 0.0
     with api.activation_policy(policy.activation_policy()):
         for kv, ring in ((2, False), (1, True)):
             q = torch.as_tensor(rng.standard_normal((2, 1, 4, 16)),
@@ -226,15 +230,33 @@ def _decode_case() -> dict:
                 distribute_tensor(k, mesh, cache_pl),
                 distribute_tensor(v, mesh, cache_pl), 9, ring=ring)
             worst = max(worst, float((got.full_tensor() - want).abs().max()))
-        try:
-            seq = [Replicate(), Shard(1)]
-            api.local_decode(decode_attention,
-                             distribute_tensor(q, mesh, [Replicate()] * 2),
-                             distribute_tensor(k, mesh, seq),
-                             distribute_tensor(v, mesh, seq), 9)
-        except NotImplementedError:
-            refused = True
-    return dict(max_abs=worst, refused=refused)
+        seq = [Replicate(), Shard(1)]
+        for clen, masks in ((9, {}), (5, {}), (30, dict(ring=True)),
+                            (30, dict(ring=True, chunk_attn=8))):
+            want = decode_attention(q, k, v, clen, **masks)
+            got = api.local_decode(
+                decode_attention,
+                distribute_tensor(q, mesh, [Replicate()] * 2),
+                distribute_tensor(k, mesh, seq),
+                distribute_tensor(v, mesh, seq),
+                torch.tensor(clen, dtype=torch.int32), **masks)
+            worst = max(worst, float((got.full_tensor() - want).abs().max()))
+        # cache writes into the slot-sharded cache: one slot on each rank's
+        # side (a decode step's, its index a device tensor), then a ring
+        # prefill's permutation of every slot
+        cache = distribute_tensor(k.clone(), mesh, seq)
+        plain = k.clone()
+        for slot in (3, 10):
+            new = torch.full((2, 1, 1, 16), float(slot))
+            api.local_index_copy(cache, 1, torch.tensor([slot]), new)
+            plain.index_copy_(1, torch.tensor([slot]), new)
+        slots = torch.arange(18, 30) % 12
+        new = torch.as_tensor(rng.standard_normal((2, 12, 1, 16)),
+                              dtype=torch.float32)
+        api.local_index_copy(cache, 1, slots, new)
+        plain.index_copy_(1, slots, new)
+        writes_equal = torch.equal(cache.full_tensor(), plain)
+    return dict(max_abs=worst, writes_equal=writes_equal)
 
 
 def _serve_case(arch: str) -> dict:
@@ -242,7 +264,7 @@ def _serve_case(arch: str) -> dict:
     (``build_prefill_step`` / ``build_decode_step`` with the policy: the
     cache placed by ``cache_pspecs``, written on each rank's shard) against
     the same steps on plain tensors: the worst logit difference rel to the
-    largest logit, or the refusal's message."""
+    largest logit."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import ShardingPolicy
     from repro_torch.launch.mesh import make_host_mesh
@@ -268,13 +290,10 @@ def _serve_case(arch: str) -> dict:
     want, _ = build_decode_step(cfg, shape)(params, nxt, cache, 9, *enc)
     policy = ShardingPolicy(make_host_mesh(2, device="cpu"))
     placed = policy.distribute(params, policy.param_pspecs(cfg, params))
-    try:
-        got, d_cache, *d_enc = build_prefill_step(cfg, shape, policy=policy)(
-            placed, place_batch(policy, {"t": tok})["t"], *front)
-        step, _ = build_decode_step(cfg, shape, policy=policy)(
-            placed, nxt, d_cache, 9, *d_enc)
-    except NotImplementedError as e:
-        return dict(refused=str(e))
+    got, d_cache, *d_enc = build_prefill_step(cfg, shape, policy=policy)(
+        placed, place_batch(policy, {"t": tok})["t"], *front)
+    step, _ = build_decode_step(cfg, shape, policy=policy)(
+        placed, nxt, d_cache, 9, *d_enc)
     rel = lambda a, b: float((a.full_tensor() - b).abs().max()
                              / b.abs().max())
     return dict(prefill_rel=rel(got, logits), decode_rel=rel(step, want))
@@ -309,12 +328,10 @@ def test_every_family_differentiates_tensor_parallel(archs, tmp_path):
     decode = res.pop("decode_attention", None)
     serve = res.pop("serve", None)
     if "llama4-scout-17b-a16e" in archs:
-        assert decode["max_abs"] <= 1e-6 and decode["refused"], decode
-        # one KV head: the cache shards its sequence, which the cache
-        # write and the decode kernel's boundary refuse
-        assert "sequence" in serve.pop("recurrentgemma-2b")["refused"]
-    assert len(serve) == len(SERVED[archs]) - ("recurrentgemma-2b"
-                                               in SERVED[archs])
+        assert decode["max_abs"] <= 1e-6 and decode["writes_equal"], decode
+    # RecurrentGemma's one KV head puts its cache on the sequence fallback:
+    # its prefill writes and its decode steps run slice by slice
+    assert len(serve) == len(SERVED[archs])
     for arch, r in serve.items():
         assert r["prefill_rel"] <= LOSS_REL, (arch, r)
         assert r["decode_rel"] <= LOSS_REL, (arch, r)

@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.distributed.sharding",
               "repro_torch.distributed.fault_tolerance",
               "repro_torch.launch.mesh", "repro_torch.perf.roofline",
-              "repro_torch.optim.grad_compression"):
+              "repro_torch.optim.grad_compression",
+              "repro_torch.launch.dryrun", "repro_torch.perf.hlo_analysis"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
