@@ -83,7 +83,20 @@ line each:
    In phases 4-6 the launch counters are set to 0 just before each driven
    run and read just after: tiled retrieval_topk launches must equal the
    kernel-backed passes (counted apart, at the selector), dsqe_score none.
-7. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
+7. ``retrieval``: context retrieval at deployment size, the store's device
+   path ``VectorStore(emb, device="cuda").search_batch(Q, k,
+   use_kernel=True)`` over 1 500 007 chunks x d 256 for 64 queries, at k 16
+   (tiled route) and k 100 (select route) (``retrieval_phase``).  On a
+   corpus of integers in [-3, 3] (exact fp32 products) with planted
+   duplicate rows, ids and scores equal the host ``search_batch`` exactly
+   and every tie gives its lowest ids; on unit rows ids are equal wherever
+   the host's k-th and (k+1)-th scores part by more than 1e-5, scores
+   within 1e-5.  One launch per call on the route's counter, and a second
+   call reuses the resident corpus.  Logged: the entry point's time per
+   call, the kernel's by CUDA events and from a graph, the host path's, the
+   plain version's and ``torch.topk(q @ c.T, k)``'s, the bound and the
+   grid.  ``--seed`` seeds both corpora (default 0).
+8. ``model``: the edge-tier LM, InternLM2-1.8B at its published widths in
    bf16 with seeded random weights, served through
    ``launch.steps.build_prefill_step`` / ``build_decode_step``: a prefill of
    8 prompts of 1024 tokens, then 150 greedy decode steps (the system's
@@ -94,22 +107,22 @@ line each:
    of the served models must be).  Decode logits at three steps must
    match the full forward's last-token logits (rel < 2e-2), and no logit
    may be NaN.
-8. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
+9. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
    prefill -> decode on a dropless twin.
-9. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
+10. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
    (``hybrid_phase``): exact rglru_scan / flash / decode launch counts (the
    scan's on the route ``scan_plan`` names) and prefill -> decode through a
    wrapped ring.
-10. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
+11. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
    (``xlstm_phase``): no attention launches, prefill -> decode by teacher
    forcing (the mLSTM prefill takes whole 256-token chunks only).
-11. ``encdec_model``: SeamlessM4T-medium whole (``encdec_phase``): 4096
+12. ``encdec_model``: SeamlessM4T-medium whole (``encdec_phase``): 4096
    stub audio frames encoded once by the prefill step, a 128-token decoder
    prefix, exact flash / decode launch counts (encoder, decoder and cross
    attention) and prefill -> decode on the served encoder output.
-12. ``train_model``: InternLM2-1.8B trained at full width in bf16 through
+13. ``train_model``: InternLM2-1.8B trained at full width in bf16 through
    ``launch.train.train`` (``train_phase``): B 4 x S 4096 in 2 microbatches,
    4 AdamW steps; exact per-step launches of the flash forward's lse twin
    (96: 24 layers x 2 microbatches x 2 under remat) and of the flash
@@ -121,7 +134,7 @@ line each:
    1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
    from a checkpoint against an uninterrupted run.
-13. ``train_tp``: the same training on an explicit (1, 1) ``DeviceMesh``
+14. ``train_tp``: the same training on an explicit (1, 1) ``DeviceMesh``
    over a one-rank ``nccl`` world (``train_tp_phase``): parameters and
    AdamW state DTensors placed by ``ShardingPolicy``, the flash kernels on
    each rank's shard; 3 steps whose losses match ``train_model``'s within
@@ -129,14 +142,14 @@ line each:
    ``train_model``'s, one profiled step; ``compressed_psum`` on the last
    step's gradients bit-equal to ``decompress_tree(compress_tree(g))``;
    ``reshard_restore`` of a 2-layer step-2 checkpoint bit-equal.
-14. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
+15. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
    trained through ``launch.steps.build_train_step`` with the uncut model's
    Adafactor and 4 microbatches (``train_moe_phase``): B 4 x S 4096, 3
    steps; exact per-step moe_gmm forward and backward and flash launches,
    all tensor-core; moe_gmm's backward against its plain version
    (``gmm_bwd_kernels``), an fp32 1-layer twin's loss and grads against the
    plain moe_gmm and attention, and two loss-and-grad passes bit-equal.
-15. ``train_hybrid``: RecurrentGemma-2B uncut trained through
+16. ``train_hybrid``: RecurrentGemma-2B uncut trained through
    ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
    microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
    backward launches, every one on the producer route ``scan_plan`` names,
@@ -145,12 +158,12 @@ line each:
    the scan's backward bit-equal to its plain version
    (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
    checkpoint.
-16. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+17. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-17. ``split``: the split-inference draft's ``DraftState.attend`` through the
+18. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
-18. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
+19. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
    InternLM2-1.8B and RecurrentGemma-2B ``decode_32k`` (their caches sharded
    along the slots over 16 model ranks) and InternLM2-1.8B ``train_4k``, on
    the host's CPU in processes of their own (``dryrun_phase``): each must
@@ -159,7 +172,7 @@ line each:
 
 Then the card's ``nvidia-smi`` line, one ``{"kernels": [...]}`` line (each
 kernel's launches on the served and trained runs, by variant where it has
-two: retrieval_topk's are summed over phases 3-6, flash_attention's
+two: retrieval_topk's are summed over phases 3-7, flash_attention's
 training forwards are its ``lse_tc`` variant; the three backwards stand as
 ``*_bwd`` entries, the flash backward at hd 256 apart as
 ``flash_attention_bwd_wide``; decode_attention's lse twin as
@@ -3327,8 +3340,202 @@ def placements_phase(torch) -> int:
     return counts["retrieval_topk"]["tiled"]
 
 
-def main() -> int:
+RETRIEVAL_N, RETRIEVAL_D, RETRIEVAL_B = 1_500_007, 256, 64  # ragged last tile
+RETRIEVAL_KS = (16, 100)  # the tiled route, then the select route
+# planted tie groups (duplicates of one row, the query equal to it): sizes
+# that straddle both k, so the lowest ids must win inside a tie
+TIE_GROUPS = (120, 2, 16, 17, 50, 99, 100, 101, 3, 64, 65, 1)
+
+
+def int_corpus(seed: int):
+    """The exact corpus: integers in [-3, 3], so every fp32 dot product
+    (|s| <= 256 * 9) is exact in any order.  Each tie group is one row
+    copied to ids spread over the corpus (its last id the corpus' last row,
+    in the ragged tile), and query i equals group i's row; the other
+    queries are drawn like the rows.  Returns (emb, Q, groups)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, d, B = RETRIEVAL_N, RETRIEVAL_D, RETRIEVAL_B
+    emb = rng.integers(-3, 4, size=(n, d), dtype=np.int8).astype(np.float32)
+    Q = rng.integers(-3, 4, size=(B, d), dtype=np.int8).astype(np.float32)
+    ids = rng.choice(n - 1, size=sum(TIE_GROUPS), replace=False)
+    groups, at = [], 0
+    for i, g in enumerate(TIE_GROUPS):
+        grp = np.sort(ids[at:at + g])
+        at += g
+        if i == 0:
+            grp[-1] = n - 1  # a duplicate in the ragged last tile
+        emb[grp] = emb[grp[0]]
+        Q[i] = emb[grp[0]]
+        groups.append(grp)
+    return emb, Q, groups
+
+
+def retrieval_phase(torch, dev, bw, fp32, seed: int) -> tuple[int, dict]:
+    """Context retrieval at deployment size: ``VectorStore(emb,
+    device="cuda").search_batch(Q, k, use_kernel=True)``, the call a
+    pipeline makes, over 1 500 007 chunks x d 256 fp32 (1.54 GB on the
+    card) for 64 queries, at k 16 (tiled route) and k 100 (select route).
+    On the integer corpus ids and scores must equal the host
+    ``search_batch(Q, k)`` exactly, and every planted tie group must give
+    its lowest ids; on unit rows ids must be equal on every row whose
+    host gap between the k-th and (k+1)-th score exceeds TIE (positions
+    inside a host near-tie may swap), scores within ATOL.  The counters
+    are set to 0 before each call: one launch on the route's counter; a
+    second call at a k must reuse the resident corpus.  Returns the
+    launches of the calls checked, in all and by route."""
+    import numpy as np
+
+    from repro_torch.core.retrieval import VectorStore
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.retrieval_topk import kernel as topk_kernel
+    from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
+    from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_ref
+
+    t_phase = time.perf_counter()
+    n, d, B = RETRIEVAL_N, RETRIEVAL_D, RETRIEVAL_B
+    total = {"launches": 0, "tiled": 0, "select": 0}
+
+    def one_call(store, Q, k, where):
+        zero_selection_counts()
+        t0 = time.perf_counter()
+        res = store.search_batch(Q, k, use_kernel=True)
+        call_s = time.perf_counter() - t0
+        variant = topk_kernel.route(k)
+        got = selection_counts()["retrieval_topk"]
+        want = {"launches": 1, "tiled": int(variant == "tiled"),
+                "select": int(variant == "select")}
+        if got != want:
+            raise AssertionError(f"{where}: retrieval_topk launches {got}, "
+                                 f"want {want}")
+        for key in total:
+            total[key] += got[key]
+        return res, call_s
+
+    def host(store, Q, k):
+        t0 = time.perf_counter()
+        res = store.search_batch(Q, k)
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    def timing(store, Q, k) -> dict:
+        """The entry point per call on the host clock (the query copy in,
+        the lists out), the kernel on the resident corpus by CUDA events
+        and from a graph, the plain version and the library call (calls of
+        tens of ms take fewer loops)."""
+        for _ in range(2):
+            store.search_batch(Q, k, use_kernel=True)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            store.search_batch(Q, k, use_kernel=True)
+        entry_ms = 1e3 * (time.perf_counter() - t0) / 5
+        c = store._dev_emb
+        q = torch.as_tensor(Q, device=dev)
+        op = lambda: retrieval_topk(q, c, k=k)
+        lib = lambda: torch.topk(q @ c.T, k, dim=1)
+        b_ms, b_by = cost_bound(bw, fp32, topk_kernel.cost(B, n, d, k))
+        variant = topk_kernel.route(k)
+        loops = (TRIALS, LOOP) if variant == "tiled" else (3, 3)
+        rows = B if variant == "tiled" else topk_kernel.select_chunk(B, n, k)
+        grid = topk_kernel.grid(rows, n, sm_count(dev))._asdict()
+        if variant == "select":  # the product runs B in chunks of rows
+            grid["select_chunk"] = rows
+        return dict(route=variant, grid=grid, search_batch_ms=entry_ms,
+                    ms=time_ms(torch, op, *loops),
+                    graph_ms=graph_ms(torch, op, loops[1], loops[0]),
+                    plain_ms=time_ms(torch, lambda: retrieval_topk_ref(
+                        q, c, k=k), 2, 3),
+                    library_ms=time_ms(torch, lib),
+                    library_graph_ms=graph_ms(torch, lib),
+                    bound_ms=b_ms, bound_by=b_by)
+
+    # -- the integer corpus: exact equality with the host path
+    t0 = time.perf_counter()
+    emb, Q, groups = int_corpus(seed)
+    store = VectorStore(emb, device="cuda")
+    make_s = time.perf_counter() - t0
+    for k in RETRIEVAL_KS:
+        where = f"retrieval/int k{k}"
+        want, host_ms = host(store, Q, k)
+        got, first_s = one_call(store, Q, k, where)
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not (np.array_equal(g.ids, w.ids) and np.array_equal(
+                   g.scores.view(np.uint32), w.scores.view(np.uint32)))]
+        if bad:
+            raise AssertionError(f"{where}: rows {bad[:8]} differ from the "
+                                 "host search_batch")
+        for i, grp in enumerate(groups):
+            top = min(k, grp.size)
+            if not np.array_equal(got[i].ids[:top], grp[:top]):
+                raise AssertionError(f"{where}: tie group {i} (size "
+                                     f"{grp.size}) did not give its lowest "
+                                     f"ids: {got[i].ids[:top]}")
+        dev_emb, ent = store._dev_emb, store._stage_cache[k]
+        mem0 = torch.cuda.memory_allocated()
+        again, _ = one_call(store, Q, k, where + " again")
+        grew = torch.cuda.memory_allocated() - mem0
+        if store._dev_emb is not dev_emb or store._stage_cache[k] is not ent \
+                or ent[0].data_ptr() != dev_emb.data_ptr() \
+                or grew >= dev_emb.nbytes:
+            raise AssertionError(f"{where}: the second call copied the "
+                                 f"corpus again (allocated +{grew} B)")
+        if not all(np.array_equal(a.ids, g.ids) for a, g in zip(again, got)):
+            raise AssertionError(f"{where}: a second call differs")
+        # timed on the unit rows below: the same shapes and route
+        log("retrieval", corpus="integers [-3, 3]", n=n, d=d, B=B, k=k,
+            route=topk_kernel.route(k), exact=True, tie_groups=len(groups),
+            host_ms=host_ms, first_call_s=first_s, corpus_build_s=make_s)
+    del store, emb, dev_emb, ent
+    torch.cuda.empty_cache()
+
+    # -- unit rows: ids wherever the host's scores separate them
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    emb_t = unit(torch, gen, (n, d), dev)
+    emb = emb_t.cpu().numpy()
+    Q = unit(torch, gen, (B, d), dev).cpu().numpy()
+    del emb_t
+    store = VectorStore(emb, device="cuda")
+    for k in RETRIEVAL_KS:
+        where = f"retrieval/unit k{k}"
+        want, host_ms = host(store, Q, k + 1)
+        got, first_s = one_call(store, Q, k, where)
+        hv = np.stack([w.scores for w in want])
+        hi = np.stack([w.ids for w in want])[:, :k]
+        gv = np.stack([g.scores for g in got])
+        gi = np.stack([g.ids for g in got])
+        err = float(np.abs(gv - hv[:, :k]).max())
+        if err > ATOL:
+            raise AssertionError(f"{where}: scores differ by {err}")
+        gap = hv[:, k - 1] - hv[:, k] > TIE
+        near = np.zeros_like(hi, dtype=bool)  # host neighbours within TIE
+        close = np.abs(np.diff(hv[:, :k], axis=1)) <= TIE
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        same_set = np.array([set(a) == set(b) for a, b in zip(gi, hi)])
+        if not same_set[gap].all() or ((gi != hi) & ~near)[gap].any():
+            raise AssertionError(f"{where}: ids differ on a row whose k-th "
+                                 f"and (k+1)-th host scores part by > {TIE}")
+        log("retrieval", corpus="unit rows", n=n, d=d, B=B, k=k,
+            max_abs_err=err, rows_checked=int(gap.sum()),
+            near_tie_swaps=int(((gi != hi) & gap[:, None]).sum()),
+            host_ms=host_ms, first_call_s=first_s, **timing(store, Q, k))
+    del store, emb
+    torch.cuda.empty_cache()
+    log("retrieval", launches=total, phase_s=time.perf_counter() - t_phase)
+    return total["launches"], {"tiled": total["tiled"],
+                               "select": total["select"]}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the retrieval phase's corpora")
+    seed = ap.parse_args(argv).seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3428,8 +3635,7 @@ def main() -> int:
         plain = time_ms(torch, lambda: retrieval_topk_ref(q, c, k=k))
         lib = lambda: torch.topk(q @ c.T, k, dim=1)
         lib_ms, lib_dev_ms = time_ms(torch, lib), graph_ms(torch, lib)
-        b_ms, b_by = bound(bw, fp32, 4 * (B * d + n * d) + 8 * B * k,
-                           2 * B * n * d)
+        b_ms, b_by = cost_bound(bw, fp32, topk_kernel.cost(B, n, d, k))
         g = topk_kernel.grid(B, n, sm_count(dev))
         log("kernels", kernel="retrieval_topk", shape=shape_name,
             B=B, n=n, d=d, k=k, variant=variant, grid=g._asdict(),
@@ -3600,7 +3806,13 @@ def main() -> int:
     launches["retrieval_topk"] += runtime_launches
     variants["retrieval_topk"]["tiled"] += runtime_launches
 
-    # -- 7-16. the served models, then training: a kernel on several paths
+    # -- 7. retrieval: the store's device path at deployment size --------
+    n_calls, by_route = retrieval_phase(torch, dev, bw, fp32, seed)
+    launches["retrieval_topk"] += n_calls
+    for route, count in by_route.items():
+        variants["retrieval_topk"][route] += count
+
+    # -- 8-17. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
     # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
     # largest model last, once every earlier phase's tensors are freed
@@ -3625,10 +3837,10 @@ def main() -> int:
         raise AssertionError(f"decode's lse twin launched "
                              f"{launches[DECODE_LSE]} times on the main path")
 
-    # -- 17. split -------------------------------------------------------
+    # -- 18. split -------------------------------------------------------
     split_phase(torch)
 
-    # -- 18. dryrun ------------------------------------------------------
+    # -- 19. dryrun ------------------------------------------------------
     dryrun_phase()
     log("done", total_s=time.perf_counter() - t_start)
 

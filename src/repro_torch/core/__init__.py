@@ -14,7 +14,3 @@ from repro_torch.core.cca import critical_component_analysis  # noqa: F401
 from repro_torch.core.dsqe import DSQE, train_dsqe  # noqa: F401
 from repro_torch.core.rps import RuntimePathSelector  # noqa: F401
 from repro_torch.core.slo import SLO  # noqa: F401
-from repro_torch.runtime.server import EcoLLMServer, Request, Response  # noqa: F401
-from repro_torch.runtime.fleet import ReplicaFleet, Replica, FleetFuture  # noqa: F401
-from repro_torch.runtime.orchestrator import (  # noqa: F401
-    Orchestrator, Overloaded, Ticket)

@@ -59,6 +59,12 @@ class Grid(NamedTuple):
     n_splits: int  # 1: no merge
 
 
+def cost(B: int, n: int, d: int, k: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: the (B, n) product over d, each fp32
+    input read once and the (B, k) values and int32 ids written once."""
+    return 2 * B * n * d, 4 * (B * d + n * d) + 8 * B * k
+
+
 def route(k: int) -> str:
     """The variant for a call of k (of any width d): the tiled kernel's
     running lists hold up to 64 entries, the select route any k."""

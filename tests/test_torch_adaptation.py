@@ -29,22 +29,20 @@ import numpy as np
 import pytest
 import torch
 
+from carried_server import port_server_with
 from repro.core.slo import SLO as JaxSLO
 from repro.launch.serve import build_server as jax_build_server
 from repro.runtime.adaptation import AdaptConfig as JaxAdaptConfig
 from repro.runtime.adaptation import AdaptationPlane as JaxAdaptationPlane
-from repro_torch.core.cca import critical_component_analysis, find_best_path
-from repro_torch.core.domains import build_domain, train_test_split
-from repro_torch.core.dsqe import DSQE
+from repro_torch.core.cca import find_best_path
 from repro_torch.core.emulator import Emulator, EvalTable, StageCacheLRU
-from repro_torch.core.paths import PathSpace
-from repro_torch.core.rps import OnlinePathStats, RuntimePathSelector
+from repro_torch.core.rps import OnlinePathStats
 from repro_torch.core.slo import SLO
 from repro_torch.launch.serve import build_server
 from repro_torch.runtime.adaptation import (AdaptConfig, AdaptationPlane,
                                             _Ewma, _SweepJob)
 from repro_torch.runtime.router import TenantRouter, TenantSpec
-from repro_torch.runtime.server import EcoLLMServer, Request
+from repro_torch.runtime.server import Request
 
 # several xdist workers share the CPU cores: torch's default of one thread
 # per core in every worker oversubscribes them and stalls every test
@@ -367,22 +365,6 @@ def test_accounting_identities_survive_plane_observers(env):
 
 # -- the port against the JAX package (fresh servers, before the swaps below)
 
-def _port_server_with(dsqe_params, n_sets):
-    """The port's ``build_server("smarthome", n_queries=24, budget=2.0,
-    use_kernel=True)`` with a given (carried) DSQE in place of training."""
-    dom = build_domain("smarthome", n_queries=24, seed=0)
-    space = PathSpace()
-    train_idx, test_idx = train_test_split(dom, 0.3)
-    emu = Emulator(dom, space, seed=0)
-    table = emu.explore(train_idx, budget=2.0, lam=0)
-    cca = critical_component_analysis(table, lam=0)
-    dsqe = DSQE.from_numpy(dsqe_params, n_sets, device="cpu")
-    rps = RuntimePathSelector(space, dsqe, cca, table,
-                              dom.query_embeddings[train_idx], lam=0,
-                              use_kernel=True)
-    return EcoLLMServer(dom, rps, emu.exec, n_replicas=1, seed=0), test_idx
-
-
 def _records(sel, test_idx, rng):
     """One deterministic sequence of outcomes over three folds: folds 1-2
     run hot (mostly SLO violations) on the default orchestrator, a second
@@ -480,9 +462,11 @@ def drift_pair():
     drifted sweep; snapshots of both after every step."""
     jserver, jtest = jax_build_server("smarthome", n_queries=24, budget=2.0,
                                       seed=0, use_kernel=True)
-    jsel = jserver.rps
-    server, test = _port_server_with(jsel.dsqe.params, jsel.dsqe.n_sets)
+    server, test = port_server_with(jserver.rps.dsqe, "smarthome",
+                                    n_queries=24, budget=2.0, seed=0,
+                                    use_kernel=True, n_replicas=1)
     np.testing.assert_array_equal(test, jtest)
+    jsel = jserver.rps
     knobs = dict(min_obs=3.0, trip_folds=2, clear_folds=1, cooldown_folds=2,
                  decay=0.15, blend_prior=4.0, max_sweep_queries=4)
     planes = (AdaptationPlane(server, config=AdaptConfig(**knobs)),

@@ -410,6 +410,42 @@ def test_selector_on_the_card_decides_like_its_numpy_engine():
     server.fleet.close()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 100])
+def test_store_device_path_equals_the_host_path_on_integers(k):
+    """``VectorStore.search_batch(use_kernel=True)`` on the card against the
+    host path: integer rows in [-3, 3] make every fp32 dot product exact,
+    so ids and scores must be equal, planted duplicate rows included (the
+    lowest ids win).  One launch per call on the route's counter; a second
+    call reuses the resident corpus."""
+    _cuda()
+    from repro_torch.core.retrieval import VectorStore
+
+    rng = np.random.default_rng(k)
+    emb = rng.integers(-3, 4, (5000, 256)).astype(np.float32)
+    dup = np.sort(rng.choice(4999, 150, replace=False))
+    dup[-1] = 4999  # in the last, ragged tile
+    emb[dup] = emb[dup[0]]
+    Q = rng.integers(-3, 4, (21, 256)).astype(np.float32)
+    Q[0] = emb[dup[0]]
+    store = VectorStore(emb, device="cuda")
+    host = store.search_batch(Q, k)
+    variant = topk_kernel.route(k)
+    for call in range(2):
+        before = retrieval_topk.launches, _topk_variant_counts()
+        dev = store.search_batch(Q, k, use_kernel=True)
+        assert retrieval_topk.launches == before[0] + 1
+        assert _topk_variant_counts() == {
+            v: n + (v == variant) for v, n in before[1].items()}
+        if call == 0:
+            resident = store._dev_emb
+        assert store._dev_emb is resident
+        for h, d in zip(host, dev):
+            assert np.array_equal(h.ids, d.ids)
+            assert np.array_equal(h.scores, d.scores)
+        assert list(dev[0].ids) == list(dup[:k])
+
+
 # -- attention kernels ------------------------------------------------------
 #
 # fp32: within 1e-5 of the plain version (the same fp32 softmax, summed in

@@ -57,6 +57,33 @@ def test_every_module_imports_without_jax_or_repro():
     assert proc.stdout.strip() == "ok"
 
 
+def test_every_module_imports_first():
+    """Each module imports in a fresh package state, so an import cycle
+    that a sorted walk hides (a package reached first through another
+    one) shows: every ``repro_torch`` entry is dropped before each
+    import, and every module that fails is named."""
+    mods = list(_modules())
+    code = ("import importlib, sys, traceback\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "bad = []\n"
+            f"for m in {mods!r}:\n"
+            "    for k in [k for k in sys.modules\n"
+            "              if k == 'repro_torch' or k.startswith('repro_torch.')]:\n"
+            "        del sys.modules[k]\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "    except Exception as e:\n"
+            "        bad.append(f'{m}: {type(e).__name__}: {e}')\n"
+            "print('\\n'.join(bad) if bad else 'ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok", (
+        f"modules that do not import first:\n{proc.stdout}")
+
+
 def test_no_source_names_jax_or_repro():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert (ROOT / "chip_smoke.py").is_file()

@@ -10,18 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.launch.serve import build_server as jax_build_server
+from carried_server import carried_servers
 from repro.runtime.server import Request as JaxRequest
 from repro.core.slo import SLO as JaxSLO
-from repro_torch.core.cca import critical_component_analysis
-from repro_torch.core.domains import build_domain, train_test_split
-from repro_torch.core.dsqe import DSQE
-from repro_torch.core.emulator import Emulator
 from repro_torch.core.paths import PathSpace
-from repro_torch.core.rps import RuntimePathSelector
 from repro_torch.core.slo import SLO
 from repro_torch.launch import serve
-from repro_torch.runtime.server import EcoLLMServer, Request
+from repro_torch.runtime.server import Request
 
 SLO_ARGS = [{}, {"max_latency_s": 2.0, "max_cost_usd": 0.004},
             {"max_latency_s": 1e-6, "max_cost_usd": 0.0},
@@ -32,29 +27,11 @@ SLO_ARGS = [{}, {"max_latency_s": 2.0, "max_cost_usd": 0.004},
 torch.set_num_threads(1)
 
 
-def _port_server_with(dsqe_params, n_sets, use_kernel=True):
-    dom = build_domain("agriculture", n_queries=40, seed=3)
-    space = PathSpace()
-    train_idx, test_idx = train_test_split(dom, 0.3)
-    emu = Emulator(dom, space, seed=3)
-    table = emu.explore(train_idx, budget=3.0, lam=0)
-    cca = critical_component_analysis(table, lam=0)
-    dsqe = DSQE.from_numpy(dsqe_params, n_sets, device="cpu")
-    rps = RuntimePathSelector(space, dsqe, cca, table,
-                              dom.query_embeddings[train_idx], lam=0,
-                              use_kernel=use_kernel)
-    return EcoLLMServer(dom, rps, emu.exec, n_replicas=2, seed=3), test_idx
-
-
 def test_handle_batch_answers_like_the_jax_server():
-    jserver, jtest = jax_build_server("agriculture", n_queries=40, budget=3.0,
-                                      seed=3, use_kernel=True)
-    server, test = _port_server_with(jserver.rps.dsqe.params,
-                                     jserver.rps.dsqe.n_sets)
-    np.testing.assert_array_equal(test, jtest)
+    jserver, server, test = carried_servers(use_kernel=True)
     slo_args = [SLO_ARGS[i % 4] for i in range(len(test))]
     want = jserver.handle_batch([JaxRequest(prompt="", qid=q, slo=JaxSLO(**a))
-                                 for q, a in zip(jtest, slo_args)])
+                                 for q, a in zip(test, slo_args)])
     got = server.handle_batch([Request(prompt="", qid=q, slo=SLO(**a))
                                for q, a in zip(test, slo_args)])
     assert len(got) == len(test)
@@ -72,14 +49,10 @@ def test_handle_batch_answers_like_the_jax_server():
 def test_handle_answers_like_the_jax_server_one_request_at_a_time():
     """``handle`` dispatches each request as a bucket of one through the
     numpy engine; request by request, the port answers as the JAX server."""
-    jserver, jtest = jax_build_server("agriculture", n_queries=40, budget=3.0,
-                                      seed=3)
-    server, test = _port_server_with(jserver.rps.dsqe.params,
-                                     jserver.rps.dsqe.n_sets, use_kernel=False)
-    np.testing.assert_array_equal(test, jtest)
-    for i, (q, jq) in enumerate(zip(test, jtest)):
+    jserver, server, test = carried_servers()
+    for i, q in enumerate(test):
         a = SLO_ARGS[i % 4]
-        w = jserver.handle(JaxRequest(prompt="", qid=jq, slo=JaxSLO(**a)))
+        w = jserver.handle(JaxRequest(prompt="", qid=q, slo=JaxSLO(**a)))
         g = server.handle(Request(prompt="", qid=q, slo=SLO(**a)))
         assert (g.path_key, g.accuracy, g.latency_s, g.cost_usd, g.slo_ok,
                 g.meta["fallback"], g.meta["set_id"]) == \
