@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
-paths (online path selection, the serving runtime around it, six served
+paths (online path selection, the serving runtime around it, nine served
 language models, and training InternLM2-1.8B, Llama-4-Scout and
 RecurrentGemma-2B) through the entry points a user calls, and holds every
 kernel against its plain torch version on the card.  Phases, one JSON
@@ -40,13 +40,13 @@ line each:
    tiled one with 4-byte row copies), and the first port's warp-per-row
    kernel is timed beside them on the same inputs where it takes them (its
    explicit route).  The selection and decode_attention rows also log their
-   grid (query tile and splits) and ``graph_ms``, device time per call
-   replayed from a CUDA graph, beside the library's.  decode_attention's
-   lse twin (``decode_attention_lse``) runs on caches cut into 2 or 16
-   slices by ``slot0``, as each rank of a cache sharded along its slots
-   runs it: every slice against the plain twin, a slice past cache_len
-   exactly 0 with lse NEG_INF, and the slices merged by lse against the
-   whole-cache kernel (``split_row``).
+   grid (query tile and splits); they and the flash_attention rows log
+   ``graph_ms``, device time per call replayed from a CUDA graph, beside
+   the library's.  decode_attention's lse twin (``decode_attention_lse``)
+   runs on caches cut into 2 or 16 slices by ``slot0``, as each rank of a
+   cache sharded along its slots runs it: every slice against the plain
+   twin, a slice past cache_len exactly 0 with lse NEG_INF, and the slices
+   merged by lse against the whole-cache kernel (``split_row``).
 3. ``serve``: online path selection.  ``handle_batch`` over the held-out
    queries under mixed SLOs, with the launch counters set to 0 just before
    (after two timed warm-up ``select_batch`` calls on the same batch) and
@@ -106,7 +106,11 @@ line each:
    variants (as every moe_gmm, flash_attention and decode_attention launch
    of the served models must be).  Decode logits at three steps must
    match the full forward's last-token logits (rel < 2e-2), and no logit
-   may be NaN.
+   may be NaN.  Then, the same way (``dense_phase``), the catalog's dense
+   7-8B models whole, one at a time: Gemma-7B (``gemma_model``: 16 / 16
+   heads of 256, G 1; 28 + 28 x 150 launches), Granite-8B
+   (``granite_model``: 32 / 8 heads of 128; 36 + 36 x 150) and Llama-3-8B
+   (``llama3_model``; 32 + 32 x 150).
 9. ``moe_model``: the MoE cloud tier, Llama-4-Scout at its published widths
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
@@ -505,10 +509,11 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
         """One prefill shape, S query rows against ``Skv`` keys (S when not
         given): bf16 against the plain version (the served route, which
         must be the tensor-core variant), fp32 (the FFMA variant) at 1e-5,
-        and the times of the served route, the plain version, the FFMA
-        variant on the same bf16 inputs (its explicit route), and SDPA with
-        the same mask.  Bound: 4 hd FLOPs per visible (query, key) pair, q,
-        k, v read and out written once."""
+        and the times of the served route (per call, and as device time
+        replayed from a CUDA graph), the plain version, the FFMA variant on
+        the same bf16 inputs (its explicit route), and SDPA with the same
+        mask (per call and from a graph).  Bound: 4 hd FLOPs per visible
+        (query, key) pair, q, k, v read and out written once."""
         Skv = S if Skv is None else Skv
         q = randn(B, S, H, hd)
         k, v = randn(B, Skv, Kv, hd), randn(B, Skv, Kv, hd)
@@ -525,7 +530,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
         err32 = check_f32(flash_attention(qf, kf, vf, **masks),
                           flash_attention_ref(qf, kf, vf, **masks), where)
         del qf, kf, vf
-        ms = time_ms(torch, lambda: flash_attention(q, k, v, **masks))
+        op = lambda: flash_attention(q, k, v, **masks)
+        ms, dev_ms = time_ms(torch, op), graph_ms(torch, op)
         ffma_ms = time_ms(torch, lambda: flash_kernel.launch(
             q, k, v, "ffma", **masks), *loops)
         plain = time_ms(torch, lambda: flash_attention_ref(q, k, v, **masks),
@@ -533,11 +539,12 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if masks.get("window"):
             mask = visible(S, Skv, device=dev, **masks)
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
         else:  # causal or none; a chunk of 8192 does not cut these S
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=masks["causal"], enable_gqa=True))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=masks["causal"], enable_gqa=True)
+        lib_ms, lib_dev_ms = time_ms(torch, sdpa), graph_ms(torch, sdpa)
         pairs = visible_pairs(S, Skv, **masks)
         b_ms, b_by = cost_bound(bw, bf16, flash_kernel.cost(
             B, S, Skv, H, Kv, hd, 2, **masks))
@@ -546,7 +553,8 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
         log("kernels", kernel="flash_attention", shape=where, B=B, S=S,
             Skv=Skv, H=H, Kv=Kv, hd=hd, dtype="bf16", **masks, variant="tc",
             visible_pairs=pairs, bf16_limit_ratio=ratio,
-            fp32_max_abs_err=err32, ffma_ms=ffma_ms, **row)
+            fp32_max_abs_err=err32, ffma_ms=ffma_ms, graph_ms=dev_ms,
+            library_graph_ms=lib_dev_ms, **row)
         return row
 
     causal = dict(causal=True, window=0, chunk_attn=0)
@@ -633,6 +641,19 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                dict(ring=True, chunk_attn=8192))
     decode_row("recurrentgemma-2b served decode", 4, 2048, 3072 + 75, 10, 1,
                256, dict(ring=True, chunk_attn=0))
+    torch.cuda.empty_cache()
+
+    # the dense 7-8B models' shapes (Gemma-7B: 16 / 16 heads of 256, G 1,
+    # causal over every key, a dense cache; Granite-8B and Llama-3-8B: 32 /
+    # 8 heads of 128): checked and timed as above
+    flash_row("gemma-7b served prefill", 8, 1024, 16, 16, 256, causal,
+              loops=(3, 5))
+    flash_row("granite-8b / llama3-8b served prefill", 8, 1024, 32, 8, 128,
+              causal, loops=(3, 5))
+    decode_row("gemma-7b served decode", 8, 1024 + OUT_TOKENS, 1024 + 75, 16,
+               16, 256, dense)
+    decode_row("granite-8b / llama3-8b served decode", 8, 1024 + OUT_TOKENS,
+               1024 + 75, 32, 8, 128, dense)
     torch.cuda.empty_cache()
 
     # the encoder-decoder's and the VLM's shapes (SeamlessM4T-medium: 16
@@ -1112,17 +1133,24 @@ def init_model(torch, dev, cfg, B, S, seed):
     return params, prompts, time.perf_counter() - t0
 
 
-def model_phase(torch, dev) -> dict:
-    """InternLM2-1.8B at full width: prefill 8 x 1024 seeded tokens, then
-    150 greedy decode steps, through the serving step builders."""
+def dense_model(torch, dev, arch: str, seed: int, phase: str) -> tuple:
+    """A dense LM at its published widths and depth, bf16, seeded random
+    weights made on the card: prefill 8 x 1024 tokens, then OUT_TOKENS
+    greedy decode steps, through the serving step builders.  Launches: one
+    flash_attention per layer for the prefill and one decode_attention per
+    layer and step, all on the tensor-core variants, decode's lse twin none.
+    Prefill -> decode logits at steps 0, 74 and 149 within REL_DECODE on the
+    served run.  Logged as ``phase``; returns the launches and their
+    variants.  Weights and cache are freed before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     B, S, OUT = 8, 1024, OUT_TOKENS
-    cfg = get_config("internlm2-1.8b")
+    cfg = get_config(arch)
     n_layers = cfg.num_layers
-    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=1)
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed)
+    torch.cuda.empty_cache()  # the init's fp32 draws
     ops = {"flash_attention": flash_attention,
            "decode_attention": decode_attention}
     run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
@@ -1132,13 +1160,48 @@ def model_phase(torch, dev) -> dict:
     check_launches(cfg, "decode", run["decode_launches"],
                    {"flash_attention": 0, "decode_attention": n_layers * OUT})
     rels = prefill_decode_rel(torch, params, cfg, prompts, run)
-    log("model", **served_fields(torch, cfg, params, run, OUT, init_s),
+    log(phase, **served_fields(torch, cfg, params, run, OUT, init_s),
         prefill_to_decode_rel=rels)
     by_variant, lse = variant_totals(run), lse_launches(run)
     del params, run
     torch.cuda.empty_cache()
     return ({"flash_attention": n_layers, "decode_attention": n_layers * OUT,
              DECODE_LSE: lse}, by_variant)
+
+
+def model_phase(torch, dev) -> tuple:
+    """The edge-tier LM, InternLM2-1.8B at full width (``dense_model``)."""
+    return dense_model(torch, dev, "internlm2-1.8b", 1, "model")
+
+
+# the catalog's dense 7-8B models (core/paths.py): arch, phase, seed
+DENSE_MODELS = (("gemma-7b", "gemma_model", 10),
+                ("granite-8b", "granite_model", 11),
+                ("llama3-8b", "llama3_model", 12))
+
+
+def add_counts(launches: dict, variants: dict, counts: dict,
+               by_variant: dict) -> None:
+    """Add a run's launches and launches by variant to the totals."""
+    for op, n in counts.items():
+        launches[op] = launches.get(op, 0) + n
+    for op, by in by_variant.items():
+        acc = variants.setdefault(op, dict.fromkeys(by, 0))
+        for v, n in by.items():
+            acc[v] = acc.get(v, 0) + n
+
+
+def dense_phase(torch, dev) -> tuple:
+    """Gemma-7B (16 / 16 heads of 256, G 1; d 3072 against a q width of
+    4096; a tied 256 000-word head), Granite-8B (32 / 8 heads of 128, tied)
+    and Llama-3-8B (32 / 8 of 128, untied) whole, one after the other
+    (``dense_model``: at most one model's weights and cache on the card);
+    returns their launches summed."""
+    launches, variants = {}, {}
+    for arch, phase, seed in DENSE_MODELS:
+        add_counts(launches, variants,
+                   *dense_model(torch, dev, arch, seed, phase))
+    return launches, variants
 
 
 @contextlib.contextmanager
@@ -3822,16 +3885,10 @@ def main(argv=None) -> int:
                                                    summary)
     train_hybrid = lambda torch, dev: train_hybrid_phase(torch, dev, gen, bw,
                                                          fp32, summary)
-    for phase in (model_phase, moe_phase, hybrid_phase, xlstm_phase,
-                  encdec_phase, train, train_tp, train_moe, train_hybrid,
-                  vlm_phase):
-        counts, by_variant = phase(torch, dev)
-        for op, n in counts.items():
-            launches[op] = launches.get(op, 0) + n
-        for op, by in by_variant.items():
-            acc = variants.setdefault(op, dict.fromkeys(by, 0))
-            for v, n in by.items():
-                acc[v] = acc.get(v, 0) + n
+    for phase in (model_phase, dense_phase, moe_phase, hybrid_phase,
+                  xlstm_phase, encdec_phase, train, train_tp, train_moe,
+                  train_hybrid, vlm_phase):
+        add_counts(launches, variants, *phase(torch, dev))
 
     if launches[DECODE_LSE]:
         raise AssertionError(f"decode's lse twin launched "

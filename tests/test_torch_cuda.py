@@ -491,6 +491,11 @@ def _assert_attn(out, ref, ref_abs_v, dtype):
     (1, 1, 4096, 16, 16, 64, False, 0, 0),
     (1, 128, 4096, 16, 16, 64, False, 0, 0),
     (1, 4096, 4096, 16, 16, 64, False, 0, 0),
+    # the dense 7-8B models' heads, causal over all keys, Sq ragged on the
+    # 128-row tile and on the 64- and 128-key tiles: Gemma-7B (hd 256, G 1),
+    # Granite-8B and Llama-3-8B (32 / 8 heads of 128)
+    (2, 300, 300, 16, 16, 256, True, 0, 0),
+    (2, 300, 300, 32, 8, 128, True, 0, 0),
 ])
 def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
                                               window, chunk, dtype):
@@ -561,6 +566,12 @@ def test_flash_attention_tensor_core_kernel_matches_plain(
     (2, 10, 1, 256, 2048, True, 0, 3222),   # RecurrentGemma-2B: G = 10, ring
     (8, 16, 16, 64, 278, False, 0, 203),    # SeamlessM4T-medium decoder
     (4, 56, 8, 128, 1174, False, 0, 1099),  # LLaVA-NeXT-34B: G = 7
+    # Gemma-7B (hd 256, G 1) and Granite-8B / Llama-3-8B (32 / 8 of 128) on
+    # a dense cache, partly filled, then at the served shape
+    (2, 16, 16, 256, 600, False, 0, 377),
+    (2, 32, 8, 128, 600, False, 0, 377),
+    (8, 16, 16, 256, 1174, False, 0, 1099),
+    (8, 32, 8, 128, 1174, False, 0, 1099),
 ])
 def test_decode_attention_kernel_matches_plain(B, H, Kv, hd, W, ring, chunk,
                                                clen, dtype):
