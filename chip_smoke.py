@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
-paths (online path selection, the serving runtime around it, nine served
+paths (online path selection, the serving runtime around it, ten served
 language models, and training InternLM2-1.8B, Llama-4-Scout and
 RecurrentGemma-2B) through the entry points a user calls, and holds every
 kernel against its plain torch version on the card.  Phases, one JSON
@@ -27,8 +27,8 @@ line each:
    served and long prefill and decode shapes of the attention models: the
    encoder-decoder's non-causal encoder and cross-attention, the latter
    one row at a time at decode, among them) and
-   ``torch.bmm`` for moe_gmm (at the Llama-4-Scout prefill and decode
-   shapes); rglru_scan and dsqe_score have no such call.  Three kernels
+   ``torch.bmm`` for moe_gmm (at the Llama-4-Scout and Kimi-K2 prefill and
+   decode shapes); rglru_scan and dsqe_score have no such call.  Three kernels
    have two variants, chosen by one rule each (``kernel.route``): moe_gmm,
    flash_attention and decode_attention a tensor-core one (bf16) and an
    FFMA one (fp32, and bf16 shapes the tensor-core one cannot take).  Every
@@ -115,18 +115,24 @@ line each:
    with 12 of 48 layers (``moe_phase``): exact moe_gmm / flash / decode
    launch counts, the share of assignments dropped by capacity, and
    prefill -> decode on a dropless twin.
-10. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
+10. ``kimi_model``: the top cloud tier, Kimi-K2 at its published widths
+   with 1 of 61 layers (``kimi_phase``, the same function as Scout's): 384
+   experts top-8 at C 256 a prefill launch and C 8 a decode launch, 64 / 8
+   heads of 112; exact launch counts, the dropped share, the distinct
+   experts a decode step hits, and prefill -> decode on the bf16 dropless
+   twin, where a changed top-8 set must be a near-tie.
+11. ``hybrid_model``: the hybrid edge tier, RecurrentGemma-2B whole
    (``hybrid_phase``): exact rglru_scan / flash / decode launch counts (the
    scan's on the route ``scan_plan`` names) and prefill -> decode through a
    wrapped ring.
-11. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
+12. ``xlstm_model``: the smallest edge SLM, xLSTM-125M whole
    (``xlstm_phase``): no attention launches, prefill -> decode by teacher
    forcing (the mLSTM prefill takes whole 256-token chunks only).
-12. ``encdec_model``: SeamlessM4T-medium whole (``encdec_phase``): 4096
+13. ``encdec_model``: SeamlessM4T-medium whole (``encdec_phase``): 4096
    stub audio frames encoded once by the prefill step, a 128-token decoder
    prefix, exact flash / decode launch counts (encoder, decoder and cross
    attention) and prefill -> decode on the served encoder output.
-13. ``train_model``: InternLM2-1.8B trained at full width in bf16 through
+14. ``train_model``: InternLM2-1.8B trained at full width in bf16 through
    ``launch.train.train`` (``train_phase``): B 4 x S 4096 in 2 microbatches,
    4 AdamW steps; exact per-step launches of the flash forward's lse twin
    (96: 24 layers x 2 microbatches x 2 under remat) and of the flash
@@ -138,7 +144,7 @@ line each:
    1e-5); an fp32
    2-layer twin's loss and grads against the plain attention; and restart
    from a checkpoint against an uninterrupted run.
-14. ``train_tp``: the same training on an explicit (1, 1) ``DeviceMesh``
+15. ``train_tp``: the same training on an explicit (1, 1) ``DeviceMesh``
    over a one-rank ``nccl`` world (``train_tp_phase``): parameters and
    AdamW state DTensors placed by ``ShardingPolicy``, the flash kernels on
    each rank's shard; 3 steps whose losses match ``train_model``'s within
@@ -146,14 +152,14 @@ line each:
    ``train_model``'s, one profiled step; ``compressed_psum`` on the last
    step's gradients bit-equal to ``decompress_tree(compress_tree(g))``;
    ``reshard_restore`` of a 2-layer step-2 checkpoint bit-equal.
-15. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
+16. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
    trained through ``launch.steps.build_train_step`` with the uncut model's
    Adafactor and 4 microbatches (``train_moe_phase``): B 4 x S 4096, 3
    steps; exact per-step moe_gmm forward and backward and flash launches,
    all tensor-core; moe_gmm's backward against its plain version
    (``gmm_bwd_kernels``), an fp32 1-layer twin's loss and grads against the
    plain moe_gmm and attention, and two loss-and-grad passes bit-equal.
-16. ``train_hybrid``: RecurrentGemma-2B uncut trained through
+17. ``train_hybrid``: RecurrentGemma-2B uncut trained through
    ``launch.train.train`` (``train_hybrid_phase``): B 2 x S 4096 in 2
    microbatches, 3 AdamW steps; exact per-step rglru_scan forward and
    backward launches, every one on the producer route ``scan_plan`` names,
@@ -162,12 +168,12 @@ line each:
    the scan's backward bit-equal to its plain version
    (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
    checkpoint.
-17. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+18. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-18. ``split``: the split-inference draft's ``DraftState.attend`` through the
+19. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
-19. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
+20. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
    InternLM2-1.8B and RecurrentGemma-2B ``decode_32k`` (their caches sharded
    along the slots over 16 model ranks) and InternLM2-1.8B ``train_4k``, on
    the host's CPU in processes of their own (``dryrun_phase``): each must
@@ -242,6 +248,8 @@ REL_DECODE = 2e-2  # prefill -> decode logits, tests/test_models.py's bound
 OUT_TOKENS = 150  # decode steps of every served model (core/pipeline.py)
 SCOUT_LAYERS = 12  # of 48: 12 x 4.4 GB of bf16 layers + 4.1 GB embed and head
 TWIN_LAYERS = 2  # the Scout fp32 twin: 2 x 8.8 GB + 8.3 GB embed and head
+KIMI_LAYERS = 1  # of 61: 33.8 GB of experts + 4.7 GB embed and head in bf16;
+# two layers (72.7 GB) and the init's 22.5 GB fp32 draw exceed 80 GB
 MLSTM_CHUNK = 256  # the mLSTM prefill's chunk (models/blocks.py)
 VLM_TWIN_LAYERS = 4  # LLaVA's fp32 twin: 4 x 2.2 GB + 3.9 GB embed, head, frontend
 KERNEL_NAMES = ("flash_attention_kernel", "flash_attention_tc_kernel",
@@ -459,8 +467,9 @@ def cost_bound(bw, flops_rate, cost):
 
 def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
     """Both attention kernels against their plain versions at the served
-    and long shapes of InternLM2-1.8B (H = 16, Kv = 8, hd = 128), on the same
-    bf16 inputs in bf16 and widened to fp32.  Returns the served shapes'
+    and long shapes of InternLM2-1.8B (H = 16, Kv = 8, hd = 128) and the
+    served shapes of the other attention models, on the same bf16 inputs
+    in bf16 and widened to fp32.  Returns InternLM2's served shapes'
     numbers per kernel."""
     import torch.nn.functional as F
 
@@ -656,6 +665,15 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
                1024 + 75, 32, 8, 128, dense)
     torch.cuda.empty_cache()
 
+    # Kimi-K2's shapes: 64 / 8 heads of 112 (G 8), causal over every key;
+    # hd 112 pads to two 64-wide TMA boxes in the flash kernel, the second
+    # 48 of 64 live: checked and timed as above
+    flash_row("kimi-k2 served prefill", 8, 1024, 64, 8, 112, causal,
+              loops=(3, 5))
+    decode_row("kimi-k2 served decode", 8, 1024 + OUT_TOKENS, 1024 + 75, 64,
+               8, 112, dense)
+    torch.cuda.empty_cache()
+
     # the encoder-decoder's and the VLM's shapes (SeamlessM4T-medium: 16
     # heads of 64, a bidirectional encoder over 4096 frames, cross-attention
     # of the 128-token decoder prefix and of each decode row; LLaVA-NeXT-34B:
@@ -781,30 +799,43 @@ def attention_kernels(torch, dev, gen, bw, bf16) -> dict:
     return summary
 
 
+GMM_PLAIN_EXPERTS = 32  # experts a plain moe_gmm call takes at a time: at
+# Kimi-K2's 384 one call widens w to fp32 (22.5 GB)
+
+
 def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
     """moe_gmm against its plain version at the shapes the Llama-4-Scout
     path gives it (E 16, D 5120, F 8192; C = 640 rows per expert at the 8 x
-    1024 prefill, 8 at decode; gate/up D -> F and down F -> D) and at a
-    ragged shape, on bf16 inputs in bf16 and widened to fp32.  bf16, element
-    by element: |out - ref| <= 2^-7 |ref| + 1e-5 (|x| . |w|): both sides round
-    an fp32 sum of the same products to bf16 (each rounding at most 2^-8 of
-    the value), and the two sums differ by far less than 1e-5 of the sum of
-    the products' magnitudes.  fp32: max |out - ref| <= F32_REL max |ref|.
-    The served shapes must take the tensor-core variant (the ragged one,
-    F = 300, takes the FFMA variant by the route's rule); beside its time
-    stand the FFMA variant's on the same bf16 inputs (its explicit route)
-    and, as library yardstick, ``torch.bmm``.  Returns the served prefill
-    gate/up shape's numbers."""
+    1024 prefill, 8 at decode; gate/up D -> F and down F -> D), at Kimi-K2's
+    (E 384, D 7168, F 2048; C = 256 at the prefill, 8 at decode: every w
+    past 2^31 elements) and at a ragged shape, on bf16 inputs in bf16 and
+    widened to fp32.  bf16, element by element: |out - ref| <= 2^-7 |ref| +
+    1e-5 (|x| . |w|): both sides round an fp32 sum of the same products to
+    bf16 (each rounding at most 2^-8 of the value), and the two sums differ
+    by far less than 1e-5 of the sum of the products' magnitudes.  fp32:
+    max |out - ref| <= F32_REL max |ref|.  The plain version, the fp32 check
+    and the plain time take GMM_PLAIN_EXPERTS experts at a time; the
+    kernel's bf16 output is one launch over every expert.  The served
+    shapes must take the tensor-core variant (the ragged one, F = 300,
+    takes the FFMA variant by the route's rule); beside its time stand the
+    FFMA variant's on the same bf16 inputs (its explicit route) and, as
+    library yardstick, ``torch.bmm``.  Returns the Scout prefill gate/up
+    shape's numbers."""
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
     summary = None
     D, Fd = 5120, 8192
+    KD, KF = 7168, 2048  # Kimi-K2's d_model and moe_d_ff
     for shape, E, C, K, N in (("served prefill gate/up", 16, 640, D, Fd),
                               ("served prefill down", 16, 640, Fd, D),
                               ("served decode gate/up", 16, 8, D, Fd),
                               ("served decode down", 16, 8, Fd, D),
+                              ("kimi-k2 prefill gate/up", 384, 256, KD, KF),
+                              ("kimi-k2 prefill down", 384, 256, KF, KD),
+                              ("kimi-k2 decode gate/up", 384, 8, KD, KF),
+                              ("kimi-k2 decode down", 384, 8, KF, KD),
                               ("ragged", 7, 77, 1000, 300)):
         where = f"moe_gmm/{shape}"
         x = torch.randn((E, C, K), generator=gen, device=dev).to(
@@ -812,45 +843,53 @@ def gmm_kernels(torch, dev, gen, bw, bf16) -> dict:
         w = torch.randn((E, K, N), generator=gen, device=dev).mul_(
             1.0 / math.sqrt(K)).to(torch.bfloat16)
         variant = gmm_kernel.route(x.dtype, K, N)
-        if shape.startswith("served") and variant != "tc":
+        if shape != "ragged" and variant != "tc":
             raise AssertionError(f"{where}: routed to {variant}")
         before = getattr(moe_gmm, f"launches_{variant}")
-        out = moe_gmm(x, w).float()
+        out = moe_gmm(x, w)
         if getattr(moe_gmm, f"launches_{variant}") != before + 1:
             raise AssertionError(f"{where}: the {variant} count did not move")
-        ref = moe_gmm_ref(x, w).float()
-        mag = moe_gmm_ref(x.abs().float(), w.abs().float())
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        ratio = float((diff / (2.0 ** -7 * ref.abs() + 1e-5 * mag)).max())
-        if not ratio <= 1.0:  # NaN fails too
-            raise AssertionError(f"{where}: bf16 kernel exceeds its limit by "
-                                 f"{ratio}x (max |diff| {float(diff.max())})")
-        err = float(diff.max())
-        del out, ref, mag, diff
-        xf, wf = x.float(), w.float()
-        ref32 = moe_gmm_ref(xf, wf)
-        rel32 = float((moe_gmm(xf, wf) - ref32).abs().max()
-                      / ref32.abs().max())
+        parts = [slice(e, e + GMM_PLAIN_EXPERTS)
+                 for e in range(0, E, GMM_PLAIN_EXPERTS)]
+        err, ratio, err32, max32 = 0.0, 0.0, 0.0, 0.0
+        for p in parts:
+            ref = moe_gmm_ref(x[p], w[p]).float()
+            mag = moe_gmm_ref(x[p].abs().float(), w[p].abs().float())
+            diff = (out[p].float() - ref).abs()
+            r = float((diff / (2.0 ** -7 * ref.abs() + 1e-5 * mag)).max())
+            if not r <= 1.0:  # NaN fails too
+                raise AssertionError(f"{where}: bf16 kernel exceeds its "
+                                     f"limit by {r}x (max |diff| "
+                                     f"{float(diff.max())})")
+            err, ratio = max(err, float(diff.max())), max(ratio, r)
+            del ref, mag, diff
+            xf, wf = x[p].float(), w[p].float()
+            ref32 = moe_gmm_ref(xf, wf)
+            err32 = max(err32, float((moe_gmm(xf, wf) - ref32).abs().max()))
+            max32 = max(max32, float(ref32.abs().max()))
+            del xf, wf, ref32
+        rel32 = err32 / max32
         if not rel32 <= F32_REL:
             raise AssertionError(f"{where}: fp32 kernel differs from the "
                                  f"plain version by rel {rel32}")
-        del xf, wf, ref32
-        loops = (3, 5) if C > 8 else ()  # a prefill call takes tens of ms
+        del out
+        loops = (3, 5) if C > 8 or E > 16 else ()  # calls of tens of ms
         ms = time_ms(torch, lambda: moe_gmm(x, w), *loops)
         ffma_ms = time_ms(torch, lambda: gmm_kernel.launch(x, w, "ffma"),
                           *loops)
-        plain = time_ms(torch, lambda: moe_gmm_ref(x, w), *loops)
+        plain = time_ms(torch, lambda: [moe_gmm_ref(x[p], w[p])
+                                        for p in parts], *loops)
         lib_ms = time_ms(torch, lambda: torch.bmm(x, w))
         b_ms, b_by = cost_bound(bw, bf16, gmm_kernel.cost(E, C, K, N, 2))
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
         log("kernels", kernel="moe_gmm", shape=shape, E=E, C=C, D=K, F=N,
             dtype="bf16", variant=variant, bf16_limit_ratio=ratio,
-            fp32_rel_err=rel32, ffma_ms=ffma_ms, **row)
+            fp32_rel_err=rel32, ffma_ms=ffma_ms, plain_experts_a_call=min(
+                E, GMM_PLAIN_EXPERTS), **row)
         summary = summary or row
         del x, w
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -1235,15 +1274,19 @@ def moe_twin(torch, cfg, params, prompts, steps, watch) -> dict:
     """Prefill -> greedy decode of a dropless MoE model, each watched decode
     step against the full forward over the same tokens: ``rel``, max |full -
     decode| over max |full| of the last-token logits (over the batch and per
-    row); per row the number of layers whose top-1 expert for that token
-    differs between the two; and per row the first such layer as [layer,
-    the full forward's top-1 minus top-2 router probability there, the
-    largest difference between the two runs' router probabilities there]:
-    a flip where the margin is within that difference is a near-tie that
+    row); per row the number of layers whose top-k expert set (k =
+    ``experts_per_token``) for that token differs between the two
+    (``top<k>_flips_by_row``); per row the first such layer as [layer, the
+    full forward's k-th minus (k+1)-th router probability there (the
+    margin), the largest difference between the two runs' router
+    probabilities there (the gap)]; and per row the closest call, [layer,
+    margin, gap] at the layer whose margin is the smallest multiple of its
+    gap.  A change where the margin is within the gap is a near-tie that
     rounding tipped over."""
     from repro_torch.models import blocks, lm
 
     B, S = prompts.shape
+    k = cfg.experts_per_token
     cap = S + steps
     logits, cache = lm.prefill(params, cfg, prompts, capacity=cap)
     token = logits.argmax(-1, keepdim=True)
@@ -1260,42 +1303,100 @@ def moe_twin(torch, cfg, params, prompts, steps, watch) -> dict:
             diff = (full - logits).abs()
             dec_p = torch.stack([p.reshape(B, -1) for p, _, _ in dec])
             fwd_p = torch.stack([p[:, -1] for p, _, _ in fwd])  # (L, B, E)
-            flips = dec_p.argmax(-1) != fwd_p.argmax(-1)  # (L, B)
-            top2 = fwd_p.topk(2, dim=-1).values
-            margin = top2[..., 0] - top2[..., 1]
+            sets = [blocks._top_k(p, k)[1].sort(-1).values
+                    for p in (dec_p, fwd_p)]
+            flips = (sets[0] != sets[1]).any(-1)  # (L, B)
+            ranked = fwd_p.sort(-1, descending=True).values
+            margin = ranked[..., k - 1] - ranked[..., k]
             gap = (dec_p - fwd_p).abs().amax(-1)
             first = [None] * B
             for layer, b in torch.nonzero(flips).tolist():
                 if first[b] is None:
                     first[b] = [layer, float(margin[layer, b]),
                                 float(gap[layer, b])]
-            out[str(t)] = dict(
-                rel=float(diff.max() / full.abs().max()),
-                rel_by_row=(diff.amax(-1) / full.abs().amax(-1)).tolist(),
-                top1_flips_by_row=flips.sum(0).tolist(),
-                first_flip_by_row=first)
+            closest = (margin / gap.clamp_min(1e-30)).argmin(0).tolist()
+            out[str(t)] = {
+                "rel": float(diff.max() / full.abs().max()),
+                "rel_by_row": (diff.amax(-1) / full.abs().amax(-1)).tolist(),
+                f"top{k}_flips_by_row": flips.sum(0).tolist(),
+                "first_flip_by_row": first,
+                "closest_by_row": [[layer, float(margin[layer, b]),
+                                    float(gap[layer, b])]
+                                   for b, layer in enumerate(closest)]}
         token = logits.argmax(-1, keepdim=True)
     return out
 
 
-def moe_phase(torch, dev) -> dict:
-    """The MoE cloud tier, Llama-4-Scout (16 experts top-1 + a shared
-    expert, chunked attention 8192) at its published widths with 12 of its
-    48 layers, bf16, seeded random weights: prefill 8 x 1024 tokens at
-    capacity factor 1.25, then 150 greedy decode steps.  Launches: 36
-    moe_gmm and 12 flash_attention per prefill, 36 moe_gmm and 12
-    decode_attention per decode step.
+def hold_near_ties(cfg, twin: dict) -> int:
+    """The bf16 dropless twin's rule (``moe_twin``'s result), where no fp32
+    twin fits the card: every row whose top-k expert sets agree at every
+    layer must be within REL_DECODE; a row whose set changes passes only as
+    a near-tie, its margin at the first changed layer within its gap.  At
+    least one row must be held under the bound; returns how many were."""
+    held = 0
+    for t, r in twin.items():
+        for b, (rel, first) in enumerate(zip(r["rel_by_row"],
+                                             r["first_flip_by_row"])):
+            if first is None:
+                if not rel < REL_DECODE:
+                    raise AssertionError(
+                        f"{cfg.name} dropless twin, decode step {t} row {b}: "
+                        f"the expert sets agree, but the logits differ from "
+                        f"the full forward by rel {rel}")
+                held += 1
+            elif not first[1] <= first[2]:
+                raise AssertionError(
+                    f"{cfg.name} dropless twin, decode step {t} row {b}: the "
+                    f"top-{cfg.experts_per_token} set changes at layer "
+                    f"{first[0]} with margin {first[1]} above the gap "
+                    f"{first[2]}: not a near-tie")
+    if not held:
+        raise AssertionError(f"{cfg.name} dropless twin: no row's expert "
+                             "sets agree, so no row is held")
+    return held
+
+
+def experts_hit(torch, seen, E: int, B: int) -> list[int]:
+    """Of ``recorded_dispatch``'s records, those of decode steps (one group
+    of B tokens): the distinct experts that hold a token in each."""
+    return [int(torch.unique(slots[slots < E * c] // c).numel())
+            for _, slots, c in seen if tuple(slots.shape[:2]) == (1, B)]
+
+
+# the served MoE models (the cloud tier of core/paths.py): arch, the layers
+# kept of the published depth, seed, phase, and the layers of an fp32 twin
+# of the served weights that holds prefill -> decode (0: none fits the card,
+# and the bf16 dropless twin is held, near-ties apart: hold_near_ties)
+MOE_MODELS = (("llama4-scout-17b-a16e", SCOUT_LAYERS, 2, "moe_model",
+               TWIN_LAYERS),
+              ("kimi-k2-1t-a32b", KIMI_LAYERS, 3, "kimi_model", 0))
+
+
+def moe_model(torch, dev, arch: str, layers: int, seed: int, phase: str,
+              fp32_twin_layers: int) -> tuple:
+    """An MoE LM at its published widths with ``layers`` of its layers,
+    bf16, seeded random weights made on the card: prefill 8 x 1024 tokens at
+    its capacity factor, then OUT_TOKENS greedy decode steps, through the
+    serving step builders.  Launches: 3 moe_gmm and 1 flash_attention per
+    layer for the prefill, 3 moe_gmm and 1 decode_attention per layer and
+    step, all on the tensor-core variants, decode's lse twin none.  Logged
+    as ``phase``: the served fields, the share of assignments dropped by
+    capacity at the prefill, and the distinct experts that hold a token at
+    each decode step (of the served run and of the profiled steps).
 
     A prefill that drops tokens by capacity cannot match a full forward over
     a longer sequence (whose capacity differs), so prefill -> decode is held
-    on dropless twins (capacity factor 16), 2 x 256 tokens and 16 decode
-    steps, watched at steps 0, 7 and 15.  In bf16 a top-1 router near-tie
-    can tip either way between the decode step and the full forward, and a
-    token whose expert changes at one layer leaves on another path: so the
-    bf16 twin (the served weights, 12 layers) is measured and its top-1
-    flips counted, and the check, rel < REL_DECODE, is held on an fp32 twin
-    of the served weights' first TWIN_LAYERS layers, embedding and head,
-    widened to fp32."""
+    on dropless twins (capacity factor E / k, as ``ModelConfig.reduced()``
+    makes dropless), 2 x 256 tokens and 16 decode steps, watched at steps 0,
+    7 and 15 (``moe_twin``).  In bf16 a router near-tie can tip either way
+    between the decode step and the full forward, and a token whose experts
+    change at one layer leaves on another path.  With ``fp32_twin_layers``
+    the bf16 twin (the served weights) is measured and its changes counted,
+    and the check, rel < REL_DECODE, is held on an fp32 twin of the served
+    weights' first ``fp32_twin_layers`` layers, embedding and head, widened
+    to fp32; without, the bf16 twin is held by ``hold_near_ties``.  Returns
+    the launches and their variants; weights, cache and twins are freed
+    before it returns."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1304,10 +1405,12 @@ def moe_phase(torch, dev) -> dict:
     from repro_torch.optim.optimizers import tree_map
 
     B, S, OUT = 8, 1024, OUT_TOKENS
-    published = get_config("llama4-scout-17b-a16e")
-    cfg = published.with_overrides(num_layers=SCOUT_LAYERS)
-    L = cfg.num_layers
-    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed=2)
+    published = get_config(arch)
+    cfg = published.with_overrides(num_layers=layers)
+    L, E, k = cfg.num_layers, cfg.num_experts, cfg.experts_per_token
+    torch.cuda.reset_peak_memory_stats()
+    params, prompts, init_s = init_model(torch, dev, cfg, B, S, seed)
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()  # the init's fp32 draws
 
     with recorded_dispatch(blocks) as seen:
@@ -1319,56 +1422,92 @@ def moe_phase(torch, dev) -> dict:
     del seen
     ops = {"moe_gmm": moe_gmm, "flash_attention": flash_attention,
            "decode_attention": decode_attention}
-    run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops, watch=set())
+    with recorded_dispatch(blocks) as seen:
+        run = serve_lm(torch, dev, cfg, params, prompts, OUT, ops,
+                       watch=set())
+    hit = experts_hit(torch, seen, E, B)[-L * OUT:]  # the timed steps
+    del seen
     check_launches(cfg, "prefill", run["prefill_launches"],
                    {"moe_gmm": 3 * L, "flash_attention": L,
                     "decode_attention": 0})
     check_launches(cfg, "decode", run["decode_launches"],
                    {"moe_gmm": 3 * L * OUT, "flash_attention": 0,
                     "decode_attention": L * OUT})
-    fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    with recorded_dispatch(blocks) as seen:
+        fields = served_fields(torch, cfg, params, run, OUT, init_s)
+    profiled_hit = experts_hit(torch, seen, E, B)[L:]  # after the warm-up
+    del seen
     by_variant, lse = variant_totals(run), lse_launches(run)
     del run
 
     t_B, t_S, t_OUT = 2, 256, 16
     t_prompts = prompts[:t_B, :t_S].contiguous()
     watch = {0, t_OUT // 2 - 1, t_OUT - 1}
-    bf16_twin = moe_twin(torch, cfg.with_overrides(capacity_factor=16.0),
+    dropless = float(E) / k
+    bf16_twin = moe_twin(torch, cfg.with_overrides(capacity_factor=dropless),
                          params, t_prompts, t_OUT, watch)
-
-    # the fp32 twin: slice the first layers out, free the rest, widen
-    units = params["stack"]["units"]  # stacked, or a per-unit list
-    units = units[:TWIN_LAYERS] if isinstance(units, list) else tree_map(
-        lambda t: t[:TWIN_LAYERS].clone(), units)
-    del params["stack"]
-    torch.cuda.empty_cache()
-    params["stack"] = {"units": units}
-    params = tree_map(lambda t: t.float(), params)
-    torch.cuda.empty_cache()
-    twin = cfg.with_overrides(num_layers=TWIN_LAYERS, dtype="float32",
-                              capacity_factor=16.0)
-    fp32_twin = moe_twin(torch, twin, params, t_prompts, t_OUT, watch)
-    for t, r in fp32_twin.items():
-        if not r["rel"] < REL_DECODE:
-            raise AssertionError(f"{twin.name} fp32 twin, decode step {t}: "
-                                 f"logits differ from the full forward by "
-                                 f"rel {r['rel']}")
-    log("moe_model", **fields, layers_published=published.num_layers,
-        experts=cfg.num_experts, top_k=cfg.experts_per_token,
-        moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+    twin_fields = dict(capacity_factor=dropless, batch=t_B,
+                       prompt_tokens=t_S, decode_steps=t_OUT, bf16_layers=L,
+                       bf16_prefill_to_decode=bf16_twin)
+    if fp32_twin_layers:
+        # the fp32 twin: slice the first layers out, free the rest, widen
+        n = fp32_twin_layers
+        units = params["stack"]["units"]  # stacked, or a per-unit list
+        units = units[:n] if isinstance(units, list) else tree_map(
+            lambda t: t[:n].clone(), units)
+        del params["stack"]
+        torch.cuda.empty_cache()
+        params["stack"] = {"units": units}
+        params = tree_map(lambda t: t.float(), params)
+        torch.cuda.empty_cache()
+        twin = cfg.with_overrides(num_layers=n, dtype="float32",
+                                  capacity_factor=dropless)
+        fp32_twin = moe_twin(torch, twin, params, t_prompts, t_OUT, watch)
+        for t, r in fp32_twin.items():
+            if not r["rel"] < REL_DECODE:
+                raise AssertionError(f"{twin.name} fp32 twin, decode step "
+                                     f"{t}: logits differ from the full "
+                                     f"forward by rel {r['rel']}")
+        twin_fields.update(fp32_layers=n, fp32_prefill_to_decode=fp32_twin)
+    else:
+        twin_fields.update(bf16_rows_held=hold_near_ties(cfg, bf16_twin))
+    log(phase, **fields, layers_published=published.num_layers,
+        experts=E, top_k=k, moe_d_ff=cfg.moe_d_ff,
+        capacity_factor=cfg.capacity_factor, init_peak_memory_gb=init_peak_gb,
         prefill_capacity_per_group=capacity,
         prefill_dropped_share=dropped / assigned,
         moe_gmm_launches=fields["prefill_launches"]["moe_gmm"]
         + fields["decode_launches"]["moe_gmm"],
-        dropless_twin=dict(capacity_factor=16.0, batch=t_B, prompt_tokens=t_S,
-                           decode_steps=t_OUT, bf16_layers=L,
-                           bf16_prefill_to_decode=bf16_twin,
-                           fp32_layers=TWIN_LAYERS,
-                           fp32_prefill_to_decode=fp32_twin))
+        decode_experts_hit=dict(min=min(hit), mean=statistics.mean(hit),
+                                max=max(hit), share=statistics.mean(hit) / E),
+        profiled_decode_experts_hit=profiled_hit,
+        dropless_twin=twin_fields)
     del params
     torch.cuda.empty_cache()
     return ({"moe_gmm": 3 * L * (1 + OUT), "flash_attention": L,
              "decode_attention": L * OUT, DECODE_LSE: lse}, by_variant)
+
+
+def moe_phase(torch, dev) -> tuple:
+    """The MoE cloud tier, Llama-4-Scout (16 experts top-1 + a shared
+    expert, chunked attention 8192) at its published widths with 12 of its
+    48 layers (``moe_model``): 36 moe_gmm and 12 flash_attention per
+    prefill, 36 moe_gmm and 12 decode_attention per decode step; in bf16 a
+    top-1 router near-tie tips either way, so prefill -> decode is held on
+    an fp32 twin of the served weights' first TWIN_LAYERS layers."""
+    return moe_model(torch, dev, *MOE_MODELS[0])
+
+
+def kimi_phase(torch, dev) -> tuple:
+    """The top cloud tier, Kimi-K2 (384 experts top-8 + a shared expert,
+    64 / 8 heads of 112, an untied 163 840-word vocab) at its published
+    widths with KIMI_LAYERS of its 61 layers (``moe_model``): 3 moe_gmm and 1
+    flash_attention per prefill, 3 moe_gmm and 1 decode_attention per
+    decode step.  One layer widened to fp32 (77.7 GB) does not fit beside
+    it, so prefill -> decode is held on the bf16 dropless twin of the served
+    weights: rows whose top-8 sets agree within REL_DECODE, a set change
+    only as a near-tie (``hold_near_ties``)."""
+    return moe_model(torch, dev, *MOE_MODELS[1])
 
 
 def hybrid_phase(torch, dev) -> dict:
@@ -3875,7 +4014,7 @@ def main(argv=None) -> int:
     for route, count in by_route.items():
         variants["retrieval_topk"][route] += count
 
-    # -- 8-17. the served models, then training: a kernel on several paths
+    # -- 8-18. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
     # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
     # largest model last, once every earlier phase's tensors are freed
@@ -3885,19 +4024,19 @@ def main(argv=None) -> int:
                                                    summary)
     train_hybrid = lambda torch, dev: train_hybrid_phase(torch, dev, gen, bw,
                                                          fp32, summary)
-    for phase in (model_phase, dense_phase, moe_phase, hybrid_phase,
-                  xlstm_phase, encdec_phase, train, train_tp, train_moe,
-                  train_hybrid, vlm_phase):
+    for phase in (model_phase, dense_phase, moe_phase, kimi_phase,
+                  hybrid_phase, xlstm_phase, encdec_phase, train, train_tp,
+                  train_moe, train_hybrid, vlm_phase):
         add_counts(launches, variants, *phase(torch, dev))
 
     if launches[DECODE_LSE]:
         raise AssertionError(f"decode's lse twin launched "
                              f"{launches[DECODE_LSE]} times on the main path")
 
-    # -- 18. split -------------------------------------------------------
+    # -- 19. split -------------------------------------------------------
     split_phase(torch)
 
-    # -- 19. dryrun ------------------------------------------------------
+    # -- 20. dryrun ------------------------------------------------------
     dryrun_phase()
     log("done", total_s=time.perf_counter() - t_start)
 

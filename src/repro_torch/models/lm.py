@@ -75,11 +75,16 @@ def _init_unit(gen, pat: tuple[str, ...], cfg: ModelConfig, device,
 def init_stack(gen, cfg: ModelConfig, device, cross: bool = False) -> Params:
     """The layer stack's parameters.  The stacked layout allocates each
     ``(n_units, ...)`` tensor once and writes every unit into its slot as
-    it is drawn, so the stack is never held twice; the generator is drawn
-    in the same order for both layouts, so they hold the same values.
+    it is drawn, so the stack is never held twice; a single unit is
+    stacked as a view of its tensors (``unsqueeze(0)``), with no slot to
+    copy into (one Kimi-K2 layer is 33.8 GB in bf16).  The generator is
+    drawn in the same order for both layouts, so they hold the same values.
     ``cross`` adds cross-attention to the attention blocks."""
     pat, n_units, rest = _pattern(cfg)
-    if cfg.scan_layers:
+    if cfg.scan_layers and n_units == 1:
+        units = tree_map(lambda t: t.unsqueeze(0),
+                         _init_unit(gen, pat, cfg, device, cross))
+    elif cfg.scan_layers:
         units = None
         for i in range(n_units):
             unit = _init_unit(gen, pat, cfg, device, cross)

@@ -496,6 +496,9 @@ def _assert_attn(out, ref, ref_abs_v, dtype):
     # Granite-8B and Llama-3-8B (32 / 8 heads of 128)
     (2, 300, 300, 16, 16, 256, True, 0, 0),
     (2, 300, 300, 32, 8, 128, True, 0, 0),
+    # Kimi-K2's heads (64 / 8 of 112, G 8): hd pads to two 64-wide boxes,
+    # the second 48 of 64 live
+    (2, 300, 300, 16, 2, 112, True, 0, 0),
 ])
 def test_flash_attention_kernel_matches_plain(B, Sq, Skv, H, Kv, hd, causal,
                                               window, chunk, dtype):
@@ -880,6 +883,7 @@ def _gmm_case(rng, E, C, D, F, dtype, dev):
     (2, 13, 64, 130),      # 16-row tile, one column past a 128 tile
     (5, 1, 33, 7),         # a single row, less than one tile everywhere
     (16, 640, 1024, 512),  # the served prefill rows per expert, narrowed
+    (384, 8, 256, 128),    # Kimi-K2's 384 experts at decode, narrowed
 ])
 def test_moe_gmm_kernel_matches_plain(E, C, D, F, dtype):
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
@@ -931,6 +935,36 @@ def test_moe_gmm_tensor_core_kernel_matches_plain(E, C, D, F):
     mag = moe_gmm_ref(x.abs().float(), w.abs().float())
     diff = (out.float() - ref).abs()
     assert bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * mag).all())
+
+
+@pytest.mark.cuda
+def test_moe_gmm_kernel_past_int32_elements():
+    """Kimi-K2's 384 experts at d_model 7168: w (384, 7168, 1024) holds 2.8
+    x 10^9 elements, past 2^31, so every offset into it must be 64-bit.  The
+    bf16 tensor-core launch over every expert against the plain version 32
+    experts at a time (one plain call would widen w to 11 GB of fp32)."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    dev = _cuda()
+    E, C, D, F = 384, 8, 7168, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = (torch.randn((E, C, D), generator=gen, device=dev)
+         / np.sqrt(D)).to(torch.bfloat16)
+    w = torch.randn((E, D, F), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    assert w.numel() > 2 ** 31
+    before = moe_gmm.launches_tc
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches_tc == before + 1 and out.shape == (E, C, F)
+    for e in range(0, E, 32):
+        xs, ws = x[e:e + 32], w[e:e + 32]
+        ref = moe_gmm_ref(xs, ws).float()
+        mag = moe_gmm_ref(xs.abs().float(), ws.abs().float())
+        diff = (out[e:e + 32].float() - ref).abs()
+        assert bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * mag).all()), e
 
 
 @pytest.mark.cuda
