@@ -5,8 +5,9 @@
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
 paths (online path selection, the serving runtime around it, ten served
-language models, and training InternLM2-1.8B, Llama-4-Scout and
-RecurrentGemma-2B) through the entry points a user calls, and holds every
+language models, and training InternLM2-1.8B, Llama-4-Scout,
+RecurrentGemma-2B, SeamlessM4T-medium, LLaVA-NeXT-34B and xLSTM-125M)
+through the entry points a user calls, and holds every
 kernel against its plain torch version on the card.  Phases, one JSON
 line each:
 
@@ -168,12 +169,27 @@ line each:
    the scan's backward bit-equal to its plain version
    (``scan_bwd_kernels``), an fp32 3-layer twin, and restart from a
    checkpoint.
-18. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+18. ``train_encdec``: SeamlessM4T-medium uncut through
+   ``launch.train.train`` (``train_encdec_phase``): B 4 x S 4096 (4096
+   stub frames the driver draws from each step's seed) in 2 microbatches,
+   3 AdamW steps; exactly 120 lse-twin flash forwards and 72 backwards a
+   step, all tensor-core (the encoder outside the remat units); an fp32
+   2 + 2-layer twin on seeded frames, restart.  The backward kernel's rows
+   (``flash_bwd_kernels``) include its non-causal hd-64 shape.
+19. ``train_vlm``: LLaVA-NeXT-34B at its published widths cut to 4 of 60
+   layers through ``build_train_step`` with the uncut model's Adafactor
+   (``train_vlm_phase``): B 4 x S 4096 with seeded patches, 3 steps; 8 lse
+   and 4 backward launches a step at G 7; an fp32 1-layer twin, restart.
+20. ``train_xlstm``: xLSTM-125M whole through ``launch.train.train``
+   (``train_xlstm_phase``): B 16 x S 1024 (S cut from 4096: the sLSTM loop
+   runs on the host), 3 AdamW steps, every train counter 0; the card
+   held against the port on the CPU in fp32, restart.
+21. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-19. ``split``: the split-inference draft's ``DraftState.attend`` through the
+22. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
-20. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
+23. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
    InternLM2-1.8B and RecurrentGemma-2B ``decode_32k`` (their caches sharded
    along the slots over 16 model ranks) and InternLM2-1.8B ``train_4k``, on
    the host's CPU in processes of their own (``dryrun_phase``): each must
@@ -1815,6 +1831,26 @@ MOE_TWIN_LAYERS = 1  # Scout's fp32 twin at full width (4.27 B params)
 HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_MB = 2, 4096, 2  # past the window
 HYBRID_TWIN_LAYERS = 3  # one (rglru, rglru, attn) pattern: twin and restart
 MOE_HYBRID_STEPS = 3  # optimizer steps of the Scout and RecurrentGemma runs
+# (and of the SeamlessM4T, LLaVA and xLSTM runs)
+# SeamlessM4T-medium trained uncut: 4096 stub frames and 4096 target tokens
+ENCDEC_TRAIN_B, ENCDEC_TRAIN_S, ENCDEC_TRAIN_MB = 4, 4096, 2
+ENCDEC_TWIN_LAYERS = 2  # fp32 twin: 2 encoder + 2 decoder layers; restart: 2
+# decoder layers (beside the 12 encoder layers)
+# LLaVA-NeXT-34B at its published widths cut to 4 of 60 layers: 3.20 B
+# params (0.557 B a layer; embedding, head and frontend 0.97 B)
+VLM_TRAIN_LAYERS = 4
+VLM_TRAIN_B, VLM_TRAIN_S = 4, 4096
+VLM_TRAIN_TWIN_LAYERS = 1  # fp32 twin (6.1 GB of weights) and restart
+# xLSTM-125M: the sLSTM loop runs on the host once per position, so a step
+# costs by S (B 4 x S 4096 took 86 s a step beside an H100): cut to S
+# 1024, B 16 keeping 16 384 tokens a step; its restart at S 128
+XLSTM_TRAIN_B, XLSTM_TRAIN_S, XLSTM_RESTART_S = 16, 1024, 128
+XLSTM_TWIN_S = 256  # xLSTM's card-against-CPU twin: fp32, B 1, whole model
+# its grad leaves, each against its max |g|: at random weights the 12 layers
+# turn fp32 rounding into up to 2.6e-4 of a leaf's max between two runs of
+# the same code on one x86 CPU that differ only in thread count (the order
+# of the sums), so F32_GRAD_REL cannot part a fault from a sum's order here
+XLSTM_GRAD_REL = 1e-3
 
 
 def cut_layers(n: int):
@@ -1966,14 +2002,15 @@ class StepWatch:
     """The ``on_step`` of a driven train run: every train counter is set to
     0 at ``start()``, and each step's launches (the counters after the step
     minus before) and metrics are kept; step ``profiled`` runs under the
-    profiler (device kernels only)."""
+    profiler, which records the device's activity only (kernels, copies
+    and fills; recording every host op too doubled a host-bound xLSTM
+    step)."""
 
     def __init__(self, torch, profiled: int):
         from torch.profiler import ProfilerActivity, profile
 
         self.torch, self.profiled, self.ops = torch, profiled, train_ops()
-        self.prof = profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.steps, self.per_step = [], []
 
     def start(self) -> None:
@@ -2010,27 +2047,32 @@ class StepWatch:
 
     def profiled_fields(self, role) -> dict:
         """The profiled step's wall and device busy time, its eight largest
-        kernels, and [ms, calls] of the kernels ``role(name)`` names."""
+        kernels, and [ms, calls] of the kernels ``role(name)`` names.  The
+        device events are summed by name straight from the profiler's raw
+        results: ``key_averages()`` builds an object per event first, which
+        took minutes over the ~10^5 small kernels of an xLSTM step."""
         from torch.autograd import DeviceType
 
-        events = [e for e in self.prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        events.sort(key=lambda e: -e.self_device_time_total)
+        by_name = {}
+        for e in self.prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+                ms_calls = by_name.setdefault(e.name(), [0.0, 0])
+                ms_calls[0] += e.duration_ns() / 1e6
+                ms_calls[1] += 1
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        events = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         split = {}
-        for e in events:
-            r = role(e.key)
+        for name, (ms, calls) in events:
+            r = role(name)
             if r is not None:
                 ms_calls = split.setdefault(r, [0.0, 0])
-                ms_calls[0] += e.self_device_time_total / 1e3
-                ms_calls[1] += e.count
+                ms_calls[0] += ms
+                ms_calls[1] += calls
         step_ms = 1e3 * self.steps[self.profiled]["step_s"]
         out = dict(profiled_step_ms=step_ms, profiled_device_busy_ms=busy_ms,
                    profiled_device_idle_share=1.0 - busy_ms / step_ms,
-                   profiled_top_kernels=[
-                       [e.key[:100], e.self_device_time_total / 1e3, e.count]
-                       for e in events[:8]],
+                   profiled_top_kernels=[[name[:100], ms, calls]
+                                         for name, (ms, calls) in events[:8]],
                    profiled_ms_calls=split)
         del self.prof
         return out
@@ -2057,19 +2099,24 @@ def loss_and_grads(torch, cfg, params, batch):
             torch.autograd.grad(loss, tree_leaves(leaves)))
 
 
-def fp32_twin(torch, dev, cfg, seed, want, plain) -> dict:
+def fp32_twin(torch, dev, cfg, seed, want, plain, frontend: int = 0) -> dict:
     """An fp32 twin at full width: ``lm.train_loss`` and every grad leaf of
-    ``cfg`` at B 1 x S 1024, seeded weights and tokens, through the kernels
-    (their launches exactly ``want``) against the same with the plain
-    versions that ``plain()`` patches in, on the card: loss within
-    F32_LOSS_REL, each leaf within F32_GRAD_REL of its max |g|.  The plain
-    run takes the kernel run's experts (``replayed_experts``: in an MoE
-    model a router near-tie may tip between the two runs), and the picks
-    that its own router would have changed are logged."""
+    ``cfg`` at B 1 x S 1024, seeded weights and tokens (and ``frontend``
+    seeded stub frames or patches, where the family has a frontend),
+    through the kernels (their launches exactly ``want``) against the same
+    with the plain versions that ``plain()`` patches in, on the card: loss
+    within F32_LOSS_REL, each leaf within F32_GRAD_REL of its max |g|.  The
+    plain run takes the kernel run's experts (``replayed_experts``: in an
+    MoE model a router near-tie may tip between the two runs), and the
+    picks that its own router would have changed are logged."""
     from repro_torch.models import blocks
 
+    t0 = time.perf_counter()
     params, tokens, _ = init_model(torch, dev, cfg, 1, 1025, seed=seed)
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    if frontend:
+        batch["frontend"] = stub_frontend(torch, dev, cfg, 1, frontend,
+                                          seed + 1)
     ops = train_ops()
     before = read_counts(ops)
     with recorded_experts(blocks) as seen:
@@ -2091,25 +2138,28 @@ def fp32_twin(torch, dev, cfg, seed, want, plain) -> dict:
                              f"worst grad leaf {worst}")
     del params, grads, ref_grads
     torch.cuda.empty_cache()
-    return dict(layers=cfg.num_layers, batch=1, seq=1024, loss=loss,
+    return dict(layers=cfg.num_layers, batch=1, seq=1024,
+                frontend_rows=frontend, loss=loss,
                 plain_loss=ref_loss, loss_rel=loss_rel,
                 worst_grad_leaf_rel=worst, launches=want,
-                replayed_expert_flips=flips[0])
+                replayed_expert_flips=flips[0],
+                seconds=time.perf_counter() - t0)
 
 
-def restart_check(torch, arch: str, layers: int) -> dict:
+def restart_check(torch, arch: str, layers: int, seq: int = 1024) -> dict:
     """Restart: ``arch`` at full width cut to ``layers`` layers, B 2 x S
-    1024, 4 steps uninterrupted against 2 steps with a checkpoint at step 2
-    resumed by a fresh ``launch.train.train`` call: final losses within
-    RESTART_ATOL (bit equality logged), the checkpoints in a directory
-    under ``build/`` that is removed."""
+    ``seq``, 4 steps uninterrupted against 2 steps with a checkpoint at
+    step 2 resumed by a fresh ``launch.train.train`` call: final losses
+    within RESTART_ATOL (bit equality logged), the checkpoints in a
+    directory under ``build/`` that is removed."""
     import shutil
 
     from repro_torch.launch.train import train
 
+    t0 = time.perf_counter()
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    kw = dict(reduced=False, batch=2, seq=1024, log_every=100,
+    kw = dict(reduced=False, batch=2, seq=seq, log_every=100,
               device="cuda", ckpt_every=2)
     try:
         with cut_layers(layers), timed_writes() as writes:
@@ -2123,10 +2173,11 @@ def restart_check(torch, arch: str, layers: int) -> dict:
         raise AssertionError(f"{arch} restart: resumed losses {resumed}, "
                              f"uninterrupted {full}")
     torch.cuda.empty_cache()
-    return dict(layers=layers, batch=2, seq=1024, steps=4, checkpoint_step=2,
+    return dict(layers=layers, batch=2, seq=seq, steps=4, checkpoint_step=2,
                 uninterrupted=full, resumed=resumed, final_loss_diff=diff,
                 bit_equal=full[-1] == resumed[-1], checkpoint_writes=writes,
-                bytes_written=sum(w["bytes"] for w in writes))
+                bytes_written=sum(w["bytes"] for w in writes),
+                seconds=time.perf_counter() - t0)
 
 
 def sdpa_backward_ms(torch, q, k, v, dout, masks) -> tuple:
@@ -2192,9 +2243,13 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     """The flash backward kernel (and the lse forward) against their plain
     versions in bf16 at the training shape (B 4, S 4096, H 16, Kv 8, hd 128,
     causal: one InternLM2 layer's microbatch pair), the long shape (B 1, S
-    8192) and RecurrentGemma-2B's train microbatch (B 1, S 4096, H 10, Kv 1,
+    8192), RecurrentGemma-2B's train microbatch (B 1, S 4096, H 10, Kv 1,
     hd 256, causal with a 2048 window: the wide pair, its KV group's heads
-    split over dK/dV blocks by ``bwd_head_splits``).  The backward element by
+    split over dK/dV blocks by ``bwd_head_splits``), SeamlessM4T-medium's
+    train microbatch (B 2, 4096 x 4096, H 16, Kv 16, hd 64, non-causal: its
+    encoder self-attention and, with the frames as long as the targets, its
+    cross-attention) and LLaVA-NeXT-34B's (B 4, S 4096, H 56, Kv 8, hd
+    128, causal: G 7).  The backward element by
     element within |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products
     over magnitudes, ``flash_attention_bwd_ref(..., magnitudes=True)``); two
     calls bit-equal; lse within LSE_ATOL.  The served route (``route_bwd``:
@@ -2216,12 +2271,15 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     dt = torch.bfloat16
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dt)
     rows = {}
-    for where, B, S, H, Kv, hd, window in (
-            ("train", TRAIN_B, TRAIN_S, 16, 8, 128, 0),
-            ("long", 1, TRAIN_LONG_S, 16, 8, 128, 0),
+    for where, B, S, H, Kv, hd, causal, window in (
+            ("train", TRAIN_B, TRAIN_S, 16, 8, 128, True, 0),
+            ("long", 1, TRAIN_LONG_S, 16, 8, 128, True, 0),
             ("recurrentgemma", HYBRID_TRAIN_B // HYBRID_TRAIN_MB,
-             HYBRID_TRAIN_S, 10, 1, 256, 2048)):
-        masks = dict(causal=True, window=window, chunk_attn=0)
+             HYBRID_TRAIN_S, 10, 1, 256, True, 2048),
+            ("seamless", ENCDEC_TRAIN_B // ENCDEC_TRAIN_MB, ENCDEC_TRAIN_S,
+             16, 16, 64, False, 0),
+            ("llava", VLM_TRAIN_B, VLM_TRAIN_S, 56, 8, 128, True, 0)):
+        masks = dict(causal=causal, window=window, chunk_attn=0)
         q, dout = randn(B, S, H, hd), randn(B, S, H, hd)
         k, v = randn(B, S, Kv, hd), randn(B, S, Kv, hd)
         out, lse = flash_kernel.launch(q, k, v, "tc", with_lse=True, **masks)
@@ -2291,6 +2349,70 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     return rows["train"], rows["recurrentgemma"]
 
 
+def flash_counts(total: dict) -> tuple:
+    """A train run's flash launches in the kernels line's form: the lse
+    twin as ``flash_attention``, the backward as ``flash_attention_bwd``,
+    each by variant, and decode's lse twin."""
+    return ({"flash_attention": total["flash_attention.launches_lse"],
+             "flash_attention_bwd": total["flash_attention.launches_bwd"],
+             DECODE_LSE: total["decode_attention.launches_lse"]},
+            {"flash_attention": {
+                "lse_tc": total["flash_attention.launches_lse_tc"],
+                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
+             "flash_attention_bwd": {
+                 "tc": total["flash_attention.launches_bwd_tc"],
+                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+
+
+def flash_want(lse: int, bwd: int) -> dict:
+    """Every train counter: ``lse`` lse-twin flash forwards and ``bwd``
+    backwards, all on the tensor cores; 0 for the rest."""
+    return want_counts({
+        "flash_attention.launches_lse": lse,
+        "flash_attention.launches_lse_tc": lse,
+        "flash_attention.launches_bwd": bwd,
+        "flash_attention.launches_bwd_tc": bwd})
+
+
+def fp32_flash(lse: int, bwd: int) -> dict:
+    """An fp32 twin's launches: ``lse`` lse-twin forwards and ``bwd``
+    backwards, on the FFMA variants."""
+    return {"flash_attention.launches_lse": lse,
+            "flash_attention.launches_lse_ffma": lse,
+            "flash_attention.launches_bwd": bwd,
+            "flash_attention.launches_bwd_ffma": bwd}
+
+
+def driven_train(torch, arch: str, what: str, steps: int, B: int, S: int,
+                 M: int, want: dict, role, profiled: int = -1,
+                 timed: tuple = (1,)) -> tuple:
+    """``launch.train.train`` on ``arch`` uncut in bf16, B x S in ``M``
+    microbatches, ``steps`` AdamW steps, step ``profiled`` (default the
+    last) under the profiler, ``role`` naming the kernels whose time it
+    sums apart; the counters set to 0 just before and every step's
+    launches exactly ``want``.  Returns (the run's launch totals, its
+    step, profile and memory fields, the step ms the mean over
+    ``timed``)."""
+    from repro_torch.launch.train import train
+
+    watch = StepWatch(torch, profiled=profiled % steps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    watch.start()
+    t0 = time.perf_counter()
+    train(arch, reduced=False, steps=steps, batch=B, seq=S, microbatches=M,
+          log_every=steps, device="cuda", on_step=watch)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total = watch.check(what, want)
+    fields = dict(run_s=run_s, **watch.step_fields(timed=timed),
+                  peak_memory_gb=peak_gb, **watch.profiled_fields(role))
+    torch.cuda.empty_cache()
+    return total, fields
+
+
 def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     """InternLM2-1.8B trained at full width in bf16 through
     ``launch.train.train`` (``build_train_step`` -> ``lm.train_loss``):
@@ -2305,7 +2427,6 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     layers against the plain attention), and restart (``restart_check``, 2
     layers)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import train
 
     summary["flash_attention_bwd"], summary["flash_attention_bwd_wide"] = \
         flash_bwd_kernels(torch, dev, gen, bw, bf16)
@@ -2313,61 +2434,31 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     L, n = cfg.num_layers, TWIN_TRAIN_LAYERS
     twin = fp32_twin(
         torch, dev, cfg.with_overrides(num_layers=n, dtype="float32"), 11,
-        {"flash_attention.launches_lse": 2 * n,
-         "flash_attention.launches_lse_ffma": 2 * n,
-         "flash_attention.launches_bwd": n,
-         "flash_attention.launches_bwd_ffma": n}, plain_attention)
+        fp32_flash(2 * n, n), plain_attention)
 
-    watch = StepWatch(torch, profiled=2)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    watch.start()
-    t0 = time.perf_counter()
-    train("internlm2-1.8b", reduced=False, steps=TRAIN_STEPS, batch=TRAIN_B,
-          seq=TRAIN_S, microbatches=TRAIN_MB, log_every=TRAIN_STEPS,
-          device="cuda", on_step=watch)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    lse, bwd = 2 * TRAIN_MB * L, TRAIN_MB * L
-    want = want_counts({
-        "flash_attention.launches_lse": lse,
-        "flash_attention.launches_lse_tc": lse,
-        "flash_attention.launches_bwd": bwd,
-        "flash_attention.launches_bwd_tc": bwd})
-    total = watch.check("train", want)
-    prof = watch.profiled_fields(
-        lambda key: next((k for k in BWD_KERNELS if k in key), None))
-    steps = watch.step_fields(timed=(1, 3))
-    torch.cuda.empty_cache()
+    want = flash_want(2 * TRAIN_MB * L, TRAIN_MB * L)
+    total, fields = driven_train(
+        torch, "internlm2-1.8b", "train", TRAIN_STEPS, TRAIN_B, TRAIN_S,
+        TRAIN_MB, want,
+        lambda key: next((k for k in BWD_KERNELS if k in key), None),
+        profiled=2, timed=(1, 3))
     restart = restart_check(torch, "internlm2-1.8b", TWIN_TRAIN_LAYERS)
 
     tokens = TRAIN_B * TRAIN_S
-    summary["train_model"] = dict(losses=steps["losses"],
-                                  step_ms_by_step=steps["step_ms_by_step"])
+    summary["train_model"] = dict(losses=fields["losses"],
+                                  step_ms_by_step=fields["step_ms_by_step"])
     log("train_model", arch=cfg.name, dtype=cfg.dtype, layers=L,
         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim, vocab=cfg.vocab_size, params=cfg.param_count(),
         batch=TRAIN_B, seq=TRAIN_S, microbatches=TRAIN_MB, steps=TRAIN_STEPS,
-        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
-        run_s=run_s, **steps,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)", **fields,
         roofline=roofline_fields(cfg, TRAIN_B, TRAIN_S, "train",
-                                 steps["step_ms"]),
-        tokens_per_s=tokens / (steps["step_ms"] / 1e3),
-        peak_memory_gb=peak_gb,
+                                 fields["step_ms"]),
+        tokens_per_s=tokens / (fields["step_ms"] / 1e3),
         launches_per_step={k: v for k, v in want.items() if v},
-        launches={k: v for k, v in total.items() if v}, **prof,
+        launches={k: v for k, v in total.items() if v},
         fp32_twin=twin, restart=restart)
-    return ({"flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"],
-             DECODE_LSE: total["decode_attention.launches_lse"]},
-            {"flash_attention": {
-                "lse_tc": total["flash_attention.launches_lse_tc"],
-                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
-             "flash_attention_bwd": {
-                 "tc": total["flash_attention.launches_bwd_tc"],
-                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+    return flash_counts(total)
 
 
 TP_STEPS = 3  # the train_tp run: steps 0-1 timed against train_model
@@ -2896,7 +2987,6 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     attention) and restart (``restart_check``, HYBRID_TWIN_LAYERS
     layers)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import train
 
     summary["rglru_scan_bwd"] = scan_bwd_kernels(torch, dev, gen, bw, fp32)
     cfg = get_config("recurrentgemma-2b")
@@ -2926,18 +3016,6 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
     mb = HYBRID_TRAIN_B // M
     fwd, bwd = (scan_route(mb, HYBRID_TRAIN_S, R, torch.float32, b)
                 for b in (0, 1))
-    watch = StepWatch(torch, profiled=MOE_HYBRID_STEPS - 1)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    watch.start()
-    t0 = time.perf_counter()
-    train("recurrentgemma-2b", reduced=False, steps=MOE_HYBRID_STEPS,
-          batch=HYBRID_TRAIN_B, seq=HYBRID_TRAIN_S, microbatches=M,
-          log_every=MOE_HYBRID_STEPS, device="cuda", on_step=watch)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_fwd = (2 * unit_rec + n_rec - unit_rec) * M
     want = want_counts({
         "rglru_scan_op.launches": n_fwd,
@@ -2948,14 +3026,13 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         "flash_attention.launches_lse_tc": 2 * n_attn * M,
         "flash_attention.launches_bwd": n_attn * M,
         "flash_attention.launches_bwd_tc": n_attn * M})
-    total = watch.check("train_hybrid", want)
-    prof = watch.profiled_fields(
+    total, fields = driven_train(
+        torch, "recurrentgemma-2b", "train_hybrid", MOE_HYBRID_STEPS,
+        HYBRID_TRAIN_B, HYBRID_TRAIN_S, M, want,
         lambda key: next((k for k in BWD_WIDE_KERNELS + (
             "rglru_scan_bwd_kernel", "rglru_scan_kernel") if k in key), None))
-    flash_bwd_ms = sum(prof["profiled_ms_calls"].get(k, [0.0])[0]
+    flash_bwd_ms = sum(fields["profiled_ms_calls"].get(k, [0.0])[0]
                        for k in BWD_WIDE_KERNELS)
-    steps = watch.step_fields(timed=(1,))
-    torch.cuda.empty_cache()
     restart = restart_check(torch, "recurrentgemma-2b", HYBRID_TWIN_LAYERS)
 
     tokens = HYBRID_TRAIN_B * HYBRID_TRAIN_S
@@ -2966,18 +3043,17 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         batch=HYBRID_TRAIN_B, seq=HYBRID_TRAIN_S, microbatches=M,
         steps=MOE_HYBRID_STEPS,
         optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
-        run_s=run_s, **steps, tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        **fields, tokens_per_s=tokens / (fields["step_ms"] / 1e3),
         roofline=roofline_fields(cfg, HYBRID_TRAIN_B, HYBRID_TRAIN_S, "train",
-                                 steps["step_ms"]),
-        peak_memory_gb=peak_gb,
+                                 fields["step_ms"]),
         launches_per_step={k: v for k, v in want.items() if v},
-        launches={k: v for k, v in total.items() if v}, **prof,
+        launches={k: v for k, v in total.items() if v},
         flash_backward_ms=flash_bwd_ms,
         flash_backward_share_of_busy=(
-            flash_bwd_ms / prof["profiled_device_busy_ms"]
-            if prof["profiled_device_busy_ms"] else None),
+            flash_bwd_ms / fields["profiled_device_busy_ms"]
+            if fields["profiled_device_busy_ms"] else None),
         flash_backward_share_of_step=(
-            flash_bwd_ms / prof["profiled_step_ms"]),
+            flash_bwd_ms / fields["profiled_step_ms"]),
         fp32_twin=twin, restart=restart)
     return ({"rglru_scan": total["rglru_scan_op.launches"],
              "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
@@ -2994,6 +3070,243 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
              "flash_attention_bwd_wide": {
                  "tc": total["flash_attention.launches_bwd_tc"],
                  "ffma": total["flash_attention.launches_bwd_ffma"]}})
+
+
+def train_encdec_phase(torch, dev) -> tuple:
+    """SeamlessM4T-medium (12 bidirectional encoder layers over stub audio
+    frames, 12 decoder layers each with a causal self and a non-causal
+    cross attention; d 1024, 16 / 16 heads of 64, vocab 256 206) trained
+    uncut in bf16 through ``launch.train.train``: B 4 x S 4096 (the
+    driver's 4096 seeded stub frames, ``stub_frontend``, and 4096 target
+    tokens) in 2 microbatches,
+    MOE_HYBRID_STEPS AdamW steps, the last one profiled.  The encoder runs
+    outside the remat units, once a microbatch; each decoder unit twice.
+    The counters are set to 0 just before the run and read after each
+    step: per step (12 + 2 x 2 x 12) M lse-twin flash forwards and (12 + 2
+    x 12) M backwards, all on the tensor cores, and no other launch.  Every
+    loss and grad norm finite.  Beside it: an fp32 twin (2 encoder and 2
+    decoder layers, 1024 seeded frames, against the plain attention) and
+    restart (``restart_check``, 2 decoder layers)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("seamless-m4t-medium")
+    L, Le, n = cfg.num_layers, cfg.num_encoder_layers, ENCDEC_TWIN_LAYERS
+    twin = fp32_twin(
+        torch, dev, cfg.with_overrides(num_layers=n, num_encoder_layers=n,
+                                       dtype="float32"),
+        14, fp32_flash(n + 2 * 2 * n, n + 2 * n), plain_attention,
+        frontend=1024)
+    M = ENCDEC_TRAIN_MB
+    lse, bwd = (Le + 2 * 2 * L) * M, (Le + 2 * L) * M
+    want = flash_want(lse, bwd)
+    total, fields = driven_train(
+        torch, "seamless-m4t-medium", "train_encdec", MOE_HYBRID_STEPS,
+        ENCDEC_TRAIN_B, ENCDEC_TRAIN_S, M, want,
+        lambda key: next((k for k in BWD_KERNELS if k in key), None))
+    restart = restart_check(torch, "seamless-m4t-medium", n)
+    tokens = ENCDEC_TRAIN_B * ENCDEC_TRAIN_S
+    log("train_encdec", arch=cfg.name, dtype=cfg.dtype, layers=L,
+        encoder_layers=Le, d_model=cfg.d_model, heads=cfg.num_heads,
+        kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        vocab=cfg.vocab_size, params=cfg.param_count(),
+        batch=ENCDEC_TRAIN_B, seq=ENCDEC_TRAIN_S,
+        source_frames=ENCDEC_TRAIN_S, microbatches=M,
+        steps=MOE_HYBRID_STEPS,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
+        frontend="the driver's stub frames, drawn from each step's seed "
+                 "(launch/train.py: stub_frontend); the JAX driver's zero "
+                 "frames overflow the 12 encoder layers' gradient to NaN",
+        **fields, tokens_per_s=tokens / (fields["step_ms"] / 1e3),
+        roofline=roofline_fields(cfg, ENCDEC_TRAIN_B, ENCDEC_TRAIN_S,
+                                 "train", fields["step_ms"]),
+        roofline_note="the cost model sizes the encoder by S, here the 4096 "
+                      "frames the driver makes: the train roofline is not "
+                      "understated as the served prefill's is",
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v},
+        fp32_twin=twin, restart=restart)
+    return flash_counts(total)
+
+
+def train_vlm_phase(torch, dev) -> tuple:
+    """LLaVA-NeXT-34B (d 7168, 56 / 8 heads of 128, d_ff 20480, vocab
+    64 000; 576 patch slots) trained at its published widths cut to
+    VLM_TRAIN_LAYERS of 60 layers, bf16, seeded random weights, through
+    ``launch.steps.build_train_step`` with the uncut model's optimizer and
+    accumulation depth (``default_optimizer`` and ``default_microbatches``
+    of the published config: Adafactor on its 34.4 B parameters, 1
+    microbatch; ``launch.train.train`` would pick AdamW from the cut
+    config).  B 4 x S 4096 from the token pipeline, each step's first 576
+    slots seeded stub patches (B, 576, 7168) (the JAX driver feeds zeros:
+    then ``frontend_proj``'s gradient is 0, and at 16 or more layers the
+    gradient overflows), MOE_HYBRID_STEPS steps,
+    the last one profiled.  The counters are set to 0 just before the run
+    and read after each step: per step L M x 2 (remat) lse-twin flash
+    forwards and L M backwards at G 7, all on the tensor cores, and no
+    other launch.  Every loss and grad norm finite.  Beside it: an fp32
+    twin (VLM_TRAIN_TWIN_LAYERS layer, 576 seeded patches, against the
+    plain attention) and restart (``restart_check``: ``launch.train.train``
+    on the 1-layer cut, which picks AdamW)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import (build_train_step,
+                                          default_microbatches,
+                                          default_optimizer)
+    from repro_torch.models.config import ShapeSpec
+
+    published = get_config("llava-next-34b")
+    P, n = published.frontend_len, VLM_TRAIN_TWIN_LAYERS
+    twin = fp32_twin(
+        torch, dev, published.with_overrides(num_layers=n, dtype="float32"),
+        15, fp32_flash(2 * n, n), plain_attention, frontend=P)
+
+    cfg = published.with_overrides(num_layers=VLM_TRAIN_LAYERS)
+    L = cfg.num_layers
+    shape = ShapeSpec("custom", VLM_TRAIN_S, VLM_TRAIN_B, "train")
+    M = default_microbatches(published, shape)
+    opt = default_optimizer(published)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _, init_s = init_model(torch, dev, cfg, 1, 1, seed=16)
+    torch.cuda.empty_cache()  # the init's fp32 draws
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=VLM_TRAIN_S,
+                         global_batch=VLM_TRAIN_B)
+    batches = [dict({k: torch.from_numpy(v).long().to(dev)
+                     for k, v in pipe.batch_at(i).items()},
+                    frontend=stub_frontend(torch, dev, cfg, VLM_TRAIN_B, P,
+                                           seed=40 + i))
+               for i in range(MOE_HYBRID_STEPS)]
+    pipe.close()
+
+    step_fn = build_train_step(cfg, optimizer=opt, microbatches=M)
+    opt_state = opt.init(params)
+    watch = StepWatch(torch, profiled=MOE_HYBRID_STEPS - 1)
+    torch.cuda.synchronize()
+    watch.start()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        ts = time.perf_counter()
+        params, opt_state, _, metrics = step_fn(params, opt_state, i, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        watch(i, dict(metrics, step_s=time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = flash_want(2 * L * M, L * M)
+    total = watch.check("train_vlm", want)
+    prof = watch.profiled_fields(
+        lambda key: next((k for k in BWD_KERNELS if k in key), None))
+    steps = watch.step_fields(timed=(1,))
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+    restart_opt = default_optimizer(published.with_overrides(num_layers=n))
+    restart = dict(restart_check(torch, "llava-next-34b", n),
+                   optimizer=restart_opt.name)
+
+    tokens = VLM_TRAIN_B * VLM_TRAIN_S
+    log("train_vlm", arch=cfg.name, dtype=cfg.dtype, layers=L,
+        layers_published=published.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, vocab=cfg.vocab_size,
+        params=cfg.param_count(), params_published=published.param_count(),
+        batch=VLM_TRAIN_B, seq=VLM_TRAIN_S, patch_slots=P, microbatches=M,
+        steps=MOE_HYBRID_STEPS, optimizer=(
+            f"{opt.name} (the published config's), warmup_cosine(3e-4, 2000, "
+            "100000)"),
+        frontend="seeded stub patches (the JAX driver feeds zeros)",
+        init_s=init_s, run_s=run_s, **steps,
+        roofline=roofline_fields(cfg, VLM_TRAIN_B, VLM_TRAIN_S, "train",
+                                 steps["step_ms"]),
+        tokens_per_s=tokens / (steps["step_ms"] / 1e3),
+        peak_memory_gb=peak_gb,
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v}, **prof,
+        fp32_twin=twin, restart=restart)
+    return flash_counts(total)
+
+
+def train_xlstm_phase(torch, dev) -> tuple:
+    """xLSTM-125M ((5 mLSTM + 1 sLSTM) x 2, d 768, 4 heads) trained whole in
+    bf16 through ``launch.train.train``: B XLSTM_TRAIN_B x S XLSTM_TRAIN_S
+    (S cut from 4096: the sLSTM loop is host time per position), 1
+    microbatch, MOE_HYBRID_STEPS AdamW steps, the last one profiled.  The
+    family has no kernel (the JAX package has no Pallas kernel for its
+    blocks), so every train counter must stay exactly 0 each step; every
+    loss and grad norm finite.  With no kernel to hold against a plain
+    version, the card is held against the port on the CPU (which tier-1
+    holds against the JAX package): the whole model in fp32 at B 1 x S
+    XLSTM_TWIN_S, the same seeded weights and tokens, loss within
+    F32_LOSS_REL and each grad leaf within XLSTM_GRAD_REL of its max |g|
+    (logged beside the worst leaf against the whole gradient's largest
+    |g|).  Restart: the whole model at S XLSTM_RESTART_S
+    (``restart_check``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import tree_map
+
+    dev = resolve_device(dev)  # fp32 products without TF32, as the driver's
+    cfg = get_config("xlstm-125m")
+    twin_cfg = cfg.with_overrides(dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(17)
+    params = lm.init_params(gen, twin_cfg)  # on the host
+    tokens = torch.randint(0, cfg.vocab_size, (1, XLSTM_TWIN_S + 1),
+                           generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(torch, twin_cfg, params, batch)
+    cpu_s = time.perf_counter() - t0
+    ops = train_ops()
+    before = read_counts(ops)
+    loss, grads = loss_and_grads(
+        torch, twin_cfg, tree_map(lambda t: t.to(dev), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    after = read_counts(ops)
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved:
+        raise AssertionError(f"xlstm fp32 twin launched {moved}")
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    leaf_rel = lambda g, r: float((g.cpu() - r).abs().max()
+                                  / r.abs().max().clamp_min(1e-30))
+    worst = max(map(leaf_rel, grads, cpu_grads))
+    if not (loss_rel <= F32_LOSS_REL and worst <= XLSTM_GRAD_REL):
+        raise AssertionError(f"xlstm card against the CPU: loss rel "
+                             f"{loss_rel}, worst grad leaf {worst}")
+    scale = max(float(r.abs().max()) for r in cpu_grads)
+    twin = dict(layers=cfg.num_layers, batch=1, seq=XLSTM_TWIN_S,
+                loss=loss, cpu_loss=cpu_loss, loss_rel=loss_rel,
+                worst_grad_leaf_rel=worst, grad_leaf_limit=XLSTM_GRAD_REL,
+                worst_grad_rel_to_largest=max(
+                    float((g.cpu() - r).abs().max())
+                    for g, r in zip(grads, cpu_grads)) / scale,
+                cpu_s=cpu_s)
+    del params, grads, cpu_grads
+    torch.cuda.empty_cache()
+
+    want = want_counts({})
+    total, fields = driven_train(
+        torch, "xlstm-125m", "train_xlstm", MOE_HYBRID_STEPS, XLSTM_TRAIN_B,
+        XLSTM_TRAIN_S, 1, want, lambda key: None)
+    restart = restart_check(torch, "xlstm-125m", cfg.num_layers,
+                            seq=XLSTM_RESTART_S)
+    tokens = XLSTM_TRAIN_B * XLSTM_TRAIN_S
+    log("train_xlstm", arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+        block_pattern=list(cfg.block_pattern), d_model=cfg.d_model,
+        heads=cfg.num_heads, vocab=cfg.vocab_size, params=cfg.param_count(),
+        batch=XLSTM_TRAIN_B, seq=XLSTM_TRAIN_S, microbatches=1,
+        cut="S 4096 -> 1024 at the same 16 384 tokens a step: the sLSTM "
+            "loop is host time per position (4 x 4096 took 86 s a step "
+            "beside an H100)",
+        steps=MOE_HYBRID_STEPS,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
+        **fields, tokens_per_s=tokens / (fields["step_ms"] / 1e3),
+        roofline=roofline_fields(cfg, XLSTM_TRAIN_B, XLSTM_TRAIN_S, "train",
+                                 fields["step_ms"]),
+        launches_per_step={}, card_against_cpu=twin, restart=restart)
+    return flash_counts(total)
 
 
 def decode_device_time(torch, decode_step, params, token, cache, first_len,
@@ -4014,7 +4327,7 @@ def main(argv=None) -> int:
     for route, count in by_route.items():
         variants["retrieval_topk"][route] += count
 
-    # -- 8-18. the served models, then training: a kernel on several paths
+    # -- 8-21. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
     # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
     # largest model last, once every earlier phase's tensors are freed
@@ -4026,17 +4339,18 @@ def main(argv=None) -> int:
                                                          fp32, summary)
     for phase in (model_phase, dense_phase, moe_phase, kimi_phase,
                   hybrid_phase, xlstm_phase, encdec_phase, train, train_tp,
-                  train_moe, train_hybrid, vlm_phase):
+                  train_moe, train_hybrid, train_encdec_phase,
+                  train_vlm_phase, train_xlstm_phase, vlm_phase):
         add_counts(launches, variants, *phase(torch, dev))
 
     if launches[DECODE_LSE]:
         raise AssertionError(f"decode's lse twin launched "
                              f"{launches[DECODE_LSE]} times on the main path")
 
-    # -- 19. split -------------------------------------------------------
+    # -- 22. split -------------------------------------------------------
     split_phase(torch)
 
-    # -- 20. dryrun ------------------------------------------------------
+    # -- 23. dryrun ------------------------------------------------------
     dryrun_phase()
     log("done", total_s=time.perf_counter() - t_start)
 

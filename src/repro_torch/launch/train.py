@@ -2,6 +2,9 @@
 
 The JAX package's ``launch/train.py``: any arch, a deterministic token
 stream, periodic async checkpoints, and resumption from the latest one.
+Where the JAX driver feeds an audio or vision model zero frames or
+patches, this one draws them from a seed per step (``stub_frontend``):
+zeros overflow the gradient of a deep encoder or VLM to NaN.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --steps 20 --batch 8 --seq 128 --device cpu          # reduced, CPU
@@ -40,16 +43,38 @@ from repro_torch.models import lm
 from repro_torch.models.config import ShapeSpec
 
 
+FRONTEND_SEED = 1 << 20  # stub frontends of step i draw from seed + i
+
+
+def stub_frontend(cfg, batch: int, seq: int, step: int,
+                  device) -> torch.Tensor:
+    """The stub modality input of step ``step``: ``seq`` audio frames or
+    ``cfg.frontend_len`` vision patches a row, (batch, n, d_model) standard
+    normal draws seeded by the step (a resumed run draws the same), in the
+    activation dtype.  The JAX driver feeds zeros; at a zero input every
+    ``rms_norm`` passes its gradient on times rsqrt(eps) = 1000, so through
+    SeamlessM4T-medium's 12 encoder layers, or LLaVA-NeXT-34B's 60 decoder
+    layers over zero patch rows, the gradient overflows to NaN in both
+    packages (at the reduced widths from 8 encoder or 16 decoder
+    layers)."""
+    n = seq if cfg.frontend == "audio" else cfg.frontend_len
+    gen = torch.Generator(device=device)
+    gen.manual_seed(FRONTEND_SEED + step)
+    return torch.randn((batch, n, cfg.d_model), generator=gen,
+                       device=device).to(cfg.activation_dtype)
+
+
 def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
           seq: int = 128, ckpt_dir: str = "", ckpt_every: int = 10,
           tp: int = 1, mesh=None, log_every: int = 5, microbatches: int = 1,
           device="cuda",
           on_step: Optional[Callable[[int, dict], None]] = None) -> list:
     """Train ``arch`` for ``steps`` steps from random weights of seed 0 (or
-    from the latest checkpoint under ``ckpt_dir``); the loss of every step
-    run.  ``on_step(i, metrics)``, if given, receives each step's metrics as
-    floats, with ``step_s``, the step's wall time up to its loss on the
-    host.
+    from the latest checkpoint under ``ckpt_dir``) on the token pipeline's
+    batches and, for a model with a frontend, ``stub_frontend``'s; the
+    loss of every step run.  ``on_step(i, metrics)``, if given, receives
+    each step's metrics as floats, with ``step_s``, the step's wall time
+    up to its loss on the host.
 
     Sharding: on ``mesh`` when one is given; else, when ``tp != 1`` or the
     initialized world has several ranks, on ``make_host_mesh(tp)`` over
@@ -96,14 +121,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 20, batch: int = 8,
         ts = time.perf_counter()
         host = {k: torch.from_numpy(v).long().to(dev)
                 for k, v in pipe.batch_at(i).items()}
-        if cfg.frontend == "vision":
-            host["frontend"] = torch.zeros(
-                (batch, cfg.frontend_len, cfg.d_model),
-                dtype=cfg.activation_dtype, device=dev)
-        elif cfg.frontend == "audio":
-            host["frontend"] = torch.zeros((batch, seq, cfg.d_model),
-                                           dtype=cfg.activation_dtype,
-                                           device=dev)
+        if cfg.frontend:
+            host["frontend"] = stub_frontend(cfg, batch, seq, i, dev)
         params, opt_state, step, metrics = step_fn(params, opt_state, step,
                                                    host)
         losses.append(float(metrics["loss"]))

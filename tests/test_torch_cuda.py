@@ -1436,17 +1436,21 @@ def test_flash_backward_head_split_is_deterministic():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sq,Skv,masks", [
-    (200, 200, dict(causal=True, window=48, chunk_attn=0)),
-    (200, 200, dict(causal=True, window=0, chunk_attn=64)),
-    (96, 170, dict(causal=False, window=0, chunk_attn=0)),
-    (130, 70, dict(causal=True, window=0, chunk_attn=0)),
-    (40, 300, dict(causal=True, window=0, chunk_attn=0)),
+@pytest.mark.parametrize("Sq,Skv,masks,H,Kv,hd", [
+    (200, 200, dict(causal=True, window=48, chunk_attn=0), 4, 2, 128),
+    (200, 200, dict(causal=True, window=0, chunk_attn=64), 4, 2, 128),
+    (96, 170, dict(causal=False, window=0, chunk_attn=0), 4, 2, 128),
+    (130, 70, dict(causal=True, window=0, chunk_attn=0), 4, 2, 128),
+    (40, 300, dict(causal=True, window=0, chunk_attn=0), 4, 2, 128),
+    # SeamlessM4T's encoder and cross attention: non-causal, hd 64, G 1
+    (300, 300, dict(causal=False, window=0, chunk_attn=0), 4, 4, 64),
+    (128, 600, dict(causal=False, window=0, chunk_attn=0), 4, 4, 64),
 ])
-def test_flash_backward_kernel_masks(dtype, Sq, Skv, masks):
+def test_flash_backward_kernel_masks(dtype, Sq, Skv, masks, H, Kv, hd):
     """Window, chunk, non-causal and Sq != Skv (both ways) at hd 128, G 2;
-    hd 16 (one accumulator column per thread) non-causal."""
-    _flash_bwd_case(dtype, 2, Sq, Skv, 4, 2, 128, masks, seed=Sq + Skv)
+    non-causal at hd 64, G 1 (SeamlessM4T's shape), Sq == Skv ragged and
+    Sq < Skv; hd 16 (one accumulator column per thread) with each mask."""
+    _flash_bwd_case(dtype, 2, Sq, Skv, H, Kv, hd, masks, seed=Sq + Skv)
     _flash_bwd_case(dtype, 1, Sq, Skv, 4, 2, 16, masks, seed=Sq)
 
 
@@ -1625,6 +1629,86 @@ def test_moe_and_hybrid_archs_train_on_the_card(arch, dtype):
             assert float((g.cpu() - r).abs().max()) <= \
                 1e-4 * float(r.abs().max())
     opt = adamw(constant_schedule(1e-3))
+    step_fn = build_train_step(cfg, optimizer=opt, microbatches=2)
+    p, state = on_card, opt.init(on_card)
+    for i in range(2):
+        p, state, _, m = step_fn(p, state, i, card_batch)
+        assert np.isfinite(float(m["loss"])) and \
+            np.isfinite(float(m["grad_norm"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "llava-next-34b",
+                                  "xlstm-125m"])
+def test_xlstm_encdec_and_vlm_archs_train_on_the_card(arch, dtype):
+    """Reduced SeamlessM4T (a bidirectional encoder outside the remat
+    units, a causal self and a non-causal cross attention in each decoder
+    unit), LLaVA (patch embeddings in the first ``frontend_len`` slots) and
+    xLSTM (mLSTM chunks and the sLSTM loop: no kernel), stacked units under
+    remat, with a seeded float frontend: the gradient of ``lm.train_loss``
+    on the card reaches every leaf, ``frontend_proj``'s included, and every
+    unit of a stacked leaf (all finite, none all zero), with exact flash
+    launches by variant (the lse twin once per encoder layer and twice per
+    decoder attention under remat, the backward once each; none for
+    xLSTM); fp32 loss and grads against the same on the CPU (plain
+    versions): loss rel 1e-5, each leaf within 1e-4 of its max |g|; then
+    two ``build_train_step`` steps in 2 microbatches on the published
+    model's optimizer run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import _grads, build_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import constant_schedule, pick_optimizer
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced().with_overrides(
+        scan_layers=True, remat=True, dtype=dtype)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    rng = np.random.default_rng(1)
+    B, S = 4, 64
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
+             for k in ("tokens", "labels")}
+    if cfg.frontend:  # S audio frames, or frontend_len patches
+        n = S if cfg.frontend == "audio" else cfg.frontend_len
+        batch["frontend"] = torch.as_tensor(
+            rng.standard_normal((B, n, cfg.d_model)),
+            dtype=cfg.activation_dtype)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    counts = lambda: tuple(getattr(flash_attention, f"launches_{c}")
+                           for c in ("lse_tc", "lse_ffma", "bwd_tc",
+                                     "bwd_ffma"))
+    before = counts()
+    loss, _, grads = _grads(cfg, on_card, card_batch)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    enc = cfg.num_encoder_layers
+    dec = cfg.layer_types.count("attn") * (2 if cfg.cross_attention else 1)
+    lse, bwd = enc + 2 * dec, enc + dec
+    want = (lse, 0, bwd, 0) if dtype == "bfloat16" else (0, lse, 0, bwd)
+    assert moved == want
+    if cfg.frontend:
+        assert bool(grads["frontend_proj"].any())
+    stacks = [grads["stack"]] + ([grads["encoder"]["stack"]] if enc else [])
+    for stack in stacks:
+        for path_leaf in tree_leaves(stack["units"]):
+            for unit in path_leaf:  # every unit of a stacked leaf
+                assert bool(torch.isfinite(unit).all()) and bool(unit.any())
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and bool(g.any())
+    if dtype == "float32":
+        ref_loss, _, ref_grads = _grads(cfg, params, batch)
+        assert abs(float(loss) - float(ref_loss)) <= \
+            1e-5 * abs(float(ref_loss))
+        for g, r in zip(tree_leaves(grads), tree_leaves(ref_grads)):
+            assert float((g.cpu() - r).abs().max()) <= \
+                1e-4 * float(r.abs().max())
+    opt = pick_optimizer(get_config(arch).param_count(),
+                         constant_schedule(1e-3))
     step_fn = build_train_step(cfg, optimizer=opt, microbatches=2)
     p, state = on_card, opt.init(on_card)
     for i in range(2):
