@@ -5,8 +5,9 @@
 
 Builds every kernel from ``src/repro_torch/csrc``, drives the port's main
 paths (online path selection, the serving runtime around it, ten served
-language models, and training InternLM2-1.8B, Llama-4-Scout,
-RecurrentGemma-2B, SeamlessM4T-medium, LLaVA-NeXT-34B and xLSTM-125M)
+language models, and training all ten: InternLM2-1.8B, Llama-4-Scout,
+RecurrentGemma-2B, SeamlessM4T-medium, LLaVA-NeXT-34B, xLSTM-125M,
+Gemma-7B, Granite-8B, Llama-3-8B and Kimi-K2)
 through the entry points a user calls, and holds every
 kernel against its plain torch version on the card.  Phases, one JSON
 line each:
@@ -155,7 +156,8 @@ line each:
    ``reshard_restore`` of a 2-layer step-2 checkpoint bit-equal.
 16. ``train_moe``: Llama-4-Scout at full width cut to 2 of 48 layers,
    trained through ``launch.steps.build_train_step`` with the uncut model's
-   Adafactor and 4 microbatches (``train_moe_phase``): B 4 x S 4096, 3
+   Adafactor and 4 microbatches (``train_moe_phase``, ``train_moe_model``):
+   B 4 x S 4096, 3
    steps; exact per-step moe_gmm forward and backward and flash launches,
    all tensor-core; moe_gmm's backward against its plain version
    (``gmm_bwd_kernels``), an fp32 1-layer twin's loss and grads against the
@@ -184,12 +186,28 @@ line each:
    (``train_xlstm_phase``): B 16 x S 1024 (S cut from 4096: the sLSTM loop
    runs on the host), 3 AdamW steps, every train counter 0; the card
    held against the port on the CPU in fp32, restart.
-21. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
+21. ``train_gemma``, ``train_granite``, ``train_llama3``: the catalog's
+   dense 7-8B models at their published widths cut to 8 layers, one after
+   the other, through ``launch.train.train`` (``train_dense_phase``): B 4
+   x S 4096 in 2 microbatches, 3 AdamW steps; exactly 32 lse-twin flash
+   forwards and 16 backwards a step, all tensor-core (Gemma-7B's hd 256 on
+   the wide pair with one head run a block, the others' G 4 on the wgmma
+   pair, as the profiled step's kernels show); an fp32 2-layer twin each;
+   restart on Granite-8B's 1-layer cut.  The backward kernel's rows
+   (``flash_bwd_kernels``) include the three published microbatch shapes.
+22. ``train_kimi``: Kimi-K2 at its published widths with 1 of 61 layers
+   and 64 of its 384 experts, through ``train_moe_model`` as Scout's
+   (``train_kimi_phase``): Adafactor, 4 microbatches of 1 x 4096 (C 640), 3
+   steps; 24 moe_gmm forwards, 12 backwards, 8 lse and 4 flash backwards
+   at hd 112 a step, all tensor-core; an fp32 1-layer twin at 16 experts,
+   top-8, two loss-and-grad passes bit-equal.  moe_gmm's backward rows
+   (``gmm_bwd_kernels``) include its published E 384 shapes (C 112).
+23. ``vlm_model``: LLaVA-NeXT-34B at full width and depth (``vlm_phase``):
    576 stub patch embeddings in the first prompt slots, exact flash /
    decode launch counts, prefill -> decode.
-22. ``split``: the split-inference draft's ``DraftState.attend`` through the
+24. ``split``: the split-inference draft's ``DraftState.attend`` through the
    decode_attention kernel against its numpy readout (atol 1e-6).
-23. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
+25. ``dryrun``: ``python -m repro_torch.launch.dryrun --mesh single`` on
    InternLM2-1.8B and RecurrentGemma-2B ``decode_32k`` (their caches sharded
    along the slots over 16 model ranks) and InternLM2-1.8B ``train_4k``, on
    the host's CPU in processes of their own (``dryrun_phase``): each must
@@ -1826,12 +1844,27 @@ RESTART_ATOL = 1e-4  # tests/test_fault_tolerance.py::test_train_restart_determi
 # bf16 weights and grads and the fp32 grad accumulator (52 GB), beside one
 # 1 x 4096 microbatch under per-unit remat
 SCOUT_TRAIN_LAYERS = 2
-SCOUT_TRAIN_B, SCOUT_TRAIN_S = 4, 4096  # in the uncut model's 4 microbatches
+MOE_TRAIN_B, MOE_TRAIN_S = 4, 4096  # in the uncut models' 4 microbatches
 MOE_TWIN_LAYERS = 1  # Scout's fp32 twin at full width (4.27 B params)
 HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_MB = 2, 4096, 2  # past the window
 HYBRID_TWIN_LAYERS = 3  # one (rglru, rglru, attn) pattern: twin and restart
 MOE_HYBRID_STEPS = 3  # optimizer steps of the Scout and RecurrentGemma runs
-# (and of the SeamlessM4T, LLaVA and xLSTM runs)
+# (and of the SeamlessM4T, LLaVA, xLSTM, dense 7-8B and Kimi-K2 runs)
+# the catalog's dense 7-8B models trained at their published widths cut to
+# 8 layers (of 28, 36, 32): bf16 weights and grads, the fp32 accumulator and
+# AdamW's two moments are 16 bytes a param, so Gemma-7B's 3.00 B params take
+# ~48 GB (uncut, 8.5 B: 137 GB); arch, phase, seed
+TRAIN_DENSE_MODELS = (("gemma-7b", "train_gemma", 20),
+                      ("granite-8b", "train_granite", 21),
+                      ("llama3-8b", "train_llama3", 22))
+DENSE_TRAIN_LAYERS = 8
+DENSE_TRAIN_B, DENSE_TRAIN_S, DENSE_TRAIN_MB = 4, 4096, 2
+DENSE_RESTART = ("granite-8b", 1)  # the one dense restart: arch, layers
+# Kimi-K2 trained at its published widths with 1 of 61 layers and 64 of its
+# 384 experts: one layer at 384 is 19.4 B params (78 GB of bf16 weights and
+# grads alone); at 64, 5.33 B (~43 GB with the fp32 accumulator)
+KIMI_TRAIN_LAYERS, KIMI_TRAIN_EXPERTS = 1, 64
+KIMI_TWIN_EXPERTS = 16  # its fp32 1-layer twin, still top-8 (3.2 B params)
 # SeamlessM4T-medium trained uncut: 4096 stub frames and 4096 target tokens
 ENCDEC_TRAIN_B, ENCDEC_TRAIN_S, ENCDEC_TRAIN_MB = 4, 4096, 2
 ENCDEC_TWIN_LAYERS = 2  # fp32 twin: 2 encoder + 2 decoder layers; restart: 2
@@ -2248,8 +2281,14 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     split over dK/dV blocks by ``bwd_head_splits``), SeamlessM4T-medium's
     train microbatch (B 2, 4096 x 4096, H 16, Kv 16, hd 64, non-causal: its
     encoder self-attention and, with the frames as long as the targets, its
-    cross-attention) and LLaVA-NeXT-34B's (B 4, S 4096, H 56, Kv 8, hd
-    128, causal: G 7).  The backward element by
+    cross-attention), LLaVA-NeXT-34B's (B 4, S 4096, H 56, Kv 8, hd
+    128, causal: G 7), and the published models' microbatches that the cut
+    train runs reach with fewer heads or layers: Gemma-7B's (B 2, S 4096,
+    H 16, Kv 16, hd 256, causal, no window: the wide pair at G 1, one head
+    run a block), Granite-8B's (B 2, S 4096, H 32, Kv 8, hd 128, causal: G
+    4; Llama-3-8B's is the same) and Kimi-K2's (B 1, S 4096, H 64, Kv 8, hd
+    112: the wgmma pair's second 64-column box 48 columns live).  The
+    backward element by
     element within |g - ref| <= 2^-7 |ref| + 2^-8 M (M: the same products
     over magnitudes, ``flash_attention_bwd_ref(..., magnitudes=True)``); two
     calls bit-equal; lse within LSE_ATOL.  The served route (``route_bwd``:
@@ -2278,7 +2317,12 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
              HYBRID_TRAIN_S, 10, 1, 256, True, 2048),
             ("seamless", ENCDEC_TRAIN_B // ENCDEC_TRAIN_MB, ENCDEC_TRAIN_S,
              16, 16, 64, False, 0),
-            ("llava", VLM_TRAIN_B, VLM_TRAIN_S, 56, 8, 128, True, 0)):
+            ("llava", VLM_TRAIN_B, VLM_TRAIN_S, 56, 8, 128, True, 0),
+            ("gemma", DENSE_TRAIN_B // DENSE_TRAIN_MB, DENSE_TRAIN_S, 16, 16,
+             256, True, 0),
+            ("granite", DENSE_TRAIN_B // DENSE_TRAIN_MB, DENSE_TRAIN_S, 32, 8,
+             128, True, 0),
+            ("kimi", 1, 4096, 64, 8, 112, True, 0)):
         masks = dict(causal=causal, window=window, chunk_attn=0)
         q, dout = randn(B, S, H, hd), randn(B, S, H, hd)
         k, v = randn(B, S, Kv, hd), randn(B, S, Kv, hd)
@@ -2349,17 +2393,18 @@ def flash_bwd_kernels(torch, dev, gen, bw, bf16) -> tuple:
     return rows["train"], rows["recurrentgemma"]
 
 
-def flash_counts(total: dict) -> tuple:
+def flash_counts(total: dict, bwd: str = "flash_attention_bwd") -> tuple:
     """A train run's flash launches in the kernels line's form: the lse
-    twin as ``flash_attention``, the backward as ``flash_attention_bwd``,
-    each by variant, and decode's lse twin."""
+    twin as ``flash_attention``, the backward as ``bwd``
+    (``flash_attention_bwd_wide`` above hd 128), each by variant, and
+    decode's lse twin."""
     return ({"flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"],
+             bwd: total["flash_attention.launches_bwd"],
              DECODE_LSE: total["decode_attention.launches_lse"]},
             {"flash_attention": {
                 "lse_tc": total["flash_attention.launches_lse_tc"],
                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
-             "flash_attention_bwd": {
+             bwd: {
                  "tc": total["flash_attention.launches_bwd_tc"],
                  "ffma": total["flash_attention.launches_bwd_ffma"]}})
 
@@ -2386,7 +2431,8 @@ def fp32_flash(lse: int, bwd: int) -> dict:
 def driven_train(torch, arch: str, what: str, steps: int, B: int, S: int,
                  M: int, want: dict, role, profiled: int = -1,
                  timed: tuple = (1,)) -> tuple:
-    """``launch.train.train`` on ``arch`` uncut in bf16, B x S in ``M``
+    """``launch.train.train`` on ``arch`` in bf16 (uncut, or as
+    ``cut_layers`` cuts it around the call), B x S in ``M``
     microbatches, ``steps`` AdamW steps, step ``profiled`` (default the
     last) under the profiler, ``role`` naming the kernels whose time it
     sums apart; the counters set to 0 just before and every step's
@@ -2459,6 +2505,94 @@ def train_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         launches={k: v for k, v in total.items() if v},
         fp32_twin=twin, restart=restart)
     return flash_counts(total)
+
+
+def train_dense_model(torch, dev, arch: str, phase: str, seed: int) -> tuple:
+    """A dense LM trained at its published widths cut to DENSE_TRAIN_LAYERS
+    layers, bf16, through ``launch.train.train`` (``cut_layers``;
+    ``driven_train``): AdamW, the published model's choice, B 4 x S 4096 in
+    2 microbatches, MOE_HYBRID_STEPS steps, the last one profiled.  The
+    counters are set to 0 just before the run and read after each step: per
+    step L M x 2 (remat) lse-twin flash forwards and L M backwards, all on
+    the tensor cores, and no other launch; the profiled step's backward
+    kernels show which pair ran (the wide one above hd 128, with one head
+    run a block and so no split sum, at Gemma-7B's shape; the wgmma pair
+    otherwise), each L M times.  Every loss and grad norm finite.  Before
+    it: an fp32 2-layer twin (seed ``seed``) against the plain attention;
+    after it, for DENSE_RESTART's arch alone, restart.  Logged as
+    ``phase``; returns the launches and their variants."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    published = get_config(arch)
+    n = TWIN_TRAIN_LAYERS
+    twin = fp32_twin(
+        torch, dev, published.with_overrides(num_layers=n, dtype="float32"),
+        seed, fp32_flash(2 * n, n), plain_attention)
+    cfg = published.with_overrides(num_layers=DENSE_TRAIN_LAYERS)
+    L, M, hd = cfg.num_layers, DENSE_TRAIN_MB, cfg.head_dim
+    H, Kv = cfg.num_heads, cfg.num_kv_heads
+    splits = flash_kernel.bwd_head_splits(DENSE_TRAIN_B // M, DENSE_TRAIN_S,
+                                          Kv, H, hd, sm_count(dev))
+    wide = hd > 128
+    pair, other = ((BWD_WIDE_KERNELS, BWD_KERNELS) if wide
+                   else (BWD_KERNELS, BWD_WIDE_KERNELS))
+    want = flash_want(2 * M * L, M * L)
+    with cut_layers(DENSE_TRAIN_LAYERS):
+        total, fields = driven_train(
+            torch, arch, phase, MOE_HYBRID_STEPS, DENSE_TRAIN_B,
+            DENSE_TRAIN_S, M, want,
+            lambda key: next((k for k in BWD_KERNELS + BWD_WIDE_KERNELS
+                              if k in key), None))
+    # the profiled step's backward kernels: the routed pair L M times each,
+    # the split sum only where the heads split, nothing of the other pair
+    ran = {k: c for k, (_, c) in fields["profiled_ms_calls"].items()}
+    want_ran = {k: M * L for k in pair[1:3]}
+    want_ran[pair[0]] = M * L
+    if splits > 1:
+        want_ran["flash_bwd_sum_kernel"] = M * L
+    if ran != want_ran:
+        raise AssertionError(f"{phase}: the profiled step's backward kernels "
+                             f"ran {ran}, want {want_ran} (hd {hd}, "
+                             f"{splits} head runs)")
+    restart = None
+    if arch == DENSE_RESTART[0]:
+        restart = restart_check(torch, arch, DENSE_RESTART[1])
+    tokens = DENSE_TRAIN_B * DENSE_TRAIN_S
+    log(phase, arch=cfg.name, dtype=cfg.dtype, layers=L,
+        layers_published=published.num_layers, d_model=cfg.d_model,
+        heads=H, kv_heads=Kv, head_dim=hd, activation=cfg.activation,
+        tie_embeddings=cfg.tie_embeddings, vocab=cfg.vocab_size,
+        params=cfg.param_count(), params_published=published.param_count(),
+        cut=f"{L} of {published.num_layers} layers: bf16 weights and grads, "
+            f"the fp32 accumulator and AdamW's moments take 16 bytes a "
+            f"param, {16 * published.param_count() / 1e9:.0f} GB uncut",
+        batch=DENSE_TRAIN_B, seq=DENSE_TRAIN_S, microbatches=M,
+        steps=MOE_HYBRID_STEPS,
+        optimizer="adamw, warmup_cosine(3e-4, 2000, 100000)",
+        backward_pair="wide" if wide else "wgmma", head_splits=splits,
+        **fields, tokens_per_s=tokens / (fields["step_ms"] / 1e3),
+        roofline=roofline_fields(cfg, DENSE_TRAIN_B, DENSE_TRAIN_S, "train",
+                                 fields["step_ms"]),
+        launches_per_step={k: v for k, v in want.items() if v},
+        launches={k: v for k, v in total.items() if v},
+        fp32_twin=twin, restart=restart)
+    return flash_counts(total, "flash_attention_bwd_wide" if wide
+                        else "flash_attention_bwd")
+
+
+def train_dense_phase(torch, dev) -> tuple:
+    """Gemma-7B (16 / 16 heads of 256: the wide backward pair at G 1),
+    Granite-8B and Llama-3-8B (32 / 8 heads of 128: the wgmma pair at G 4)
+    trained at their published widths cut to DENSE_TRAIN_LAYERS layers, one
+    after the other (``train_dense_model``); returns their launches
+    summed."""
+    launches, variants = {}, {}
+    for arch, phase, seed in TRAIN_DENSE_MODELS:
+        add_counts(launches, variants,
+                   *train_dense_model(torch, dev, arch, phase, seed))
+    return launches, variants
 
 
 TP_STEPS = 3  # the train_tp run: steps 0-1 timed against train_model
@@ -2668,11 +2802,18 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
     """moe_gmm's backward (dx = dy . w^T, dw = x^T . dy) against its plain
     version in bf16: Scout's train shapes (E 16, C 320 rows per expert at a
     1 x 4096 microbatch and capacity factor 1.25; gate/up D 5120 -> F 8192
-    and down F -> D), a decode-sized C = 8, and a ragged shape (C, D and F
-    no multiples of 64).  bf16 element by element within 2^-7 |ref| + 1e-5
+    and down F -> D), a decode-sized C = 8, a ragged shape (C, D and F
+    no multiples of 64), and Kimi-K2's published train shapes (E 384, C 112
+    rows per expert at a 1 x 4096 microbatch and factor 1.25, so dw's K is
+    112; gate/up D 7168 -> F 2048 and down F -> D: w past 2^31 elements,
+    dw 11.3 GB), which its cut train run (64 experts) does not reach.  bf16
+    element by element within 2^-7 |ref| + 1e-5
     M (M: the same products over magnitudes; both round an fp32 sum of the
     same exact products), the inputs widened to fp32 within F32_REL of each
-    gradient's max, two calls bit-equal, and every shape on the tensor-core
+    gradient's max (the plain version, the magnitudes, the fp32 check and
+    the plain time GMM_PLAIN_EXPERTS experts at a time: a whole fp32 plain
+    version at Kimi-K2's shape would be 45 GB; the kernel is one launch over
+    every expert), two calls bit-equal, and every shape on the tensor-core
     route (its counter must move through the autograd Function): the
     persistent ``moe_gmm_bwd_tc_kernel``, whose dx and dw tile counts and
     waves on the card's SMs are logged.  Times per call and from a CUDA
@@ -2687,12 +2828,15 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
 
     D, Fd, dt = 5120, 8192, torch.bfloat16
+    KD, KF = 7168, 2048  # Kimi-K2's d_model and moe_d_ff
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     rows = {}
     for shape, E, C, K, N in (("train gate/up", 16, 320, D, Fd),
                               ("train down", 16, 320, Fd, D),
                               ("decode gate/up", 16, 8, D, Fd),
-                              ("ragged", 7, 77, 1000, 296)):
+                              ("ragged", 7, 77, 1000, 296),
+                              ("kimi gate/up", 384, 112, KD, KF),
+                              ("kimi down", 384, 112, KF, KD)):
         where = f"moe_gmm backward/{shape}"
         x = randn(E, C, K).to(dt)
         w = randn(E, K, N).mul_(1.0 / math.sqrt(K)).to(dt)
@@ -2710,32 +2854,41 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{where}: two calls differ")
         del again, xg, wg
-        ref = moe_gmm_bwd_ref(x, w, dy)
-        mag = moe_gmm_bwd_ref(x.abs().float(), w.abs().float(),
-                              dy.abs().float())
+        parts = [slice(e, e + GMM_PLAIN_EXPERTS)
+                 for e in range(0, E, GMM_PLAIN_EXPERTS)]
         err, ratio = 0.0, 0.0
-        for name, g, r, m in zip(("dx", "dw"), got, ref, mag):
-            diff = (g.float() - r.float()).abs()
-            worst = float((diff / (2.0 ** -7 * r.float().abs()
-                                   + 1e-5 * m)).max())
-            if not worst <= 1.0:  # NaN fails too
-                raise AssertionError(f"{where} {name}: exceeds its bf16 limit "
-                                     f"by {worst}x")
-            err, ratio = max(err, float(diff.max())), max(ratio, worst)
-        del got, ref, mag
-        f32 = [t.float() for t in (x, w, dy)]
-        rel32 = max(float((g - r).abs().max() / r.abs().max())
-                    for g, r in zip(gmm_kernel.launch_bwd(*f32, "ffma"),
-                                    moe_gmm_bwd_ref(*f32)))
+        err32, max32 = [0.0, 0.0], [0.0, 0.0]
+        for p in parts:
+            ref = moe_gmm_bwd_ref(x[p], w[p], dy[p])
+            mag = moe_gmm_bwd_ref(x[p].abs().float(), w[p].abs().float(),
+                                  dy[p].abs().float())
+            for name, g, r, m in zip(("dx", "dw"), got, ref, mag):
+                diff = (g[p].float() - r.float()).abs()
+                worst = float((diff / (2.0 ** -7 * r.float().abs()
+                                       + 1e-5 * m)).max())
+                if not worst <= 1.0:  # NaN fails too
+                    raise AssertionError(f"{where} {name}: exceeds its bf16 "
+                                         f"limit by {worst}x")
+                err, ratio = max(err, float(diff.max())), max(ratio, worst)
+            del ref, mag, diff
+            f32 = [t[p].float() for t in (x, w, dy)]
+            for i, (g, r) in enumerate(zip(gmm_kernel.launch_bwd(*f32, "ffma"),
+                                           moe_gmm_bwd_ref(*f32))):
+                err32[i] = max(err32[i], float((g - r).abs().max()))
+                max32[i] = max(max32[i], float(r.abs().max()))
+            del f32, g, r
+        del got
+        rel32 = max(e / m for e, m in zip(err32, max32))
         if not rel32 <= F32_REL:
             raise AssertionError(f"{where}: fp32 kernel differs from the "
                                  f"plain version by rel {rel32}")
-        del f32
+        torch.cuda.empty_cache()
         bwd = lambda v_=variant: gmm_kernel.launch_bwd(x, w, dy, v_)
         loops = (3, 3) if C > 8 else ()  # a train call takes ms
         ms, dev_ms = time_ms(torch, bwd, *loops), graph_ms(torch, bwd, *loops)
         ffma_ms = time_ms(torch, lambda: bwd("ffma"), *loops)
-        plain = time_ms(torch, lambda: moe_gmm_bwd_ref(x, w, dy), *loops)
+        plain = time_ms(torch, lambda: [moe_gmm_bwd_ref(x[p], w[p], dy[p])
+                                        for p in parts], *loops)
         wt, xt = w.transpose(1, 2), x.transpose(1, 2)
         lib_ms = time_ms(torch, lambda: (torch.bmm(dy, wt),
                                          torch.bmm(xt, dy)), *loops)
@@ -2750,7 +2903,8 @@ def gmm_bwd_kernels(torch, dev, gen, bw, bf16) -> dict:
             waves_dx_dw=[t / sm_count(dev) for t in tiles],
             bf16_limit_ratio=ratio,
             fp32_rel_err=rel32, ffma_ms=ffma_ms, library_dx_ms=lib_dx_ms,
-            library_dw_ms=lib_dw_ms,
+            library_dw_ms=lib_dw_ms, w_elements=E * K * N,
+            plain_experts_a_call=min(E, GMM_PLAIN_EXPERTS),
             tflops=4 * E * C * K * N / dev_ms / 1e9, bit_equal_repeat=True,
             **row)
         rows[shape] = row
@@ -2837,70 +2991,79 @@ def gmm_role(key: str):
     return ("moe_gmm dw" if m.group(1) == "1" else "moe_gmm dx") if m else None
 
 
-def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
-    """Llama-4-Scout (16 experts top-1 + a shared expert, chunked attention
-    8192) trained at its published widths cut to SCOUT_TRAIN_LAYERS of 48
-    layers, bf16, seeded random weights, through
-    ``launch.steps.build_train_step`` -> ``lm.train_loss`` with the uncut
-    model's optimizer and accumulation depth (``default_optimizer`` and
-    ``default_microbatches`` of the published config: Adafactor on its
-    107.8 B parameters, 4 microbatches; ``launch.train.train`` would pick
-    AdamW and 1 from the cut config).  B 4 x S 4096 (1 x 4096 a microbatch
-    at capacity factor 1.25: C = 320 rows per expert), MOE_HYBRID_STEPS
-    steps on the token pipeline's batches, the last one profiled.  The
-    counters are set to 0 just before the run and read after each step: per
-    step 3 L M x 2 (remat) moe_gmm forwards and 3 L M backward calls, L M x
-    2 lse-twin flash forwards and L M flash backwards, all on the
-    tensor-core variants, and no other launch.  Every loss and grad norm
-    finite.  Before it: the backward kernel's rows (``gmm_bwd_kernels``),
-    the fp32 twin (MOE_TWIN_LAYERS layer against the plain moe_gmm and
-    attention), and two loss-and-grad passes over one microbatch, which
-    must be bit-equal."""
+def train_moe_model(torch, dev, arch: str, layers: int, experts, seed: int,
+                    phase: str, twin_experts) -> tuple:
+    """An MoE LM trained at its published widths cut to ``layers`` layers
+    (and ``experts`` experts, None: the published count), bf16, seeded
+    random weights (``seed``), through ``launch.steps.build_train_step`` ->
+    ``lm.train_loss`` with the uncut model's optimizer and accumulation
+    depth (``default_optimizer`` and ``default_microbatches`` of the
+    published config: Adafactor, 4 microbatches; ``launch.train.train``
+    would pick AdamW and 1 from the cut config).  B 4 x S 4096 (1 x 4096 a
+    microbatch at the capacity factor 1.25), MOE_HYBRID_STEPS steps on the
+    token pipeline's batches, the last one profiled.  The counters are set
+    to 0 just before the run and read after each step: per step 3 L M x 2
+    (remat) moe_gmm forwards and 3 L M backward calls, L M x 2 lse-twin
+    flash forwards and L M flash backwards, all on the tensor-core
+    variants, and no other launch.  Every loss and grad norm finite.
+    Before it: the fp32 twin (MOE_TWIN_LAYERS layer, ``twin_experts``
+    experts, None: the published count, seed ``seed + 8``, against the
+    plain moe_gmm and attention), and two loss-and-grad passes over one
+    microbatch, which must be bit-equal.  Logged as ``phase``; returns the
+    launches and their variants."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.launch.steps import (build_train_step,
                                           default_microbatches,
                                           default_optimizer)
+    from repro_torch.models.blocks import moe_capacity
     from repro_torch.models.config import ShapeSpec
 
-    summary["moe_gmm_bwd"] = gmm_bwd_kernels(torch, dev, gen, bw, bf16)
-    published = get_config("llama4-scout-17b-a16e")
+    published = get_config(arch)
     n = MOE_TWIN_LAYERS
+    twin_cfg = published.with_overrides(num_layers=n, dtype="float32")
+    if twin_experts:
+        twin_cfg = twin_cfg.with_overrides(num_experts=twin_experts)
     twin = fp32_twin(
-        torch, dev, published.with_overrides(num_layers=n, dtype="float32"),
-        12, {"moe_gmm.launches": 3 * n * 2, "moe_gmm.launches_ffma": 3 * n * 2,
-             "moe_gmm.launches_bwd": 3 * n,
-             "moe_gmm.launches_bwd_ffma": 3 * n,
-             "flash_attention.launches_lse": 2 * n,
-             "flash_attention.launches_lse_ffma": 2 * n,
-             "flash_attention.launches_bwd": n,
-             "flash_attention.launches_bwd_ffma": n},
+        torch, dev, twin_cfg,
+        seed + 8, {"moe_gmm.launches": 3 * n * 2,
+                   "moe_gmm.launches_ffma": 3 * n * 2,
+                   "moe_gmm.launches_bwd": 3 * n,
+                   "moe_gmm.launches_bwd_ffma": 3 * n,
+                   "flash_attention.launches_lse": 2 * n,
+                   "flash_attention.launches_lse_ffma": 2 * n,
+                   "flash_attention.launches_bwd": n,
+                   "flash_attention.launches_bwd_ffma": n},
         lambda: together(plain_moe_gmm(), plain_attention()))
+    twin.update(experts=twin_cfg.num_experts)
 
-    cfg = published.with_overrides(num_layers=SCOUT_TRAIN_LAYERS)
+    cfg = published.with_overrides(num_layers=layers)
+    if experts:
+        cfg = cfg.with_overrides(num_experts=experts)
     L = cfg.num_layers
-    shape = ShapeSpec("custom", SCOUT_TRAIN_S, SCOUT_TRAIN_B, "train")
+    shape = ShapeSpec("custom", MOE_TRAIN_S, MOE_TRAIN_B, "train")
     M = default_microbatches(published, shape)
     opt = default_optimizer(published)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params, _, init_s = init_model(torch, dev, cfg, 1, 1, seed=4)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=SCOUT_TRAIN_S,
-                         global_batch=SCOUT_TRAIN_B)
+    params, _, init_s = init_model(torch, dev, cfg, 1, 1, seed=seed)
+    torch.cuda.empty_cache()  # the init's fp32 draws
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_S,
+                         global_batch=MOE_TRAIN_B)
     batches = [{k: torch.from_numpy(v).long().to(dev)
                 for k, v in pipe.batch_at(i).items()}
                for i in range(MOE_HYBRID_STEPS)]
     pipe.close()
 
     # two loss-and-grad passes over the first microbatch: bit-equal
-    mb = {k: v[:SCOUT_TRAIN_B // M] for k, v in batches[0].items()}
+    mb = {k: v[:MOE_TRAIN_B // M] for k, v in batches[0].items()}
     first = loss_and_grads(torch, cfg, params, mb)
     second = loss_and_grads(torch, cfg, params, mb)
     differ = [i for i, (a, b) in enumerate(zip(first[1], second[1]))
               if not torch.equal(a, b)]
     if first[0] != second[0] or differ:
-        raise AssertionError(f"train_moe: two loss-and-grad passes differ "
+        raise AssertionError(f"{phase}: two loss-and-grad passes differ "
                              f"(losses {first[0]}, {second[0]}; grad leaves "
                              f"{differ})")
     del first, second
@@ -2928,7 +3091,7 @@ def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
         "flash_attention.launches_lse_tc": 2 * L * M,
         "flash_attention.launches_bwd": L * M,
         "flash_attention.launches_bwd_tc": L * M})
-    total = watch.check("train_moe", want)
+    total = watch.check(phase, want)
     prof = watch.profiled_fields(
         lambda key: gmm_role(key) or next(
             (k for k in BWD_KERNELS if k in key), None))
@@ -2936,38 +3099,67 @@ def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
     del params, opt_state, batches
     torch.cuda.empty_cache()
 
-    tokens = SCOUT_TRAIN_B * SCOUT_TRAIN_S
-    log("train_moe", arch=cfg.name, dtype=cfg.dtype, layers=L,
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S
+    cut = {}
+    if experts:
+        E0 = published.num_experts
+        layer_b = published.with_overrides(num_layers=1).param_count() / 1e9
+        cut = dict(experts_published=E0,
+                   cut=f"{L} of {published.num_layers} layers and {experts} "
+                       f"of {E0} experts: one layer at {E0} experts is "
+                       f"{layer_b:.1f} B params, whose bf16 weights and "
+                       "grads alone fill the card")
+    log(phase, arch=cfg.name, dtype=cfg.dtype, layers=L,
         layers_published=published.num_layers, d_model=cfg.d_model,
-        experts=cfg.num_experts, top_k=cfg.experts_per_token,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, experts=cfg.num_experts,
+        top_k=cfg.experts_per_token, **cut,
         moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+        capacity_per_group=moe_capacity(MOE_TRAIN_S, cfg),
         params=cfg.param_count(), params_published=published.param_count(),
-        batch=SCOUT_TRAIN_B, seq=SCOUT_TRAIN_S, microbatches=M,
+        batch=MOE_TRAIN_B, seq=MOE_TRAIN_S, microbatches=M,
         steps=MOE_HYBRID_STEPS, optimizer=(
             f"{opt.name} (the published config's), warmup_cosine(3e-4, 2000, "
             "100000)"), init_s=init_s, run_s=run_s, **steps,
-        roofline=roofline_fields(cfg, SCOUT_TRAIN_B, SCOUT_TRAIN_S, "train",
+        roofline=roofline_fields(cfg, MOE_TRAIN_B, MOE_TRAIN_S, "train",
                                  steps["step_ms"]),
         tokens_per_s=tokens / (steps["step_ms"] / 1e3),
         peak_memory_gb=peak_gb,
         launches_per_step={k: v for k, v in want.items() if v},
         launches={k: v for k, v in total.items() if v}, **prof,
         bit_equal_loss_and_grads=True, fp32_twin=twin)
-    return ({"moe_gmm": total["moe_gmm.launches"],
-             "moe_gmm_bwd": total["moe_gmm.launches_bwd"],
-             "flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd": total["flash_attention.launches_bwd"],
-             DECODE_LSE: total["decode_attention.launches_lse"]},
-            {"moe_gmm": {"tc": total["moe_gmm.launches_tc"],
-                         "ffma": total["moe_gmm.launches_ffma"]},
-             "moe_gmm_bwd": {"tc": total["moe_gmm.launches_bwd_tc"],
-                             "ffma": total["moe_gmm.launches_bwd_ffma"]},
-             "flash_attention": {
-                 "lse_tc": total["flash_attention.launches_lse_tc"],
-                 "lse_ffma": total["flash_attention.launches_lse_ffma"]},
-             "flash_attention_bwd": {
-                 "tc": total["flash_attention.launches_bwd_tc"],
-                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+    launches, variants = flash_counts(total)
+    launches.update(moe_gmm=total["moe_gmm.launches"],
+                    moe_gmm_bwd=total["moe_gmm.launches_bwd"])
+    variants.update(moe_gmm={"tc": total["moe_gmm.launches_tc"],
+                             "ffma": total["moe_gmm.launches_ffma"]},
+                    moe_gmm_bwd={"tc": total["moe_gmm.launches_bwd_tc"],
+                                 "ffma": total["moe_gmm.launches_bwd_ffma"]})
+    return launches, variants
+
+
+def train_moe_phase(torch, dev, gen, bw, bf16, summary) -> tuple:
+    """Llama-4-Scout (16 experts top-1 + a shared expert, chunked attention
+    8192) trained at its published widths cut to SCOUT_TRAIN_LAYERS of 48
+    layers (``train_moe_model``: Adafactor on its 107.8 B parameters, C =
+    320 rows per expert), its fp32 twin at its 16 experts.  Before it: the
+    moe_gmm backward kernel's rows (``gmm_bwd_kernels``)."""
+    summary["moe_gmm_bwd"] = gmm_bwd_kernels(torch, dev, gen, bw, bf16)
+    return train_moe_model(torch, dev, "llama4-scout-17b-a16e",
+                           SCOUT_TRAIN_LAYERS, None, 4, "train_moe", None)
+
+
+def train_kimi_phase(torch, dev) -> tuple:
+    """Kimi-K2 (384 experts top-8 + a shared expert, 64 / 8 heads of 112)
+    trained at its published widths with KIMI_TRAIN_LAYERS of 61 layers and
+    KIMI_TRAIN_EXPERTS experts (``train_moe_model``: Adafactor, the
+    published model's, C = 640 rows per expert at 64 experts); its fp32
+    twin at KIMI_TWIN_EXPERTS experts, still top-8, with the kernel run's
+    experts replayed.  Per step 24 moe_gmm forwards and 12 backwards, 8 lse
+    forwards and 4 flash backwards at hd 112, G 8."""
+    return train_moe_model(torch, dev, "kimi-k2-1t-a32b", KIMI_TRAIN_LAYERS,
+                           KIMI_TRAIN_EXPERTS, 5, "train_kimi",
+                           KIMI_TWIN_EXPERTS)
 
 
 def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
@@ -3055,21 +3247,15 @@ def train_hybrid_phase(torch, dev, gen, bw, fp32, summary) -> tuple:
         flash_backward_share_of_step=(
             flash_bwd_ms / fields["profiled_step_ms"]),
         fp32_twin=twin, restart=restart)
-    return ({"rglru_scan": total["rglru_scan_op.launches"],
-             "rglru_scan_bwd": total["rglru_scan_op.launches_bwd"],
-             "flash_attention": total["flash_attention.launches_lse"],
-             "flash_attention_bwd_wide": total["flash_attention.launches_bwd"],
-             DECODE_LSE: total["decode_attention.launches_lse"]},
-            {"rglru_scan": {r: total[f"rglru_scan_op.launches_{r}"]
-                            for r in SCAN_ROUTES},
-             "rglru_scan_bwd": {r: total[f"rglru_scan_op.launches_bwd_{r}"]
-                                for r in SCAN_ROUTES},
-             "flash_attention": {
-                "lse_tc": total["flash_attention.launches_lse_tc"],
-                "lse_ffma": total["flash_attention.launches_lse_ffma"]},
-             "flash_attention_bwd_wide": {
-                 "tc": total["flash_attention.launches_bwd_tc"],
-                 "ffma": total["flash_attention.launches_bwd_ffma"]}})
+    launches, variants = flash_counts(total, "flash_attention_bwd_wide")
+    launches.update(rglru_scan=total["rglru_scan_op.launches"],
+                    rglru_scan_bwd=total["rglru_scan_op.launches_bwd"])
+    variants.update(
+        rglru_scan={r: total[f"rglru_scan_op.launches_{r}"]
+                    for r in SCAN_ROUTES},
+        rglru_scan_bwd={r: total[f"rglru_scan_op.launches_bwd_{r}"]
+                        for r in SCAN_ROUTES})
+    return launches, variants
 
 
 def train_encdec_phase(torch, dev) -> tuple:
@@ -4327,7 +4513,7 @@ def main(argv=None) -> int:
     for route, count in by_route.items():
         variants["retrieval_topk"][route] += count
 
-    # -- 8-21. the served models, then training: a kernel on several paths
+    # -- 8-23. the served models, then training: a kernel on several paths
     # reports the sum of its launches over their runs, in all and by variant
     # (flash_attention's training forwards as "lse_tc" / "lse_ffma"); the
     # largest model last, once every earlier phase's tensors are freed
@@ -4340,17 +4526,18 @@ def main(argv=None) -> int:
     for phase in (model_phase, dense_phase, moe_phase, kimi_phase,
                   hybrid_phase, xlstm_phase, encdec_phase, train, train_tp,
                   train_moe, train_hybrid, train_encdec_phase,
-                  train_vlm_phase, train_xlstm_phase, vlm_phase):
+                  train_vlm_phase, train_xlstm_phase, train_dense_phase,
+                  train_kimi_phase, vlm_phase):
         add_counts(launches, variants, *phase(torch, dev))
 
     if launches[DECODE_LSE]:
         raise AssertionError(f"decode's lse twin launched "
                              f"{launches[DECODE_LSE]} times on the main path")
 
-    # -- 22. split -------------------------------------------------------
+    # -- 24. split -------------------------------------------------------
     split_phase(torch)
 
-    # -- 23. dryrun ------------------------------------------------------
+    # -- 25. dryrun ------------------------------------------------------
     dryrun_phase()
     log("done", total_s=time.perf_counter() - t_start)
 
@@ -4389,7 +4576,8 @@ def main(argv=None) -> int:
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/models/layers.py:189",
          "kernels": list(BWD_KERNELS)},
-        # the same backward above hd 128 (RecurrentGemma-2B's hd 256)
+        # the same backward above hd 128 (RecurrentGemma-2B's and
+        # Gemma-7B's hd 256)
         {"name": "flash_attention_bwd_wide", "route": "cuda",
          "source": csrc + "flash_attention_bwd.cu",
          "replaces": "src/repro/models/layers.py:189",

@@ -1234,6 +1234,52 @@ def test_moe_gmm_backward_variants_agree_in_bf16(E, C, D, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D,F", [(7168, 2048), (2048, 7168)],
+                         ids=["gate_up", "down"])
+def test_moe_gmm_backward_past_int32_elements(D, F):
+    """Kimi-K2's published train shapes: 384 experts, C 112 rows each (a 1 x
+    4096 microbatch at factor 1.25), d_model 7168 <-> moe_d_ff 2048, so w
+    and dw hold 5.6 x 10^9 elements, past 2^31, and dw's K (C) leaves 48
+    rows of its second 64-deep stage live.  Through the autograd Function
+    on the tensor-core route, dx and dw against the plain version 32
+    experts at a time (one plain call would widen w to 22.5 GB of fp32),
+    and two calls bit-equal."""
+    from repro_torch.kernels.moe_gmm import kernel
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    dev = _cuda()
+    E, C = 384, 112
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(D)
+    x = torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=dev, dtype=torch.bfloat16)
+         / np.sqrt(D)).to(torch.bfloat16)
+    dy = torch.randn((E, C, F), generator=gen, device=dev).to(torch.bfloat16)
+    assert w.numel() > 2 ** 31
+    assert kernel.route_bwd(torch.bfloat16, D, F) == "tc"
+    xg, wg = (t.detach().requires_grad_(True) for t in (x, w))
+    before = moe_gmm.launches_bwd_tc
+    got = torch.autograd.grad(moe_gmm(xg, wg), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches_bwd_tc == before + 1
+    del xg, wg
+    for e in range(0, E, 32):
+        p = slice(e, e + 32)
+        ref = moe_gmm_bwd_ref(x[p], w[p], dy[p])
+        mag = moe_gmm_bwd_ref(x[p].abs().float(), w[p].abs().float(),
+                              dy[p].abs().float())
+        for name, g, r, m in zip(("dx", "dw"), got, ref, mag):
+            diff = (g[p].float() - r.float()).abs()
+            lim = 2.0 ** -7 * r.float().abs() + 1e-5 * m
+            assert bool((diff <= lim).all()), (e, name,
+                                               float((diff / lim).max()))
+        del ref, mag, diff, lim
+    again = kernel.launch_bwd(x, w, dy, "tc")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_moe_gmm_backward_of_no_rows_is_zero():
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
 
@@ -1430,6 +1476,30 @@ def test_flash_backward_head_split_is_deterministic():
                                               10, 1, 256, masks, seed=2000)
     first = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **masks)
     second = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **masks)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kv,hd", [
+    (2, 16, 16, 256),  # Gemma-7B: the wide pair at G 1, one head run a block
+    (2, 32, 8, 128),   # Granite-8B and Llama-3-8B: the wgmma pair at G 4
+    (1, 64, 8, 112),   # Kimi-K2: hd 112, 48 live columns of the second box
+], ids=["gemma", "granite", "kimi"])
+def test_flash_backward_at_the_catalog_head_shapes(B, H, Kv, hd):
+    """The trained catalog models' head shapes at S 1024, causal, bf16:
+    the tensor-core backward (and the FFMA one) against the plain version,
+    and two calls bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = _cuda()
+    S = 1024
+    if hd > 128:
+        assert kernel.bwd_head_splits(B, S, Kv, H, hd, sm_count(dev)) == 1
+    q, k, v, out, lse, dout = _flash_bwd_case(torch.bfloat16, B, S, S, H, Kv,
+                                              hd, _CAUSAL, seed=H + hd)
+    first = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **_CAUSAL)
+    second = kernel.launch_bwd(q, k, v, out, lse, dout, "tc", **_CAUSAL)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
