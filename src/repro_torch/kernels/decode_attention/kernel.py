@@ -33,6 +33,7 @@ import torch
 from repro_torch.kernels.build import kernel_library
 from repro_torch.kernels.common import (on_device, raw_stream, record_kernel,
                                         sm_count)
+from repro_torch.perf import spans
 
 VARIANTS = ("tc", "ffma")
 TILE = 64  # cache slots per tile of both variants (kTK, kTile)
@@ -152,6 +153,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lib = kernel_library().lib
     with on_device(dev):
         stream = raw_stream(dev)
+        if spans.on:
+            spans.begin("launch")
         if with_lse:
             twin = (slot0, slots, lse.data_ptr(), stream)
             if variant == "tc":
@@ -170,6 +173,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
             err = lib.decode_attention_launch(
                 *args, dtype_code, B, W, H, Kv, hd, split, n_splits,
                 int(ring), chunk_attn, stream)
+        if spans.on:
+            spans.end()
     if err != 0:
         raise RuntimeError(f"decode_attention {variant} launch failed: CUDA "
                            f"error {err}")

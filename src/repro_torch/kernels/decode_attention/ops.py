@@ -16,6 +16,7 @@ from repro_torch.kernels.common import (NEG_INF, SHAPE,
                                         refuse_grad, use_kernel)
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_lse_ref
+from repro_torch.perf import spans
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -46,54 +47,64 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (``launches_lse_tc`` / ``launches_lse_ffma`` by variant), not in the
     served counters: no one-card path launches it.
     """
-    W = k_cache.shape[1]
-    slots = W if slots is None else slots
-    if not return_lse and (slot0, slots) != (0, W):
-        raise ValueError("decode_attention: a slice of a cache (slot0, "
-                         "slots) needs return_lse")
-    dispatch = use_kernel(q, k_cache, v_cache)
-    if not dispatch:
-        out, lse = decode_attention_lse_ref(
-            q, k_cache, v_cache, cache_len, ring=ring, chunk_attn=chunk_attn,
-            slot0=slot0, slots=slots)
-        return (out, lse) if return_lse else out
-    if dispatch != SHAPE:
-        refuse_grad("decode_attention", q, k_cache, v_cache)
-    q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
-    code = check_attention_inputs(q=q, k_cache=k_cache, v_cache=v_cache)
-    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or \
-            v_cache.shape != k_cache.shape or \
-            k_cache.shape[0] != q.shape[0] or \
-            k_cache.shape[3] != q.shape[3] or q.shape[2] % k_cache.shape[2]:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)} do "
-                         "not fit (B, 1, H, hd), (B, W, Kv, hd) with Kv | H")
-    if isinstance(cache_len, torch.Tensor):
-        if cache_len.device != q.device or cache_len.numel() != 1:
-            raise ValueError("decode_attention: cache_len must be one value "
-                             f"on {q.device}, got {cache_len.numel()} on "
-                             f"{cache_len.device}")
-        cache_len = cache_len.reshape(1).to(torch.int32)
-    else:
-        cache_len = torch.full((1,), int(cache_len), dtype=torch.int32,
-                               device=q.device)
-    if q.numel() == 0 or W == 0:
-        out = torch.zeros_like(q)
-        lse = torch.full(q.shape[:1] + q.shape[2:3], NEG_INF,
-                         dtype=torch.float32, device=q.device)
-        return (out, lse) if return_lse else out
-    variant = kernel.route(q.dtype, q.shape[2] // k_cache.shape[2],
-                           q.shape[3])
-    res = kernel.launch(q, k_cache, v_cache, cache_len, code, variant,
-                        ring=ring, chunk_attn=chunk_attn, slot0=slot0,
-                        slots=slots, with_lse=return_lse,
-                        shape_only=dispatch == SHAPE)
-    if dispatch == SHAPE:
+    if spans.on:
+        spans.begin("decode_attention")
+    try:
+        W = k_cache.shape[1]
+        slots = W if slots is None else slots
+        if not return_lse and (slot0, slots) != (0, W):
+            raise ValueError("decode_attention: a slice of a cache (slot0, "
+                             "slots) needs return_lse")
+        dispatch = use_kernel(q, k_cache, v_cache)
+        if not dispatch:
+            out, lse = decode_attention_lse_ref(
+                q, k_cache, v_cache, cache_len, ring=ring,
+                chunk_attn=chunk_attn, slot0=slot0, slots=slots)
+            return (out, lse) if return_lse else out
+        if dispatch != SHAPE:
+            refuse_grad("decode_attention", q, k_cache, v_cache)
+        q, k_cache, v_cache = (t.contiguous()
+                               for t in (q, k_cache, v_cache))
+        code = check_attention_inputs(q=q, k_cache=k_cache, v_cache=v_cache)
+        if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or \
+                v_cache.shape != k_cache.shape or \
+                k_cache.shape[0] != q.shape[0] or \
+                k_cache.shape[3] != q.shape[3] or \
+                q.shape[2] % k_cache.shape[2]:
+            raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
+                             f"{tuple(k_cache.shape)}, "
+                             f"{tuple(v_cache.shape)} do not fit "
+                             "(B, 1, H, hd), (B, W, Kv, hd) with Kv | H")
+        if isinstance(cache_len, torch.Tensor):
+            if cache_len.device != q.device or cache_len.numel() != 1:
+                raise ValueError("decode_attention: cache_len must be one "
+                                 f"value on {q.device}, got "
+                                 f"{cache_len.numel()} on {cache_len.device}")
+            cache_len = cache_len.reshape(1).to(torch.int32)
+        else:
+            cache_len = torch.full((1,), int(cache_len), dtype=torch.int32,
+                                   device=q.device)
+        if q.numel() == 0 or W == 0:
+            out = torch.zeros_like(q)
+            lse = torch.full(q.shape[:1] + q.shape[2:3], NEG_INF,
+                             dtype=torch.float32, device=q.device)
+            return (out, lse) if return_lse else out
+        variant = kernel.route(q.dtype, q.shape[2] // k_cache.shape[2],
+                               q.shape[3])
+        res = kernel.launch(q, k_cache, v_cache, cache_len, code, variant,
+                            ring=ring, chunk_attn=chunk_attn, slot0=slot0,
+                            slots=slots, with_lse=return_lse,
+                            shape_only=dispatch == SHAPE)
+        if dispatch == SHAPE:
+            return res
+        prefix = "launches_lse" if return_lse else "launches"
+        for name in (prefix, f"{prefix}_{variant}"):
+            setattr(decode_attention, name,
+                    getattr(decode_attention, name) + 1)
         return res
-    prefix = "launches_lse" if return_lse else "launches"
-    for name in (prefix, f"{prefix}_{variant}"):
-        setattr(decode_attention, name, getattr(decode_attention, name) + 1)
-    return res
+    finally:
+        if spans.on:
+            spans.end()
 
 
 decode_attention.launches = 0

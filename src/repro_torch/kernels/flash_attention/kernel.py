@@ -39,6 +39,7 @@ import torch
 from repro_torch.kernels.build import kernel_library
 from repro_torch.kernels.common import (KERNEL_DTYPES, on_device, raw_stream,
                                         record_kernel, sm_count)
+from repro_torch.perf import spans
 from repro_torch.kernels.flash_attention.ref import visible_pairs
 
 VARIANTS = ("tc", "ffma")
@@ -140,6 +141,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
     masks = (int(causal), window, chunk_attn)
     with on_device(q.device):
         stream = raw_stream(q.device)
+        if spans.on:
+            spans.begin("launch")
         if variant == "tc":
             err = lib.flash_attention_tc_launch(*ptrs, B, Sq, Skv, H, Kv, hd,
                                                 *masks, stream)
@@ -147,6 +150,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str,
             err = lib.flash_attention_launch(*ptrs, KERNEL_DTYPES[q.dtype], B,
                                              Sq, Skv, H, Kv, hd, *masks,
                                              stream)
+        if spans.on:
+            spans.end()
     if err != 0:
         raise RuntimeError(f"flash_attention {variant} launch failed: "
                            f"error {err}")

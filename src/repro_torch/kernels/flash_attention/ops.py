@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_lse_ref,
                                                      flash_attention_ref)
+from repro_torch.perf import spans
 
 
 def _checked(q, k, v):
@@ -129,23 +130,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``launches_bwd_tc`` / ``launches_bwd_ffma`` by variant,
     ``kernel.route_bwd``).
     """
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        out, _ = FlashAttention.apply(q, k, v, causal, window, chunk_attn)
+    if spans.on:
+        spans.begin("flash_attention")
+    try:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            out, _ = FlashAttention.apply(q, k, v, causal, window, chunk_attn)
+            return out
+        dispatch = use_kernel(q, k, v)
+        if not dispatch:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       chunk_attn=chunk_attn)
+        q, k, v = _checked(q, k, v)
+        if q.numel() == 0:
+            return torch.empty_like(q)
+        variant = kernel.route(q.dtype, q.shape[3])
+        out = kernel.launch(q, k, v, variant, causal=causal, window=window,
+                            chunk_attn=chunk_attn,
+                            shape_only=dispatch == SHAPE)
+        if dispatch != SHAPE:
+            _count(variant)
         return out
-    dispatch = use_kernel(q, k, v)
-    if not dispatch:
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   chunk_attn=chunk_attn)
-    q, k, v = _checked(q, k, v)
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    variant = kernel.route(q.dtype, q.shape[3])
-    out = kernel.launch(q, k, v, variant, causal=causal, window=window,
-                        chunk_attn=chunk_attn, shape_only=dispatch == SHAPE)
-    if dispatch != SHAPE:
-        _count(variant)
-    return out
+    finally:
+        if spans.on:
+            spans.end()
 
 
 flash_attention.launches = 0

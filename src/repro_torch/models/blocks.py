@@ -33,6 +33,7 @@ from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.kernels.rglru_scan.ops import rglru_scan_op
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.perf import spans
 
 Params = dict[str, Any]
 
@@ -87,11 +88,18 @@ def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def _self_attention(params: Params, x: torch.Tensor, ctx: BlockCtx,
                     cfg: ModelConfig, cache: Optional[Params]):
-    """Returns (output, cache).  Decode writes this token's k/v into
+    """The block's attention half over the residual ``x``: returns (x + the
+    attention output, cache).  Decode writes this token's k/v into
     ``cache`` in place.  Prefill fills ``cache`` in place when one is given
     (``lm.apply_stack`` hands each layer its slice of the stack's cache),
     else a new one of capacity ``ctx.capacity``."""
-    q, k, v = L.attention_qkv(params, x, ctx.positions, cfg)
+    if spans.on:
+        spans.begin("attn_in")
+    p = params["attn"]
+    q, k, v = L.attention_qkv(p, L.rms_norm(x, params["ln1"], cfg.norm_eps),
+                              ctx.positions, cfg)
+    if spans.on:
+        spans.end()
     window = cfg.window_size if cfg.attention_type == "local" else 0
     chunk_attn = cfg.window_size if cfg.attention_type == "chunked" else 0
     ring = cfg.attention_type in ("local", "chunked") and bool(cfg.window_size)
@@ -99,16 +107,29 @@ def _self_attention(params: Params, x: torch.Tensor, ctx: BlockCtx,
     if ctx.decoding:
         if cache is None:
             raise ValueError("decode needs a KV cache")
+        if spans.on:
+            spans.begin("kv_write")
         W = cache["k"].shape[1]
         write_pos = (ctx.cache_len - 1) % W if ring else ctx.cache_len - 1
         new_cache = L.kv_cache_update(cache, k, v, write_pos)
+        if spans.on:
+            spans.end()
+            spans.begin("attention")
         out = L.decode_attention_xla(q, cache["k"], cache["v"], ctx.cache_len,
                                      ring=ring, chunk_attn=chunk_attn)
+        if spans.on:
+            spans.end()
     else:
+        if spans.on:
+            spans.begin("attention")
         out = L.flash_attention_xla(q, k, v, causal=True, window=window,
                                     chunk_attn=chunk_attn,
                                     softcap=cfg.logit_softcap)
+        if spans.on:
+            spans.end()
         if ctx.mode == "prefill":
+            if spans.on:
+                spans.begin("kv_write")
             S = x.shape[1]
             new_cache = cache if cache is not None else init_attn_cache(
                 cfg, x.shape[0], ctx.capacity or S, x.device)
@@ -128,22 +149,28 @@ def _self_attention(params: Params, x: torch.Tensor, ctx: BlockCtx,
                         new_cache["v"].dtype)
             else:
                 L.kv_cache_update(new_cache, k, v, 0)
-    return L.attention_out(params, out), new_cache
+            if spans.on:
+                spans.end()
+    if spans.on:
+        spans.begin("attn_out")
+    x = x + L.attention_out(p, out)
+    if spans.on:
+        spans.end()
+    return x, new_cache
 
 
 def apply_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
                      cfg: ModelConfig, cache: Optional[Params] = None,
                      encoder_out: Optional[torch.Tensor] = None):
-    h, new_cache = _self_attention(params["attn"],
-                                   L.rms_norm(x, params["ln1"], cfg.norm_eps),
-                                   ctx, cfg, cache)
-    x = x + h
+    x, new_cache = _self_attention(params, x, ctx, cfg, cache)
     if "xattn" in params:
         if encoder_out is None:
             raise ValueError("cross-attention needs encoder_out")
         x = x + _cross_attention(params["xattn"],
                                  L.rms_norm(x, params["ln_x"], cfg.norm_eps),
                                  encoder_out, cfg)
+    if spans.on:
+        spans.begin("ffn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     y = L.rms_norm(x, params["ln2"], cfg.norm_eps)
     if "moe" in params:
@@ -152,7 +179,10 @@ def apply_attn_block(params: Params, x: torch.Tensor, ctx: BlockCtx,
         h = L.mlp_apply(params["mlp"], y, cfg.activation)
     else:
         h = torch.zeros_like(x)
-    return x + h, new_cache, aux
+    x = x + h
+    if spans.on:
+        spans.end()
+    return x, new_cache, aux
 
 
 def _cross_attention(params: Params, x: torch.Tensor, enc: torch.Tensor,

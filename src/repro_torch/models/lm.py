@@ -32,6 +32,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.perf import spans
 
 Params = dict[str, Any]
 
@@ -145,15 +146,19 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
     remat = cfg.scan_layers and cfg.remat and ctx.mode == "train" and \
         torch.is_grad_enabled()
 
-    def run_unit(x, unit_params, unit_cache):
+    def run_unit(x, unit_params, unit_cache, first):
         # under a policy: the unit's weights gathered over the data axes
         # (inside the remat unit, so that the backward gathers them again)
         unit_params = api.fsdp_gather(unit_params)
         aux_u = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, bt in enumerate(pat):
             c_j = None if unit_cache is None else unit_cache[f"b{j}"]
+            if spans.on:
+                spans.begin("block", first + j)
             x, _, aux = B.apply_block(bt, unit_params[f"b{j}"], x, ctx, cfg,
                                       c_j, encoder_out)
+            if spans.on:
+                spans.end()
             aux_u = aux_u + aux
         return x, aux_u
 
@@ -171,11 +176,11 @@ def apply_stack(params: Params, x: torch.Tensor, ctx: B.BlockCtx,
         unit_cache = _unit(cache["units"], i, cfg.scan_layers) \
             if want_cache else None
         if remat:  # the backward recomputes the unit from x
-            x, aux = checkpoint(run_unit, x, unit_params, None,
+            x, aux = checkpoint(run_unit, x, unit_params, None, i * len(pat),
                                 use_reentrant=False,
                                 context_fn=api.checkpoint_context)
         else:
-            x, aux = run_unit(x, unit_params, unit_cache)
+            x, aux = run_unit(x, unit_params, unit_cache, i * len(pat))
         aux_total = aux_total + aux
     for i, bt in enumerate(rest):
         c_i = cache["rest"][i] if want_cache else None
@@ -225,6 +230,8 @@ def _lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed_tokens(params: Params, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
+    if spans.on:
+        spans.begin("embed")
     if api.is_dtensor(params["embed"], tokens):  # each rank's batch rows
         x = api.local_embed(params["embed"], tokens)
     else:
@@ -232,7 +239,10 @@ def _embed_tokens(params: Params, cfg: ModelConfig,
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         # the scale rounded to the activation dtype, as the JAX package has it
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
-    return constrain(x, "act_btd")
+    x = constrain(x, "act_btd")
+    if spans.on:
+        spans.end()
+    return x
 
 
 def _merge_frontend(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -326,19 +336,29 @@ def logits_of(params: Params, cfg: ModelConfig,
               hidden: torch.Tensor) -> torch.Tensor:
     """(B, vocab_size) fp32 logits of the last position of ``hidden``: the
     product in the activation dtype, softcapped, cut from ``vocab_padded``."""
+    if spans.on:
+        spans.begin("head")
     logits = (hidden[:, -1] @ _lm_head(params, cfg)).float()
-    return L.softcap(logits, cfg.logit_softcap)[:, :cfg.vocab_size]
+    logits = L.softcap(logits, cfg.logit_softcap)[:, :cfg.vocab_size]
+    if spans.on:
+        spans.end()
+    return logits
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             frontend: Optional[torch.Tensor] = None, capacity: int = 0,
             encoder_out: Optional[torch.Tensor] = None):
     """Process a prompt; returns (last-token logits, cache)."""
+    if spans.on:
+        spans.begin("prefill")
     hidden, cache, _ = forward(params, cfg, tokens, mode="prefill",
                                frontend=frontend,
                                capacity=capacity or tokens.shape[1],
                                encoder_out=encoder_out)
-    return logits_of(params, cfg, hidden), cache
+    logits = logits_of(params, cfg, hidden)
+    if spans.on:
+        spans.end()
+    return logits, cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -346,10 +366,15 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 encoder_out: Optional[torch.Tensor] = None):
     """One decode step. ``token``: (B,1). ``cache_len``: valid entries incl.
     this token. Returns (logits (B,V), cache), the cache updated in place."""
+    if spans.on:
+        spans.begin("decode_step")
     hidden, new_cache, _ = forward(params, cfg, token, mode="decode",
                                    cache=cache, cache_len=cache_len,
                                    capacity=capacity, encoder_out=encoder_out)
-    return logits_of(params, cfg, hidden), new_cache
+    logits = logits_of(params, cfg, hidden)
+    if spans.on:
+        spans.end()
+    return logits, new_cache
 
 
 def count_params(cfg: ModelConfig) -> int:
