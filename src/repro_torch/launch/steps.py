@@ -25,6 +25,7 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.configs import resolve_shape
 from repro_torch.distributed.api import activation_policy
+from repro_torch.launch.graphs import GraphedDecode, dense_decoder
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.optim import Optimizer, pick_optimizer, warmup_cosine
@@ -161,11 +162,15 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeSpec | str,
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeSpec | str,
-                      policy=None) -> Callable:
+                      policy=None) -> GraphedDecode:
     """``decode_step(params, token, cache, cache_len) -> (logits, cache)``
     for a cache of the shape's sequence length, updated in place (the JAX
     step donates it); an encoder-decoder's step also takes
-    ``encoder_out``."""
+    ``encoder_out``.  Without a policy, a dense decoder's step on CUDA
+    tensors with a tensor ``cache_len`` replays one CUDA graph a step, and
+    its logits are then valid until the next step (``launch/graphs.py``,
+    which also keeps the step's counters ``captures``, ``replays`` and
+    ``eager_steps``)."""
     capacity = resolve_shape(shape).seq_len
 
     if cfg.num_encoder_layers:
@@ -177,7 +182,8 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeSpec | str,
             return lm.decode_step(params, cfg, token, cache, cache_len,
                                   capacity=capacity)
 
-    return _under(policy, decode_step)
+    return GraphedDecode(_under(policy, decode_step),
+                         graphable=policy is None and dense_decoder(cfg))
 
 
 @contextlib.contextmanager

@@ -1903,3 +1903,65 @@ def test_train_step_on_a_one_rank_mesh_matches_the_plain_step():
         1e-5 * abs(float(ref_m["loss"]))
     for a, b in zip(tree_leaves(got), tree_leaves(ref_p)):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-8b"])
+def test_graphed_decode_step_equals_the_eager_step(arch):
+    """The benchmark's two models at their published widths, cut to 2
+    layers: B 8, a 994-token prompt, 149 greedy steps, once through the
+    eager ``lm.decode_step`` and once through ``build_decode_step``, which
+    replays one CUDA graph a step (``launch/graphs.py``).  The served
+    tokens are equal and every step's logits bit-equal (the message gives
+    the largest gap if not); the graphed step counts 1 capture, 148
+    replays and its family's 1 eager step, and one tensor-core
+    ``decode_attention`` a layer a step, exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeSpec
+
+    dev = _cuda()
+    B, S, steps = 8, 994, 149
+    cfg = get_config(arch).with_overrides(num_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev)
+    shape = ShapeSpec("graphed", S + steps + 1, B, "prefill")
+    prefill = build_prefill_step(cfg, shape)
+    graphed = build_decode_step(cfg, shape)
+
+    def eager(p, t, c, n):
+        return lm.decode_step(p, cfg, t, c, n, capacity=shape.seq_len)
+
+    def serve(step):
+        logits, cache = prefill(params, prompts)
+        token = logits.argmax(-1, keepdim=True)
+        n = torch.full((), S + 1, dtype=torch.int32, device=dev)
+        tokens, kept = [token], []
+        for _ in range(steps):
+            logits, cache = step(params, token, cache, n)
+            kept.append(logits.clone())
+            token = logits.argmax(-1, keepdim=True)
+            tokens.append(token)
+            n += 1
+        torch.cuda.synchronize()
+        return torch.cat(tokens, dim=1), kept
+
+    counters = ("launches", "launches_tc", "launches_ffma", "launches_lse")
+    want_tokens, want = serve(eager)
+    before = {c: getattr(decode_attention, c) for c in counters}
+    got_tokens, got = serve(graphed)
+    grew = {c: getattr(decode_attention, c) - before[c] for c in counters}
+    L = cfg.num_layers
+    assert grew == {"launches": L * steps, "launches_tc": L * steps,
+                    "launches_ffma": 0, "launches_lse": 0}
+    assert (graphed.captures, graphed.replays, graphed.eager_steps) == \
+        (1, steps - 1, 1)
+    gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert torch.equal(got_tokens, want_tokens), gap
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"largest logit gap {gap}"
