@@ -1,17 +1,34 @@
 """A dense GQA decoder (RMSNorm, RoPE, gated SiLU MLP): its sizes, its
-weights made from the seed, and the same weights in the tree that
-``repro_torch.models.lm`` reads.
+weights made from the seed, the same weights in the tree that
+``repro_torch.models.lm`` reads, and what the harness counts of it.
 
 The weights are made on the device in the served dtype, one call per
 stacked tensor, in a flat dict that the reference reads as it is; the
 port's tree holds the same tensors (no copy).
+
+A family is what the harness (``harness.py``'s docstring) asks of an
+architecture: ``check``, ``dims``, ``port_config``, ``make_weights``,
+``port_params``, and the counts that depend on it: the model FLOPs
+(``prefill_flops``, ``decode_flops``, from the frozen ``costs``), the
+launches its path must show (``launches``) and the kernels whose roofline
+the benchmark reads (``kernel_bounds``).  Another architecture brings a
+module of its own beside this one and leaves this one as it is.
 """
 from __future__ import annotations
 
 import math
 
+from ecobench import costs
 from ecobench.costs import Dims
+from ecobench.harness import KernelBound
 from ecobench.traffic import subseed
+
+# the served ops, whose counters the gate reads, and the kernels of each in
+# the trace (decode's split combine timed with it, not counted as a launch)
+FLASH_OP = "repro_torch.kernels.flash_attention.ops.flash_attention"
+DECODE_OP = "repro_torch.kernels.decode_attention.ops.decode_attention"
+FLASH_KERNELS = ("flash_attention_tc_kernel",)
+DECODE_KERNELS = ("decode_attention_tc_kernel", "decode_tc_combine_kernel")
 
 
 def dims(c: dict) -> Dims:
@@ -19,6 +36,45 @@ def dims(c: dict) -> Dims:
                 heads=c["num_attention_heads"],
                 kv_heads=c["num_key_value_heads"], head_dim=c["head_dim"],
                 d_ff=c["intermediate_size"], vocab=c["vocab_size"])
+
+
+def prefill_flops(c: dict, B: int, S: int) -> int:
+    return costs.prefill_flops(dims(c), B, S)
+
+
+def decode_flops(c: dict, B: int, cache_len: int) -> int:
+    return costs.decode_flops(dims(c), B, cache_len)
+
+
+def launches(c: dict, batches, on_card: bool) -> dict:
+    """On the card one tensor-core flash_attention a layer a prefill and
+    one tensor-core decode_attention a layer a decode step, nothing else;
+    on the CPU (the plain versions) none."""
+    L = c["num_hidden_layers"]
+    flash = L * len(batches) if on_card else 0
+    dec = L * sum(b.steps for b in batches) if on_card else 0
+    return {FLASH_OP: {"launches": flash, "launches_tc": flash,
+                       "launches_ffma": 0, "launches_lse": 0},
+            DECODE_OP: {"launches": dec, "launches_tc": dec,
+                        "launches_ffma": 0, "launches_lse": 0}}
+
+
+def kernel_bounds(c: dict, batches) -> dict:
+    """The two attention kernels over ``batches``: one flash launch a
+    layer a prefill at its shape (``costs.flash_cost``), one decode launch
+    a layer a step over the live cache, S + t + 1 positions at step t
+    (``costs.decode_cost``)."""
+    m = dims(c)
+    steps = sum(b.steps for b in batches)
+    flash = sum(m.layers * costs.bound_s(*costs.flash_cost(
+        b.B, b.S, m.heads, m.kv_heads, m.head_dim)) for b in batches)
+    dec = sum(m.layers * costs.bound_s(*costs.decode_cost(
+        b.B, m.heads, m.kv_heads, m.head_dim, b.S + t + 1))
+        for b in batches for t in range(b.steps))
+    return {"flash_attention": KernelBound(
+                FLASH_KERNELS, FLASH_KERNELS, m.layers * len(batches), flash),
+            "decode_attention": KernelBound(
+                DECODE_KERNELS, DECODE_KERNELS[:1], m.layers * steps, dec)}
 
 
 def check(c: dict) -> None:

@@ -5,7 +5,29 @@ A cell (``BENCHMARK.json`` ``workloads``) names a configuration
 (``configs/<name>.json``, its family's weights in ``families/`` and its
 plain reference in ``reference/``) and a traffic mix
 (``traffic/<mix>.json``); its limits are in ``cells/<cell>.json``.  Each
-metric is read by ``metrics/<metric>.py`` from the run's ``Context``.
+metric is read by ``metrics/<metric>.py`` from the run's ``Context``; an
+entry with a ``workloads`` list is read only in the cells it lists.
+
+The harness knows no architecture.  What depends on one is the family's
+(``families/<family>.py``, named by the configuration's ``family``), which
+provides, beside ``check``, ``dims``, ``port_config``, ``make_weights``
+and ``port_params``:
+
+* ``prefill_flops(c, B, S)`` and ``decode_flops(c, B, cache_len)``: the
+  model FLOPs the MFU readers divide by;
+* ``launches(c, batches, on_card)``: for each op the family's path must
+  launch, its dotted path and its counters with the values ``batches``
+  need (0 on the CPU, where the plain versions run); the run's gate
+  compares them, exactly, after the window;
+* ``kernel_bounds(c, batches)``: for each kernel whose roofline a reader
+  takes, by the key the reader asks for, a ``KernelBound``.
+
+A new configuration comes as new files only: its config, a cell's limits,
+a traffic mix if it needs one, a family and a plain reference where no
+present one computes it, and readers for its own kernels, whose entries
+in ``BENCHMARK.json`` list its cells under ``workloads``.  It edits no
+file that is here: not this one, not ``costs.py``, not a reader or a
+family another cell uses.
 
 The entry the window drives is the port's ``build_prefill_step`` and
 ``build_decode_step`` (``repro_torch/launch/steps.py``).  Per batch: the
@@ -27,6 +49,7 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 from ecobench import check as checklib
 from ecobench.traffic import Mix, PromptSource, load_mix
@@ -34,8 +57,6 @@ from ecobench.traffic import Mix, PromptSource, load_mix
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-FLASH_KERNELS = ("flash_attention_tc_kernel",)
-DECODE_KERNELS = ("decode_attention_tc_kernel", "decode_tc_combine_kernel")
 
 
 @dataclass
@@ -65,6 +86,19 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
                 end_to_end=spec["end_to_end"], per_layer=spec["per_layer"])
 
 
+def family(config: dict):
+    """The family module of ``config`` (``families/<family>.py``)."""
+    return importlib.import_module(f"ecobench.families.{config['family']}")
+
+
+class KernelBound(NamedTuple):
+    """A kernel's launches in a traced batch, as its family counts them."""
+    kernels: tuple  # trace names whose device time is the kernel's
+    counted: tuple  # trace names counted as its launches
+    launches: int  # the launches the batches must show
+    bound_s: float  # their summed least time (``costs.bound_s``)
+
+
 @dataclass
 class Batch:
     S: int
@@ -80,11 +114,13 @@ class Batch:
 @dataclass
 class Context:
     """What the metric readers read."""
-    dims: object  # costs.Dims
+    dims: object  # the family's ``dims``; readers take ``.layers``
     setup_s: float
     window_s: float
     batches: list
     trace: object = None  # trace.Trace of the traced batch
+    family: object = None  # the configuration's family module
+    config: dict = None  # the configuration, as its file states it
 
 
 def forbidden_modules(names=None) -> list[str]:
@@ -107,10 +143,9 @@ class Server:
                                               build_prefill_step)
         from repro_torch.models.config import ShapeSpec
 
-        fam = importlib.import_module(
-            f"ecobench.families.{cell.config['family']}")
+        self.family, self.config = family(cell.config), cell.config
         self.torch, self.params, self.device = torch, params, device
-        self.cfg = fam.port_config(cell.config)
+        self.cfg = self.family.port_config(cell.config)
         shape = ShapeSpec(cell.name, cell.mix.capacity, cell.mix.batch,
                           "prefill")
         self.prefill = build_prefill_step(self.cfg, shape)
@@ -161,47 +196,65 @@ def allocator_counts(torch, device) -> dict:
     return {k: stats.get(k, 0) for k in keys}
 
 
-def launch_counters():
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-
-    return {"flash_attention": flash_attention,
-            "decode_attention": decode_attention}
+def served_op(path: str):
+    """The op at a dotted path, ``package.module.name``."""
+    module, name = path.rsplit(".", 1)
+    return getattr(importlib.import_module(module), name)
 
 
-def zero_counters() -> None:
-    for op in launch_counters().values():
-        for name in [n for n in vars(op) if n.startswith("launches")]:
+def zero_counters(cell: Cell) -> None:
+    """Zero the counters that the cell's family checks."""
+    c = cell.config
+    for path, counters in family(c).launches(c, [], False).items():
+        op = served_op(path)
+        for name in counters:
             setattr(op, name, 0)
 
 
 def launch_gate(cell: Cell, batches, device) -> list[str]:
-    """The window's kernel launches against what its batches must launch:
-    on the card one tensor-core flash_attention a layer a prefill and one
-    tensor-core decode_attention a layer a decode step, nothing else; on
-    the CPU (the plain versions) none.  Returns the mismatches."""
-    L = cell.config["num_hidden_layers"]
-    on_card = device.type == "cuda"
-    flash = L * len(batches) if on_card else 0
-    dec = L * sum(b.steps for b in batches) if on_card else 0
-    want = {"flash_attention": {"launches": flash, "launches_tc": flash,
-                                "launches_ffma": 0, "launches_lse": 0},
-            "decode_attention": {"launches": dec, "launches_tc": dec,
-                                 "launches_ffma": 0, "launches_lse": 0}}
+    """The window's kernel launches against what its batches must launch,
+    as the cell's family counts them (``launches``): each counter it names
+    exactly.  Returns the mismatches."""
+    c = cell.config
+    want = family(c).launches(c, batches, device.type == "cuda")
     bad = []
-    for name, op in launch_counters().items():
-        got = {k: getattr(op, k) for k in want[name]}
-        log(f"launches {name}: {got} want {want[name]}")
-        if got != want[name]:
-            bad.append(f"{name} launched {got}, want {want[name]}")
+    for path, counters in want.items():
+        op, name = served_op(path), path.rsplit(".", 1)[1]
+        got = {k: getattr(op, k, None) for k in counters}
+        log(f"launches {name}: {got} want {counters}")
+        if got != counters:
+            bad.append(f"{name} launched {got}, want {counters}")
     return bad
 
 
-def read_metrics(entries, ctx: Context) -> dict:
-    """Each entry's reader (``metrics/<name>.py``); a reader that finds
-    nothing to read returns None and its metric is left out."""
+def roofline(ctx: Context, key: str):
+    """The share of its roofline (%) of the family's kernel ``key`` over
+    the traced batch: the summed least time of its launches over its summed
+    device time.  None without a trace, when the family lists no such
+    kernel, or when the trace holds none of it or not the launches the
+    family counts."""
+    tr = ctx.trace
+    if tr is None:
+        return None
+    kb = ctx.family.kernel_bounds(ctx.config, tr.batches).get(key)
+    if kb is None:
+        return None
+    seconds, _ = tr.kernel_time(kb.kernels)
+    _, launches = tr.kernel_time(kb.counted)
+    if not seconds or launches != kb.launches:
+        return None
+    return 100.0 * kb.bound_s / seconds
+
+
+def read_metrics(entries, ctx: Context, workload: str) -> dict:
+    """Each entry's reader (``metrics/<name>.py``), in the cell
+    ``workload``: an entry with a ``workloads`` list only where it lists
+    the cell.  A reader that finds nothing to read returns None and its
+    metric is left out."""
     out = {}
     for m in entries:
+        if workload not in m.get("workloads", [workload]):
+            continue
         reader = importlib.import_module(f"ecobench.metrics.{m['name']}")
         value = reader.read(ctx)
         if value is not None:
@@ -215,7 +268,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     is a ``torch.device``; the card's presence is the caller's to check."""
     import torch
 
-    fam = importlib.import_module(f"ecobench.families.{cell.config['family']}")
+    fam = family(cell.config)
     ref = importlib.import_module(
         f"ecobench.reference.{cell.config['reference']}")
     mix, c = cell.mix, cell.config
@@ -240,7 +293,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         f"weights {t_w - t_lib:.3f} s, warm-up "
         f"{time.perf_counter() - t_w:.3f} s")
     prompts = PromptSource(torch, seed, c["vocab_size"], device)
-    zero_counters()
+    zero_counters(cell)
     gc.collect()
     alloc0 = allocator_counts(torch, device)
 
@@ -269,8 +322,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         raise RuntimeError("the window did not run the port's kernels as "
                            "its batches need: " + "; ".join(bad))
 
-    ctx = Context(dims=fam.dims(c), setup_s=setup_s,
-                  window_s=window_s, batches=batches)
+    ctx = Context(dims=fam.dims(c), setup_s=setup_s, window_s=window_s,
+                  batches=batches, family=fam, config=c)
     result = {"correct": None, "attempted": sum(b.B for b in batches),
               "failed": 0}
     device_info = {
@@ -288,7 +341,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
                                  ctx.trace.idle_by_phase.items()),
                                 key=lambda kv: -kv[1])[:10]}
     result["metrics"] = read_metrics(
-        cell.per_layer if trace else cell.end_to_end, ctx)
+        cell.per_layer if trace else cell.end_to_end, ctx, cell.name)
     result["device"] = device_info
 
     # the comparison, with the program's state freed
@@ -335,9 +388,11 @@ def traced_batch(torch, server: Server, mix: Mix, prompts: PromptSource):
     t1 = time.perf_counter()
     out = tracelib.reduce(tracelib.device_ops(prof) if acts else [], phases,
                           traced)
-    flash = out.kernel_time(FLASH_KERNELS)[1]
-    dec = out.kernel_time(DECODE_KERNELS[:1])[1]
+    launched = ", ".join(
+        f"{key} {out.kernel_time(kb.counted)[1]} (want {kb.launches})"
+        for key, kb in server.family.kernel_bounds(server.config,
+                                                   traced).items())
     log(f"trace: {len(out.ops)} device activities in {out.window_s:.3f} s, "
-        f"reduced in {time.perf_counter() - t1:.1f} s; flash launches "
-        f"{flash}, decode launches {dec}")
+        f"reduced in {time.perf_counter() - t1:.1f} s; launches: "
+        f"{launched or 'no kernel listed'}")
     return out

@@ -432,7 +432,7 @@ def main(argv=None) -> int:
     server.sync()
     prompts = PromptSource(torch, args.seed, c["vocab_size"], dev)
     traced = harness.traced_batch(torch, server, mix, prompts)
-    harness.zero_counters()
+    harness.zero_counters(cell)
     sp = spanned_batch(torch, server, mix, prompts, request_id=1)
     bad = harness.launch_gate(cell, [sp.batch], dev)
     if bad:

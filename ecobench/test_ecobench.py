@@ -4,6 +4,7 @@ port's plain (CPU) kernels, sound and with the timed path broken."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import sys
@@ -258,20 +259,24 @@ def test_the_control_fails_where_the_served_bf16_passes():
         assert correct is False, checks
 
 
+MS = 1_000_000
+# A marker, then two overlapping kernels, a gap in the decode phase and a
+# gap between batches (ns on the trace's clock)
+HAND_MADE_OPS = [("fill marker", 0, 1 * MS),
+                 ("flash_attention_tc_kernel<128>", 1 * MS, 5 * MS),
+                 ("gemm", 4 * MS, 6 * MS),
+                 ("decode_attention_tc_kernel<16>", 9 * MS, 10 * MS),
+                 ("decode_tc_combine_kernel", 10 * MS, 11 * MS),
+                 ("fill marker", 13 * MS, 14 * MS)]
+
+
 def test_trace_reduction_on_a_hand_made_trace():
-    """A marker, then two overlapping kernels, a gap in the decode phase and
-    a gap between batches (ns on the trace's clock, s on the host's)."""
+    """The hand-made trace (``HAND_MADE_OPS``), with its host phases in s
+    on the host's clock."""
     from ecobench import trace as tracelib
 
-    ms = 1_000_000
-    ops = [("fill marker", 0, 1 * ms),
-           ("flash_attention_tc_kernel<128>", 1 * ms, 5 * ms),
-           ("gemm", 4 * ms, 6 * ms),
-           ("decode_attention_tc_kernel<16>", 9 * ms, 10 * ms),
-           ("decode_tc_combine_kernel", 10 * ms, 11 * ms),
-           ("fill marker", 13 * ms, 14 * ms)]
     phases = [("prefill", 0.0, 0.006), ("decode", 0.006, 0.011)]
-    tr = tracelib.reduce(ops, phases, batches=[])
+    tr = tracelib.reduce(HAND_MADE_OPS, phases, batches=[])
     assert tr.window_s == 0.012
     assert abs(tr.busy_s - 0.007) < 1e-12  # 1-6 and 9-11 ms
     assert tr.idle_by_phase == {"decode": 0.003, "between batches": 0.002}
@@ -279,3 +284,237 @@ def test_trace_reduction_on_a_hand_made_trace():
     assert tr.kernel_time(("decode_attention_tc_kernel",
                            "decode_tc_combine_kernel")) == (0.002, 2)
     assert tr.top_ops(1) == [["flash_attention_tc_kernel<128>", 0.004]]
+
+
+# --- the family's counts ----------------------------------------------
+
+CONFIGS = {**{p.stem: json.loads(p.read_text()) for p in
+              sorted((ROOT / "ecobench" / "configs").glob("*.json"))},
+           "tiny": TINY}
+# a window of synthetic batches: every prompt length, ragged answers, times
+# that are no round numbers
+WINDOW = [harness.Batch(S=S, B=B, steps=steps, t_send=t, t_first=t + dt,
+                        t_done=t + dt + 0.0073 * steps)
+          for t, (S, B, steps, dt) in zip(
+              (0.0, 0.61, 1.93, 2.017, 3.3), [
+                  (202, 64, 149, 0.1183), (994, 64, 149, 0.5371),
+                  (292, 32, 7, 0.1571), (670, 8, 0, 0.0942),
+                  (13, 1, 1, 0.0029)])]
+
+
+def hand_made_trace(flash: int, decode: int, batches):
+    """The hand-made trace's kernels repeated: ``flash`` prefill launches,
+    ``decode`` decode launches each with its combine, between the two
+    markers, 12 ms apart."""
+    from ecobench import trace as tracelib
+
+    marker, kernels, end = HAND_MADE_OPS[0], HAND_MADE_OPS[1:-1], \
+        HAND_MADE_OPS[-1]
+    ops, t = [marker], 0
+    for n, pick in ((flash, kernels[:2]), (decode, kernels[2:])):
+        for _ in range(n):
+            ops += [(name, s + t, e + t) for name, s, e in pick]
+            t += 12 * MS
+    ops.append((end[0], end[1] + t, end[2] + t))
+    return tracelib.reduce(ops, [], batches)
+
+
+def dense_context(c, batches=WINDOW, trace=None):
+    return harness.Context(dims=dense.dims(c), setup_s=1.0, window_s=7.31,
+                           batches=batches, trace=trace, family=dense,
+                           config=c)
+
+
+def old_rooflines(m, tr):
+    """The two roofline readers as they stood before the families counted
+    their kernels, inline."""
+    flash_names = ("flash_attention_tc_kernel",)
+    decode_names = ("decode_attention_tc_kernel", "decode_tc_combine_kernel")
+    seconds, launches = tr.kernel_time(flash_names)
+    flash = None
+    if seconds and launches == m.layers * len(tr.batches):
+        bound = sum(m.layers * costs.bound_s(*costs.flash_cost(
+            b.B, b.S, m.heads, m.kv_heads, m.head_dim)) for b in tr.batches)
+        flash = 100.0 * bound / seconds
+    seconds, _ = tr.kernel_time(decode_names)
+    _, launches = tr.kernel_time(decode_names[:1])
+    dec = None
+    if seconds and launches == m.layers * sum(b.steps for b in tr.batches):
+        bound = sum(m.layers * costs.bound_s(*costs.decode_cost(
+            b.B, m.heads, m.kv_heads, m.head_dim, b.S + t + 1))
+            for b in tr.batches for t in range(b.steps))
+        dec = 100.0 * bound / seconds
+    return flash, dec
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_the_dense_family_reads_the_frozen_formulas_bit_for_bit(name):
+    from ecobench.metrics import (decode_attention_roofline,
+                                  flash_attention_roofline, prefill_mfu,
+                                  window_mfu)
+
+    c = CONFIGS[name]
+    m = costs.Dims(layers=c["num_hidden_layers"], d_model=c["hidden_size"],
+                   heads=c["num_attention_heads"],
+                   kv_heads=c["num_key_value_heads"],
+                   head_dim=c["head_dim"], d_ff=c["intermediate_size"],
+                   vocab=c["vocab_size"])
+    ctx = dense_context(c)
+    peak = costs.PEAK_BF16_FLOPS
+    flops = sum(costs.prefill_flops(m, b.B, b.S) for b in WINDOW)
+    wall = sum(b.t_first - b.t_send for b in WINDOW)
+    assert prefill_mfu.read(ctx) == 100.0 * flops / (wall * peak)
+    flops = 0
+    for b in WINDOW:
+        flops += costs.prefill_flops(m, b.B, b.S)
+        flops += sum(costs.decode_flops(m, b.B, b.S + t + 1)
+                     for t in range(b.steps))
+    assert window_mfu.read(ctx) == 100.0 * flops / (7.31 * peak)
+
+    traced = [WINDOW[1]]  # a batch of the longest prompts
+    L, steps = m.layers, traced[0].steps
+    for flash, decode in ((L, L * steps), (L + 1, L * steps - 1), (1, 1)):
+        ctx.trace = hand_made_trace(flash, decode, traced)
+        old = old_rooflines(m, ctx.trace)
+        assert (flash_attention_roofline.read(ctx),
+                decode_attention_roofline.read(ctx)) == old
+        if (flash, decode) == (L, L * steps):
+            assert None not in old
+    ctx.trace = None
+    assert flash_attention_roofline.read(ctx) is None
+    assert decode_attention_roofline.read(ctx) is None
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_the_dense_family_wants_the_launches_the_gate_wanted(name, on_card):
+    c = CONFIGS[name]
+    L = c["num_hidden_layers"]
+    flash = L * len(WINDOW) if on_card else 0
+    dec = L * sum(b.steps for b in WINDOW) if on_card else 0
+    want = {"flash_attention": {"launches": flash, "launches_tc": flash,
+                                "launches_ffma": 0, "launches_lse": 0},
+            "decode_attention": {"launches": dec, "launches_tc": dec,
+                                 "launches_ffma": 0, "launches_lse": 0}}
+    got = dense.launches(c, WINDOW, on_card)
+    assert {p.rsplit(".", 1)[1]: v for p, v in got.items()} == want
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    assert [harness.served_op(p) for p in got] == [flash_attention,
+                                                   decode_attention]
+
+
+def test_the_harness_names_no_kernel_op_or_shape():
+    text = (ROOT / "ecobench" / "harness.py").read_text()
+    names = (dense.FLASH_KERNELS + dense.DECODE_KERNELS
+             + (dense.FLASH_OP, dense.DECODE_OP, "flash_attention",
+                "decode_attention", "num_hidden_layers", "head_dim"))
+    assert [n for n in names if n in text] == []
+
+
+# --- a second family, defined here alone ------------------------------
+
+PROBE = "probe_kernel"
+
+
+@pytest.fixture
+def doubled(monkeypatch):
+    """A family on top of ``dense`` whose FLOPs are doubled, with a kernel
+    entry of its own and a counter, ``launches_probe`` of an op defined
+    here, that the dense family does not list: one count a call of the
+    port's head, so one a prefill and one a decode step."""
+    import types
+
+    from repro_torch.models import lm
+
+    ops = types.ModuleType("ecobench_probe_ops")
+
+    def probe():
+        pass
+
+    probe.launches_probe = 0
+    ops.probe = probe
+    plain = lm.logits_of
+
+    def counted(*a):
+        probe.launches_probe += 1
+        return plain(*a)
+
+    fam = types.ModuleType("ecobench.families.doubled")
+    fam.__dict__.update({k: v for k, v in vars(dense).items()
+                         if not k.startswith("__")})
+    fam.extra = 0  # added to the probe's wanted count
+
+    def launches(c, batches, on_card):
+        n = sum(1 + b.steps for b in batches)
+        return {**dense.launches(c, batches, on_card),
+                "ecobench_probe_ops.probe": {"launches_probe": n + fam.extra}}
+
+    def kernel_bounds(c, batches):
+        n = sum(b.B for b in batches)
+        return {PROBE: harness.KernelBound(("probe_kernel_a",
+                                            "probe_kernel_b"),
+                                           ("probe_kernel_a",), n, 1e-3 * n)}
+
+    fam.prefill_flops = lambda c, B, S: 2 * dense.prefill_flops(c, B, S)
+    fam.decode_flops = lambda c, B, n: 2 * dense.decode_flops(c, B, n)
+    fam.launches, fam.kernel_bounds = launches, kernel_bounds
+    monkeypatch.setitem(sys.modules, "ecobench_probe_ops", ops)
+    monkeypatch.setitem(sys.modules, "ecobench.families.doubled", fam)
+    monkeypatch.setattr(lm, "logits_of", counted)
+    return fam
+
+
+def test_a_family_of_its_own_sets_the_flops_the_gate_and_the_kernels(
+        doubled, monkeypatch):
+    from ecobench.metrics import (decode_attention_roofline,
+                                  flash_attention_roofline, prefill_mfu,
+                                  window_mfu)
+
+    seen = []
+    plain = harness.read_metrics
+    monkeypatch.setattr(harness, "read_metrics",
+                        lambda e, ctx, w: seen.append(ctx) or plain(e, ctx,
+                                                                    w))
+    out = tiny_run(tiny_cell(1e-3, family="doubled"), trace=True)
+    assert out["correct"] is True
+    ctx = seen[0]
+    assert ctx.family is doubled and ctx.config["family"] == "doubled"
+    as_dense = dataclasses.replace(ctx, family=dense)
+    assert out["metrics"]["prefill_mfu"]["value"] == \
+        2 * prefill_mfu.read(as_dense)
+    assert window_mfu.read(ctx) == 2 * window_mfu.read(as_dense)
+    # its own kernel, read from a trace; the dense keys it does not list
+    tr = hand_made_trace(0, 0, ctx.batches[:2])
+    tr.ops = [("probe_kernel_a<1>", 0, 3 * MS), ("probe_kernel_b", 3 * MS,
+                                                 4 * MS)] * 4
+    ctx.trace = tr
+    n = sum(b.B for b in ctx.batches[:2])
+    assert n == 4
+    assert harness.roofline(ctx, PROBE) == 100.0 * 1e-3 * n / 0.016
+    assert harness.roofline(as_dense, PROBE) is None
+    assert flash_attention_roofline.read(ctx) is None
+    assert decode_attention_roofline.read(ctx) is None
+    tr.ops = tr.ops[:-2]  # a launch short
+    assert harness.roofline(ctx, PROBE) is None
+
+
+def test_the_gate_checks_the_counter_a_family_names(doubled):
+    doubled.extra = 1
+    with pytest.raises(RuntimeError, match=r"probe launched "
+                       r"\{'launches_probe': \d+\}"):
+        tiny_run(tiny_cell(1e-3, family="doubled"))
+    doubled.extra = 0
+    assert tiny_run(tiny_cell(1e-3, family="doubled"))["correct"] is True
+
+
+@pytest.mark.parametrize("listed", [["other.cell"], ["other.cell",
+                                                     "tiny.cell"]])
+def test_a_metric_is_read_only_in_the_cells_it_lists(listed):
+    cell = tiny_cell(1e-3)
+    cell.end_to_end = [{**m, "workloads": listed} if m["name"] ==
+                       "ttft_ms_p95" else m for m in cell.end_to_end]
+    out = tiny_run(cell)
+    assert ("ttft_ms_p95" in out["metrics"]) == ("tiny.cell" in listed)
+    assert {"requests_per_s", "setup_s"} <= set(out["metrics"])
